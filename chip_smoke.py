@@ -5,20 +5,29 @@
 
 Phases; any failure ends the run with a non-zero exit code and no result:
 
-  1. the card's name and power limit; every CUDA kernel of the ground-state
-     path built from ``fermiflow_tpu_torch/csrc`` (one nvcc per source, in
-     parallel), with the build seconds and ptxas' register/spill report;
-  2. each kernel against its plain PyTorch version on the card, at the main
-     path's shapes (N=6, batch 8192, d_eta=d_mu=50, dopri5 with 4 steps,
-     10 sampler segments of 30 steps) on equilibrated walkers and Gaussian
-     flow parameters; the sampler also on one shared random stream and by
-     its distribution (acceptance at tau=0.1, logp against log_prob);
-  3. the identity-flow oracle at N=6, Z=0 through the kernels: Eloc = 14;
-  4. the main path, ``fermiflow_tpu_torch.cli.ground_state.main`` for 20
-     iterations (--nup 6 --Z 0.5 --batch 8192 --dtype float32 --persistent
-     --steps-per-call 10), with every kernel's launch count set to 0 just
-     before and read just after;
-  5. one fused update against the plain-PyTorch update on the card.
+  1. the card's name and power limit; every CUDA kernel built from
+     ``fermiflow_tpu_torch/csrc`` (one nvcc per source, in parallel), with
+     the build seconds and ptxas' register/spill report per kernel;
+  2. each kernel against its plain PyTorch version on the card, at the
+     paths' shapes (N=6, batch 8192, d_eta=d_mu=50, dopri5 with 4 steps,
+     30 Metropolis steps per iteration, 10 sampler segments) on equilibrated
+     walkers and Gaussian flow parameters; the samplers also on one shared
+     random stream and by their distribution (acceptance at tau=0.1, logp
+     against log_prob).  The finite-T kernels (mixed-state sampler and
+     VGH) run on states drawn from the Boltzmann probabilities at beta=2,
+     deltaE=2 (54 states);
+  3. the oracles through the kernels: the identity flow at N=6, Z=0 gives
+     Eloc = 14; at finite T (beta=2, deltaE=2, Boltzmann logits) every
+     walker's Floc is the exact free energy 13.391808;
+  4. the paths, each with every kernel's launch count set to 0 just before
+     and read just after: the ground-state main path
+     (``cli.ground_state.main``, 20 iterations, --nup 6 --Z 0.5 --batch 8192
+     --dtype float32 --persistent --steps-per-call 10); the finite-T path
+     (``cli.finite_t.main``, 20 iterations, --beta 2.0 --deltaE 2.0
+     --boltzmann, otherwise alike); the ground-state per-iteration path
+     (--steps-per-call 1, 3 iterations);
+  5. one ground-state and one finite-T update against the plain-PyTorch
+     updates on the card.
 
 The last lines of standard output are the kernels JSON line, the card line
 and ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
@@ -29,6 +38,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -38,7 +48,13 @@ N, BATCH, D_ETA, D_MU = 6, 8192, 50, 50
 ODE_STEPS, SEGMENTS, MCMC_STEPS = 4, 10, 30
 PARAM_STD = 0.1  # Gaussian flow weights: a field well away from the identity
 MAIN_ITERS = 20
+SINGLE_ITERS = 3  # the ground-state per-iteration path
 ACCEPT_TAU01 = 0.72  # the JAX sampler's acceptance at tau=0.1, N=6
+# The JAX mixed-state sampler's acceptance at tau=0.1, N=6, on uniformly
+# drawn deltaE=2 states (BENCH_r05.json "mixed_state_accept").
+ACCEPT_MS_TAU01 = 0.732
+BETA, DELTA_E = 2.0, 2.0
+F_EXACT_N6 = 13.391808  # E0 - log sum_s exp(-beta (E_s - E0)) / beta, E0 = 14
 
 REPLACES = {
     "metropolis_chains": "fermiflow_tpu/ops/pallas_metropolis.py:461",
@@ -48,6 +64,9 @@ REPLACES = {
     # The TPU kernel summed the theta rows across walker blocks in one
     # revisited output block (sequential grid); here a second kernel does.
     "reinforce_reduce": "fermiflow_tpu/ops/pallas_reinforce.py:319",
+    "metropolis_single": "fermiflow_tpu/ops/pallas_metropolis.py:298",
+    "slater_vgh_ms": "fermiflow_tpu/ops/pallas_slater_vgh.py:470",
+    "metropolis_multistate": "fermiflow_tpu/ops/pallas_metropolis.py:640",
 }
 SOURCES = {
     "metropolis_chains": "fermiflow_tpu_torch/csrc/metropolis.cu",
@@ -55,6 +74,16 @@ SOURCES = {
     "hessian_flow": "fermiflow_tpu_torch/csrc/hessian_flow.cu",
     "reinforce_adjoint": "fermiflow_tpu_torch/csrc/reinforce.cu",
     "reinforce_reduce": "fermiflow_tpu_torch/csrc/reinforce.cu",
+    "metropolis_single": "fermiflow_tpu_torch/csrc/metropolis.cu",
+    "slater_vgh_ms": "fermiflow_tpu_torch/csrc/slater_vgh_ms.cu",
+    "metropolis_multistate": "fermiflow_tpu_torch/csrc/metropolis_ms.cu",
+}
+# The path whose launch counts each kernel's row reports.
+PATH_OF = {
+    "metropolis_chains": "gs", "slater_vgh": "gs", "hessian_flow": "gs",
+    "reinforce_adjoint": "gs", "reinforce_reduce": "gs",
+    "metropolis_single": "gs_single", "slater_vgh_ms": "beta",
+    "metropolis_multistate": "beta",
 }
 
 
@@ -88,6 +117,79 @@ def maxabs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def allclose64(a, b, rtol: float, atol: float) -> bool:
+    import torch
+
+    return bool(torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol))
+
+
+def logp_violations(lp, lp_ref) -> float:
+    """Fraction of walkers whose logp is off the f64 reference by more than
+    1e-3 relative."""
+    err = (lp.double() - lp_ref).abs()
+    return float((err > 1e-3 * lp_ref.abs().clamp_min(1.0)).double().mean())
+
+
+VGH_TOLERANCE = ("vs f64 plain: y 2e-4, g 3e-3, H 5e-3 (rtol=atol), <=0.1% of "
+                 "entries outside")
+SINGLE_CHAIN_TOLERANCE = ("x exact; rate 1e-6; logp 1e-3; <=0.1% walkers "
+                          "diverged by accept flips")
+
+
+def vgh_against_plain(what, out_k, out_p, out_r):
+    """A Slater VGH kernel's (y, g, H) against its plain version in f32
+    (out_p) and f64 (out_r): returns (max error vs f64, max error vs f32)."""
+    import torch
+
+    viol = {}
+    for name, k, r, tol in zip(("y", "g", "H"), out_k, out_r,
+                               (2e-4, 3e-3, 5e-3)):
+        bad = ~torch.isclose(k.double(), r, rtol=tol, atol=tol)
+        viol[name] = float(bad.double().mean())
+    err_p = max(maxabs(k, p) for k, p in zip(out_k, out_p))
+    err_r = max(maxabs(k, r) for k, r in zip(out_k, out_r))
+    print(f"{what}: max|kernel - plain f32| {err_p:.3e}, "
+          f"max|kernel - plain f64| {err_r:.3e}, violations {viol}")
+    check(max(viol.values()) <= 1e-3, f"{what}: y/g/H within 2e-4/3e-3/5e-3 "
+          "of the f64 plain version on >= 99.9% of entries")
+    return err_r, err_p
+
+
+def flow_grads_close(g_k, g_p):
+    """(max |difference|, all within rtol 1e-4, atol 1e-6) over the flow
+    gradient leaves."""
+    worst, ok = 0.0, True
+    for m in ("eta", "mu"):
+        for k in ("w2", "w1", "b1"):
+            worst = max(worst, maxabs(g_k[m][k], g_p[m][k]))
+            ok &= allclose64(g_k[m][k], g_p[m][k], 1e-4, 1e-6)
+    return worst, ok
+
+
+def ptxas_kernels(report: str):
+    """[(kernel<template args>, registers, stack bytes, spill stores, spill
+    loads)] from an ``nvcc -Xptxas -v`` report."""
+    out, name, frame = [], None, (0, 0, 0)
+    for line in report.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            k = re.search(r"\d+([a-z_]+_kernel)I((?:Li\d+E)+)E", m.group(1))
+            name = (f"{k.group(1)}<{','.join(re.findall(r'Li(\d+)E', k.group(2)))}>"
+                    if k else m.group(1))
+            frame = (0, 0, 0)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1))) + frame)
+            name = None
+    return out
+
+
 def phase_build():
     from fermiflow_tpu_torch.ops import _build
 
@@ -100,9 +202,9 @@ def phase_build():
         _build.library(name)
         report = _build.BUILD_DIR / f"{name}.ptxas.txt"
         if report.exists():
-            for line in report.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {name}: {line.strip()}")
+            for kern, regs, stack, st, ld in ptxas_kernels(report.read_text()):
+                print(f"ptxas {name}: {kern}: {regs} registers, stack {stack} "
+                      f"B, spill stores {st} B, spill loads {ld} B")
 
 
 def make_model(Z: float, device):
@@ -207,10 +309,9 @@ def phase_kernels(device, rows):
     acc = float(rate_f.mean())
     x_w = xs_f[-1].T.reshape(BATCH, N, 2).double()
     lp_ref = model.basedist.log_prob(model.occ_up, model.occ_down, x_w)
-    lp_err = (lp_f[-1].double() - lp_ref).abs()
-    lp_bad = float((lp_err > 1e-3 * lp_ref.abs().clamp_min(1.0)).double().mean())
+    lp_bad = logp_violations(lp_f[-1], lp_ref)
     print(f"metropolis distribution: accept {acc:.4f} at tau=0.1; logp vs "
-          f"log_prob max|d| {float(lp_err.max()):.3e}, "
+          f"log_prob max|d| {maxabs(lp_f[-1], lp_ref):.3e}, "
           f"violations {lp_bad:.2e}")
     check(abs(acc - ACCEPT_TAU01) < 0.03, f"sampler: acceptance "
           f"{ACCEPT_TAU01} +- 0.03 at tau=0.1 (the JAX sampler's figure)")
@@ -228,28 +329,16 @@ def phase_kernels(device, rows):
         diverged_frac=frac_flip)
 
     # ---- 2. Slater value / gradient / packed Hessian ----
-    y_k, g_k, H_k = slater_vgh_cm(z_eq, **occ)
-    y_p, g_p, H_p = slater_vgh_cm_plain(z_eq, **occ)
-    y_r, g_r, H_r = slater_vgh_cm_plain(z_eq.double(), **occ)
+    y_k, g_k, H_k = out_vgh = slater_vgh_cm(z_eq, **occ)
+    out_p = slater_vgh_cm_plain(z_eq, **occ)
+    out_r = slater_vgh_cm_plain(z_eq.double(), **occ)
     torch.cuda.synchronize()
-    viol = {}
-    for name, k, r, tol in (("y", y_k, y_r, 2e-4), ("g", g_k, g_r, 3e-3),
-                            ("H", H_k, H_r, 5e-3)):
-        bad = ~torch.isclose(k.double(), r, rtol=tol, atol=tol)
-        viol[name] = float(bad.double().mean())
-    err_vgh = max(maxabs(y_k, y_p), maxabs(g_k, g_p), maxabs(H_k, H_p))
-    err_vgh64 = max(maxabs(y_k, y_r), maxabs(g_k, g_r), maxabs(H_k, H_r))
-    print(f"slater_vgh: max|kernel - plain f32| {err_vgh:.3e}, "
-          f"max|kernel - plain f64| {err_vgh64:.3e}, violations {viol}")
-    check(max(viol.values()) <= 1e-3, "slater_vgh: y/g/H within 2e-4/3e-3/"
-          "5e-3 of the f64 plain version on >= 99.9% of entries")
+    err_vgh64, err_vgh = vgh_against_plain("slater_vgh", out_vgh, out_p, out_r)
     rows["slater_vgh"] = dict(
         max_abs_err=err_vgh64, max_abs_err_vs_plain_f32=err_vgh,
         ms=cuda_ms(lambda: slater_vgh_cm(z_eq, **occ), 20),
         plain_ms=cuda_ms(lambda: slater_vgh_cm_plain(z_eq, **occ), 3),
-        work=roofline.vgh_work(BATCH, N, ks),
-        tolerance="vs f64 plain: y 2e-4, g 3e-3, H 5e-3 (rtol=atol), "
-                  "<=0.1% of entries outside")
+        work=roofline.vgh_work(BATCH, N, ks), tolerance=VGH_TOLERANCE)
 
     # ---- 3. Hessian flow ----
     params = gaussian_params(gen, device, torch.float32)
@@ -330,6 +419,185 @@ def phase_kernels(device, rows):
     return z_eq, params
 
 
+def make_beta_model(Z: float, device):
+    """The finite-T model (beta=2, deltaE=2) with identity-flow parameters
+    and Boltzmann logits."""
+    from fermiflow_tpu_torch.cli import common
+    from fermiflow_tpu_torch.config import Config
+
+    cfg = Config(nup=N, ndown=0, Z=Z, beta=BETA, deltaE=DELTA_E,
+                 boltzmann=True, d_eta=D_ETA, d_mu=D_MU, batch=BATCH,
+                 ode_steps=ODE_STEPS, ode_method="dopri5", dtype="float32",
+                 device=str(device))
+    return common.build_beta(cfg)
+
+
+def shared_stream_agreement(k_out, p_out, what):
+    """A single-chain kernel against its plain version on one injected
+    stream: positions identical but for walkers whose accept decision flips
+    on the last bit of exp(); logp and rates close on the rest."""
+    walker_err = (k_out[0] - p_out[0]).abs().amax(dim=0)  # (B,)
+    agree = walker_err <= 1e-4
+    frac_flip = 1.0 - float(agree.double().mean())
+    err_x = float(walker_err[agree].max())
+    err_lp = float((k_out[1] - p_out[1]).abs()[agree].max())
+    err_rate = float((k_out[2] - p_out[2]).abs()[agree].max())
+    print(f"{what} shared stream: diverged walkers {frac_flip:.2e}, max|dx| "
+          f"{err_x:.3e}, max|dlogp| {err_lp:.3e}, max|drate| {err_rate:.3e}")
+    check(frac_flip <= 1e-3, f"{what}: <= 0.1% of walkers diverge on the "
+          "shared stream (accept flips on the last bit of exp)")
+    check(err_x == 0.0 and err_rate <= 1e-6 and err_lp <= 1e-3,
+          f"{what}: identical trajectories, rates within 1e-6, logp within "
+          "1e-3 on agreeing walkers")
+    return frac_flip, max(err_x, err_lp, err_rate)
+
+
+def phase_kernels_ms(device, rows, z_eq):
+    """The per-iteration sampler (kernel 5) and the finite-T kernels
+    (mixed-state sampler 7 and VGH 6) against their plain versions.
+    Returns walkers equilibrated in Boltzmann-drawn states and the states."""
+    import torch
+
+    from fermiflow_tpu_torch.ops.metropolis import (
+        metropolis_multistate_cm,
+        metropolis_multistate_cm_plain,
+        metropolis_single_cm,
+        metropolis_single_cm_plain,
+    )
+    from fermiflow_tpu_torch.ops.slater_vgh import (
+        slater_vgh_ms_cm,
+        slater_vgh_ms_cm_plain,
+    )
+    from fermiflow_tpu_torch.utils import roofline
+
+    d = 2 * N
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    f32 = dict(device=device, dtype=torch.float32)
+    tau01 = torch.full((BATCH,), 0.1, **f32)
+    tau02 = torch.full((BATCH,), 0.2, **f32)
+
+    def shared_noise():
+        return (torch.randn((MCMC_STEPS, d, BATCH), generator=gen, **f32),
+                torch.rand((MCMC_STEPS, BATCH), generator=gen,
+                           **f32).clamp_min(1e-12))
+
+    # ---- 5. single fixed-tau chain (ground state) ----
+    gs_model, _ = make_model(0.5, device)
+    nx_up, ny_up, nx_dn, ny_dn, ks = gs_model.occ_qnums()
+    occ = dict(nx_occ=nx_up, ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn,
+               num_shells=ks)
+    noise = shared_noise()
+    k_out = metropolis_single_cm(z_eq, tau01, 0, steps=MCMC_STEPS,
+                                 noise=noise, **occ)
+    p_out = metropolis_single_cm_plain(z_eq, tau01, 0, steps=MCMC_STEPS,
+                                       noise=noise, **occ)
+    torch.cuda.synchronize()
+    frac, err = shared_stream_agreement(k_out, p_out, "metropolis_single")
+    x1, lp1, acc1 = metropolis_single_cm(z_eq, tau01, 41, steps=MCMC_STEPS,
+                                         **occ)
+    lp_bad = logp_violations(lp1, gs_model.basedist.log_prob(
+        gs_model.occ_up, gs_model.occ_down, x1.T.reshape(BATCH, N, 2).double()))
+    print(f"metropolis_single distribution: accept {float(acc1.mean()):.4f} "
+          f"at tau=0.1; logp vs log_prob violations {lp_bad:.2e}")
+    check(abs(float(acc1.mean()) - ACCEPT_TAU01) < 0.03 and lp_bad <= 1e-3,
+          f"metropolis_single: acceptance {ACCEPT_TAU01} +- 0.03 at tau=0.1; "
+          "logp = log_prob (f64) within 1e-3 relative on >= 99.9% of walkers")
+    rows["metropolis_single"] = dict(
+        max_abs_err=err, diverged_frac=frac,
+        ms=cuda_ms(lambda: metropolis_single_cm(z_eq, tau01, 5,
+                                                steps=MCMC_STEPS, **occ), 20),
+        plain_ms=cuda_ms(lambda: metropolis_single_cm_plain(
+            z_eq, tau01, 5, steps=MCMC_STEPS, **occ), 1),
+        work=roofline.metropolis_single_work(BATCH, N, ks, MCMC_STEPS),
+        tolerance=SINGLE_CHAIN_TOLERANCE)
+
+    # ---- 7. mixed-state sampler, Boltzmann-drawn states ----
+    model, params = make_beta_model(0.0, device)
+    _, _, kms = model._qnum_tables()
+    probs = torch.softmax(params["log_state_weights"], dim=-1)
+    idx = torch.multinomial(probs, BATCH, replacement=True,
+                            generator=gen).to(torch.int32)
+    ms = dict(zip(("nx_cm", "ny_cm"), model.qnums_cm(idx)), num_shells=kms)
+    z = torch.randn((d, BATCH), generator=gen, **f32)
+    for seed in (31, 32):
+        z, _, _ = metropolis_multistate_cm(z, tau02, seed, steps=150, **ms)
+    z_ms = z.contiguous()
+    noise = shared_noise()
+    k_out = metropolis_multistate_cm(z_ms, tau01, 0, steps=MCMC_STEPS,
+                                     noise=noise, **ms)
+    p_out = metropolis_multistate_cm_plain(z_ms, tau01, 0, steps=MCMC_STEPS,
+                                           noise=noise, **ms)
+    torch.cuda.synchronize()
+    frac, err = shared_stream_agreement(k_out, p_out, "metropolis_multistate")
+    # Distribution on the kernel's own stream: uniformly drawn states.
+    idx_u = torch.randint(0, model.Nstates, (BATCH,), generator=gen,
+                          device=device, dtype=torch.int32)
+    ms_u = dict(zip(("nx_cm", "ny_cm"), model.qnums_cm(idx_u)), num_shells=kms)
+    zu = torch.randn((d, BATCH), generator=gen, **f32)
+    zu, _, _ = metropolis_multistate_cm(zu, tau02, 33, steps=300, **ms_u)
+    xu, lpu, accu = metropolis_multistate_cm(zu, tau01, 34, steps=MCMC_STEPS,
+                                             **ms_u)
+    lp_bad = logp_violations(lpu, model.basedist.log_prob_multstates(
+        model.occ_table, idx_u, xu.T.reshape(BATCH, N, 2).double()))
+    acc = float(accu.mean())
+    print(f"metropolis_multistate distribution: accept {acc:.4f} at tau=0.1 "
+          f"on uniformly drawn states; logp vs log_prob_multstates "
+          f"violations {lp_bad:.2e}")
+    check(abs(acc - ACCEPT_MS_TAU01) < 0.03, f"metropolis_multistate: "
+          f"acceptance {ACCEPT_MS_TAU01} +- 0.03 at tau=0.1 (the JAX "
+          "mixed-state sampler's figure)")
+    check(lp_bad <= 1e-3, "metropolis_multistate: logp = log_prob_multstates "
+          "(f64) within 1e-3 relative on >= 99.9% of walkers")
+    rows["metropolis_multistate"] = dict(
+        max_abs_err=err, diverged_frac=frac,
+        ms=cuda_ms(lambda: metropolis_multistate_cm(
+            z_ms, tau01, 5, steps=MCMC_STEPS, **ms), 20),
+        plain_ms=cuda_ms(lambda: metropolis_multistate_cm_plain(
+            z_ms, tau01, 5, steps=MCMC_STEPS, **ms), 1),
+        work=roofline.metropolis_ms_work(BATCH, N, kms, MCMC_STEPS),
+        tolerance=SINGLE_CHAIN_TOLERANCE)
+
+    # ---- 6. mixed-state Slater value / gradient / packed Hessian ----
+    vgh = (ms["nx_cm"], ms["ny_cm"], kms)
+    out_k = slater_vgh_ms_cm(z_ms, *vgh)
+    out_p = slater_vgh_ms_cm_plain(z_ms, *vgh)
+    out_r = slater_vgh_ms_cm_plain(z_ms.double(), *vgh)
+    torch.cuda.synchronize()
+    err_r, err_p = vgh_against_plain("slater_vgh_ms", out_k, out_p, out_r)
+    rows["slater_vgh_ms"] = dict(
+        max_abs_err=err_r, max_abs_err_vs_plain_f32=err_p,
+        ms=cuda_ms(lambda: slater_vgh_ms_cm(z_ms, *vgh), 50),
+        plain_ms=cuda_ms(lambda: slater_vgh_ms_cm_plain(z_ms, *vgh), 3),
+        work=roofline.vgh_ms_work(BATCH, N, kms), tolerance=VGH_TOLERANCE)
+    return z_ms, idx
+
+
+def phase_beta_oracle(device, z_ms, idx):
+    """Z=0, identity flow, Boltzmann logits: every walker's Floc is the
+    exact free energy, through the mixed-state VGH, Hessian flow and
+    REINFORCE kernels on walkers the mixed-state kernel equilibrated."""
+    import numpy as np
+    import torch
+
+    model, params = make_beta_model(0.0, device)
+    Es = model.Es_original
+    f_exact = Es[0] - np.log(np.sum(np.exp(-BETA * (Es - Es[0])))) / BETA
+    _, m, _ = model.loss_metrics_grads_cm(params, idx, z_ms)
+    torch.cuda.synchronize()
+    lps = torch.log_softmax(params["log_state_weights"].double(), -1)[idx.long()]
+    se = float(lps.std()) / math.sqrt(BATCH)
+    F, F_std = float(m["F"]), float(m["F_std"])
+    S, S_an = float(m["S"]), float(m["S_analytical"])
+    print(f"finite-T oracle N={N} Z=0 beta={BETA:g}: {model.Nstates} states, "
+          f"F {F:.6f} (exact {f_exact:.6f}), F_std {F_std:.3e}, S {S:.4f} "
+          f"+- {se:.4f}, S_analytical {S_an:.4f}")
+    check(abs(f_exact - F_EXACT_N6) < 1e-6 and abs(F - f_exact) <= 1e-3
+          and F_std < 1e-3,
+          f"finite-T oracle: F = {F_EXACT_N6} within 1e-3, F_std < 1e-3")
+    check(abs(S - S_an) <= 3.0 * se,
+          "finite-T oracle: S within 3 standard errors of S_analytical")
+
+
 def phase_identity_oracle(device, z_eq):
     import torch
 
@@ -347,30 +615,42 @@ def phase_identity_oracle(device, z_eq):
           f"identity flow: Eloc = {e0:g} within 1e-3 on >= 99.9% of walkers")
 
 
-def phase_main_path(device):
+def drive_path(main, argv):
+    """Run a CLI ``main`` with every launch count set to 0 just before and
+    read just after: (state, per-iteration records, counts, wall seconds)."""
     import tempfile
 
     import torch
 
-    from fermiflow_tpu_torch.cli import ground_state
     from fermiflow_tpu_torch.ops import _build
 
-    argv = ["--nup", str(N), "--Z", "0.5", "--batch", str(BATCH), "--dtype",
-            "float32", "--persistent", "--steps-per-call", str(SEGMENTS),
-            "--iternum", str(MAIN_ITERS), "--lr", "1e-3", "--Deta",
-            str(D_ETA), "--Dmu", str(D_MU), "--ode-steps", str(ODE_STEPS),
-            "--mcmc-steps", str(MCMC_STEPS), "--device", device.type]
     with tempfile.TemporaryDirectory() as tmp:
         metrics = f"{tmp}/metrics.jsonl"
         torch.cuda.synchronize()
         _build.reset_launch_counts()
         t0 = time.perf_counter()
-        state = ground_state.main(argv + ["--metrics", metrics])
+        state = main(argv + ["--metrics", metrics])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(_build.LAUNCHES)
         with open(metrics) as fh:
             recs = [json.loads(line) for line in fh]
+    return state, recs, counts, wall
+
+
+def path_argv(device, iters, steps_per_call):
+    return ["--nup", str(N), "--Z", "0.5", "--batch", str(BATCH), "--dtype",
+            "float32", "--persistent", "--steps-per-call", str(steps_per_call),
+            "--iternum", str(iters), "--lr", "1e-3", "--Deta", str(D_ETA),
+            "--Dmu", str(D_MU), "--ode-steps", str(ODE_STEPS), "--mcmc-steps",
+            str(MCMC_STEPS), "--device", device.type]
+
+
+def phase_main_path(device):
+    from fermiflow_tpu_torch.cli import ground_state
+
+    state, recs, counts, wall = drive_path(
+        ground_state.main, path_argv(device, MAIN_ITERS, SEGMENTS))
     # Each chunk's wall time (one sampler launch + K updates, ended by the
     # metrics fetch) over K; the first chunk also pays the first-call costs.
     chunk_ms = [1e3 * r["iter_seconds"] for r in recs[::SEGMENTS]]
@@ -384,8 +664,63 @@ def phase_main_path(device):
     # near the identity flow's 14 + <V> (~19) this early in training.
     check(all(math.isfinite(e) and 17.0 < e < 21.0 for e in energies),
           "main path: every energy is finite and in (17, 21)")
-    check(all(v > 0 for v in counts.values()),
-          "main path: every kernel was launched")
+    gs_kernels = ("metropolis_chains", "slater_vgh", "hessian_flow",
+                  "reinforce_adjoint", "reinforce_reduce")
+    check(all(counts[k] > 0 for k in gs_kernels),
+          "main path: every kernel of the path was launched")
+    return counts
+
+
+def phase_beta_path(device):
+    """The finite-T training path through the port's CLI."""
+    from fermiflow_tpu_torch.cli import finite_t
+
+    argv = ["--beta", str(BETA), "--nup", str(N), "--Z", "0.5", "--deltaE",
+            str(DELTA_E), "--boltzmann", "--batch", str(BATCH), "--dtype",
+            "float32", "--persistent", "--steps-per-call", str(SEGMENTS),
+            "--iternum", str(MAIN_ITERS), "--lr", "1e-3", "--mcmc-steps",
+            str(MCMC_STEPS), "--device", device.type]
+    state, recs, counts, wall = drive_path(finite_t.main, argv)
+    chunk_ms = [1e3 * r["iter_seconds"] for r in recs[::SEGMENTS]]
+    frees = [r["F"] for r in recs]
+    print(f"finite-T path: {MAIN_ITERS} iterations in {wall:.3f} s wall "
+          f"(setup included); ms per iteration by chunk {chunk_ms} (steady: "
+          f"{chunk_ms[1]:.3f}); F first/last {frees[0]:.5f}/{frees[-1]:.5f}; "
+          f"S {recs[-1]['S']:.4f}, accept {recs[-1]['accept_rate']:.4f}; "
+          f"launches {json.dumps(counts)}")
+    check(state.step == MAIN_ITERS and len(recs) == MAIN_ITERS,
+          "finite-T path: all iterations ran")
+    check(all(math.isfinite(f) and 16.0 < f < 21.0 for f in frees),
+          "finite-T path: every F is finite and in (16, 21)")
+    check(all(counts[k] == MAIN_ITERS for k in (
+        "metropolis_multistate", "slater_vgh_ms", "hessian_flow",
+        "reinforce_adjoint", "reinforce_reduce")),
+        f"finite-T path: {MAIN_ITERS} launches each of the mixed-state "
+        "sampler, mixed-state VGH, Hessian flow and REINFORCE adjoint")
+    check(all(counts[k] == 0 for k in ("metropolis_chains", "slater_vgh",
+                                       "metropolis_single")),
+          "finite-T path: no launch of the ground-state sampler or VGH")
+    return counts
+
+
+def phase_gs_single_path(device):
+    """The ground-state per-iteration path (--steps-per-call 1)."""
+    from fermiflow_tpu_torch.cli import ground_state
+
+    state, recs, counts, wall = drive_path(
+        ground_state.main, path_argv(device, SINGLE_ITERS, 1))
+    energies = [r["E"] for r in recs]
+    print(f"per-iteration path: {SINGLE_ITERS} iterations in {wall:.3f} s "
+          f"wall; ms per iteration {[1e3 * r['iter_seconds'] for r in recs]}; "
+          f"E {energies}; launches {json.dumps(counts)}")
+    check(all(math.isfinite(e) and 17.0 < e < 21.0 for e in energies),
+          "per-iteration path: every energy is finite and in (17, 21)")
+    check(counts["metropolis_single"] == SINGLE_ITERS
+          and counts["metropolis_chains"] == 0
+          and all(counts[k] == SINGLE_ITERS for k in (
+              "slater_vgh", "hessian_flow", "reinforce_adjoint")),
+          f"per-iteration path: {SINGLE_ITERS} launches of the single-chain "
+          "sampler and of each update kernel, none of the multi-segment one")
     return counts
 
 
@@ -402,27 +737,49 @@ def phase_update_vs_plain(device, z_eq, params):
     loss_k, m_k, g_k = model.loss_metrics_grads_cm(params, z_eq)
     loss_p, m_p, g_p = plain.loss_metrics_grads_cm(params, z_eq)
     torch.cuda.synchronize()
-
-    def rel(a, b, rtol, atol):
-        return bool(torch.allclose(a.double(), b.double(), rtol=rtol,
-                                   atol=atol))
-
-    worst = 0.0
-    ok_g = True
-    for m in ("eta", "mu"):
-        for k in ("w2", "w1", "b1"):
-            a, b = g_k[m][k], g_p[m][k]
-            worst = max(worst, maxabs(a, b))
-            ok_g &= rel(a, b, 1e-4, 1e-6)
+    worst, ok_g = flow_grads_close(g_k, g_p)
     print(f"fused update vs plain: E {float(m_k['E']):.7f} / "
           f"{float(m_p['E']):.7f}, E_std {float(m_k['E_std']):.6f} / "
           f"{float(m_p['E_std']):.6f}, loss {float(loss_k):.4e} / "
           f"{float(loss_p):.4e}, grads max|d| {worst:.3e}")
-    check(rel(m_k["E"], m_p["E"], 1e-5, 0.0)
-          and rel(m_k["E_std"], m_p["E_std"], 1e-5, 0.0),
+    check(allclose64(m_k["E"], m_p["E"], 1e-5, 0.0)
+          and allclose64(m_k["E_std"], m_p["E_std"], 1e-5, 0.0),
           "update: E and E_std within rtol 1e-5 of the plain update")
-    check(rel(loss_k, loss_p, 1e-4, 1e-6) and ok_g,
+    check(allclose64(loss_k, loss_p, 1e-4, 1e-6) and ok_g,
           "update: loss and every gradient leaf within rtol 1e-4, atol 1e-6")
+
+
+def phase_beta_update_vs_plain(device, z_ms, idx, flow_params):
+    """The finite-T kernel-chain update against its plain-PyTorch chain."""
+    import copy
+
+    import torch
+
+    from fermiflow_tpu_torch.vmc.gs import PLAIN_OPS
+
+    model, params = make_beta_model(0.5, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 2)
+    params = {"flow": flow_params, "log_state_weights": 0.5 * torch.randn(
+        (model.Nstates,), generator=gen, device=device)}
+    plain = copy.copy(model)
+    plain.ops = PLAIN_OPS
+    loss_k, m_k, g_k = model.loss_metrics_grads_cm(params, idx, z_ms)
+    loss_p, m_p, g_p = plain.loss_metrics_grads_cm(params, idx, z_ms)
+    torch.cuda.synchronize()
+    worst, ok_g = flow_grads_close(g_k["flow"], g_p["flow"])
+    gl_k, gl_p = g_k["log_state_weights"], g_p["log_state_weights"]
+    print(f"finite-T update vs plain: F {float(m_k['F']):.7f} / "
+          f"{float(m_p['F']):.7f}, E {float(m_k['E']):.7f} / "
+          f"{float(m_p['E']):.7f}, S {float(m_k['S']):.6f} / "
+          f"{float(m_p['S']):.6f}, loss {float(loss_k):.4e} / "
+          f"{float(loss_p):.4e}, flow grads max|d| {worst:.3e}, logits grad "
+          f"max|d| {maxabs(gl_k, gl_p):.3e}")
+    check(all(allclose64(m_k[k], m_p[k], 1e-5, 0.0) for k in ("E", "F", "S")),
+          "finite-T update: E, F and S within rtol 1e-5 of the plain update")
+    check(allclose64(loss_k, loss_p, 1e-4, 1e-6) and ok_g
+          and allclose64(gl_k, gl_p, 1e-4, 1e-6),
+          "finite-T update: loss, every flow gradient leaf and the logits "
+          "gradient within rtol 1e-4, atol 1e-6")
 
 
 def main() -> int:
@@ -458,12 +815,17 @@ def main() -> int:
         phase_build()
         print("== phase 2: kernels against their plain versions", flush=True)
         z_eq, params = phase_kernels(device, rows)
-        print("== phase 3: identity-flow oracle", flush=True)
+        z_ms, idx = phase_kernels_ms(device, rows, z_eq)
+        print("== phase 3: oracles", flush=True)
         phase_identity_oracle(device, z_eq)
-        print("== phase 4: main path", flush=True)
-        counts = phase_main_path(device)
-        print("== phase 5: fused update against the plain update", flush=True)
+        phase_beta_oracle(device, z_ms, idx)
+        print("== phase 4: paths", flush=True)
+        counts = {"gs": phase_main_path(device),
+                  "beta": phase_beta_path(device),
+                  "gs_single": phase_gs_single_path(device)}
+        print("== phase 5: updates against the plain updates", flush=True)
         phase_update_vs_plain(device, z_eq, params)
+        phase_beta_update_vs_plain(device, z_ms, idx, params)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -472,12 +834,14 @@ def main() -> int:
 
     kernels = []
     for name in ("metropolis_chains", "slater_vgh", "hessian_flow",
-                 "reinforce_adjoint", "reinforce_reduce"):
+                 "reinforce_adjoint", "reinforce_reduce", "metropolis_single",
+                 "slater_vgh_ms", "metropolis_multistate"):
         r = rows[name]
         b_ms, b_by = roofline.bound_ms(*r.pop("work"))
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=counts[name],
+            replaces=REPLACES[name], launches=counts[PATH_OF[name]][name],
+            launches_path=PATH_OF[name],
             max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
             plain_ms=r.pop("plain_ms"), bound_ms=b_ms, bound_by=b_by,
             library_ms=r.pop("library_ms", None), **r))

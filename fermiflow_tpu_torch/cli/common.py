@@ -1,5 +1,5 @@
-"""Shared CLI plumbing for the ground-state driver (port of the GS parts of
-``fermiflow_tpu/cli/common.py``): flags, config, model builder and the
+"""Shared CLI plumbing for the two drivers (port of
+``fermiflow_tpu/cli/common.py``): flags, config, model builders and the
 chunked training loop.
 
 Flags whose machinery is not ported yet (sharding, checkpoints and restarts,
@@ -14,6 +14,8 @@ from __future__ import annotations
 import argparse
 import math
 import time
+
+import torch
 
 from fermiflow_tpu_torch import resolve_device
 from fermiflow_tpu_torch.config import Config
@@ -30,13 +32,13 @@ from fermiflow_tpu_torch.physics import (
     FreeFermion,
     HOPotential,
 )
-from fermiflow_tpu_torch.vmc import GSVMC
+from fermiflow_tpu_torch.vmc import BetaVMC, GSVMC
 
 __all__ = ["add_flags", "config_from_args", "make_cnf", "build_gs",
-           "run_training_loop"]
+           "build_beta", "run_training_loop"]
 
 
-def add_flags(parser: argparse.ArgumentParser):
+def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
     d = Config()
     # Reference-compatible flags (src/FermionHO2D.py:18-30).
     parser.add_argument("--nup", type=int, default=d.nup)
@@ -49,6 +51,10 @@ def add_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--t1", type=float, default=d.t1)
     parser.add_argument("--iternum", type=int, default=d.iternum)
     parser.add_argument("--batch", type=int, default=d.batch)
+    if finite_t:
+        parser.add_argument("--beta", type=float, default=d.beta)
+        parser.add_argument("--deltaE", type=float, default=d.deltaE)
+        parser.add_argument("--boltzmann", action="store_true")
     # Extensions shared with the JAX driver.
     parser.add_argument("--lr", type=float, default=d.lr)
     parser.add_argument("--ode-steps", type=int, default=d.ode_steps)
@@ -63,8 +69,9 @@ def add_flags(parser: argparse.ArgumentParser):
     parser.add_argument("--persistent", action="store_true",
                         help="persistent walkers + per-walker tau adaptation")
     parser.add_argument("--steps-per-call", type=int, default=d.steps_per_call,
-                        help="iterations per multi-segment sampler launch "
-                             "(metrics stay per-iteration)")
+                        help="iterations per metrics fetch (ground state: "
+                             "per multi-segment sampler launch when > 1); "
+                             "metrics stay per-iteration")
     parser.add_argument("--metrics", type=str, default=None,
                         help="jsonl metrics output path")
     parser.add_argument("--device", type=str, default=d.device,
@@ -99,9 +106,9 @@ def _refuse_unported(args):
             "(see ROADMAP.md); use the JAX driver fermiflow_tpu.cli")
 
 
-def config_from_args(args) -> Config:
+def config_from_args(args, finite_t: bool = False) -> Config:
     _refuse_unported(args)
-    return Config(
+    cfg = Config(
         nup=args.nup,
         ndown=args.ndown,
         Z=args.Z,
@@ -125,6 +132,11 @@ def config_from_args(args) -> Config:
         steps_per_call=args.steps_per_call,
         device=args.device,
     )
+    if finite_t:
+        cfg.beta = args.beta
+        cfg.deltaE = args.deltaE
+        cfg.boltzmann = args.boltzmann
+    return cfg
 
 
 def make_cnf(cfg: Config) -> CNF:
@@ -139,29 +151,54 @@ def make_cnf(cfg: Config) -> CNF:
     )
 
 
-def build_gs(cfg: Config):
-    """(model, identity-flow params on ``cfg.device``); raises where the
-    device cannot run this configuration."""
+def _device(cfg: Config):
+    """The device ``cfg`` asks for; raises where it cannot run ``cfg``."""
     device = resolve_device(cfg.device)
-    dtype = cfg.torch_dtype()
     if device.type == "cuda" and cfg.dtype != "float32":
         raise ValueError("the CUDA kernels run in float32: pass --dtype "
                          "float32 (float64 runs on --device cpu)")
+    return device
+
+
+def build_gs(cfg: Config):
+    """(model, identity-flow params on ``cfg.device``); raises where the
+    device cannot run this configuration."""
+    device = _device(cfg)
     model = GSVMC(cfg.nup, cfg.ndown, FreeFermion(HO2D()), make_cnf(cfg),
                   CoulombPairPotential(cfg.Z), HOPotential())
-    params = backflow_init_zeros(cfg.d_eta, cfg.d_mu, dtype=dtype,
+    params = backflow_init_zeros(cfg.d_eta, cfg.d_mu, dtype=cfg.torch_dtype(),
                                  device=device)
+    return model, params
+
+
+def build_beta(cfg: Config):
+    """(model, {"flow": identity-flow params, "log_state_weights": Boltzmann
+    or Gaussian logits (seed + 7)}) on ``cfg.device``; raises where the
+    device cannot run this configuration."""
+    device = _device(cfg)
+    dtype = cfg.torch_dtype()
+    orbitals = HO2D()
+    model = BetaVMC(cfg.beta, cfg.nup, cfg.ndown, cfg.deltaE, orbitals,
+                    FreeFermion(orbitals), make_cnf(cfg),
+                    CoulombPairPotential(cfg.Z), HOPotential())
+    gen = None if cfg.boltzmann else torch.Generator().manual_seed(cfg.seed + 7)
+    params = {
+        "flow": backflow_init_zeros(cfg.d_eta, cfg.d_mu, dtype=dtype,
+                                    device=device),
+        "log_state_weights": model.init_log_state_weights(
+            cfg.boltzmann, generator=gen, dtype=dtype, device=device),
+    }
     return model, params
 
 
 def run_training_loop(state, cfg: Config, make_chunk, logger, print_row):
     """Drive ``cfg.iternum`` iterations in chunks of ``cfg.steps_per_call``.
 
-    ``make_chunk(K)`` returns the fused K-iteration function; every chunk,
-    K = 1 included, is one multi-segment sampler launch plus K updates.
-    The metrics fetch at the end of a chunk waits for the device, so its
-    wall time over K is the per-iteration speed.  A non-finite energy stops
-    the run (no checkpoint restore is ported).
+    ``make_chunk(K)`` returns the K-iteration function.  The metrics fetch
+    at the end of a chunk waits for the device, so its wall time over K is
+    the per-iteration speed.  A non-finite primary metric (F when the
+    records have one, else E) stops the run (no checkpoint restore is
+    ported).
     """
     K = max(1, int(cfg.steps_per_call))
     chunk_fns = {}
@@ -175,9 +212,10 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row):
         state, stacked = fn(state)
         rows = logger.log_many(i + 1, stacked, t0)
         for rec in rows:
-            if not math.isfinite(rec["E"]):
+            key = "F" if "F" in rec else "E"
+            if not math.isfinite(rec[key]):
                 raise FloatingPointError(
-                    f"non-finite energy (E={rec['E']}) at iteration "
+                    f"non-finite energy ({key}={rec[key]}) at iteration "
                     f"{rec['step']}")
             print_row(rec)
         i += chunk

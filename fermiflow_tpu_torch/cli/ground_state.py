@@ -12,7 +12,12 @@ from __future__ import annotations
 import argparse
 
 from fermiflow_tpu_torch.cli import common
-from fermiflow_tpu_torch.train import init_gs_state, make_gs_fused_multi_step
+from fermiflow_tpu_torch.train import (
+    init_gs_state,
+    make_gs_fused_multi_step,
+    make_gs_train_step,
+    make_multi_step,
+)
 from fermiflow_tpu_torch.utils import MetricsLogger
 
 
@@ -39,12 +44,17 @@ def main(argv=None):
             f"{rec.get('hours_per_100_iters', float('nan'))}"
         )
 
+    # With K > 1 every chunk is the fused multi-step (one multi-segment
+    # sampler launch per chunk); with K = 1 each iteration is one
+    # single-chain sampler launch, as the JAX driver's per-iteration step.
+    if cfg.steps_per_call > 1:
+        make_chunk = lambda chunk: make_gs_fused_multi_step(model, cfg, chunk)
+    else:
+        make_chunk = lambda chunk: make_multi_step(
+            make_gs_train_step(model, cfg), chunk)
     try:
-        state = common.run_training_loop(
-            state, cfg,
-            lambda chunk: make_gs_fused_multi_step(model, cfg, chunk),
-            logger, print_row,
-        )
+        state = common.run_training_loop(state, cfg, make_chunk, logger,
+                                         print_row)
     finally:
         logger.close()
     return state

@@ -1,7 +1,13 @@
 // Multi-segment Metropolis sampler of the free-fermion |det|^2 density.
 //
 // Replaces: fermiflow_tpu/ops/pallas_metropolis.py
-//   metropolis_free_fermion_chains (kernel _metropolis_multichain_kernel).
+//   metropolis_free_fermion_chains (kernel _metropolis_multichain_kernel),
+//   through the entry ff_metropolis_chains; and
+//   metropolis_free_fermion (kernel _metropolis_kernel), through the entry
+//   ff_metropolis_free_fermion.  The single-segment, fixed-tau chain shares
+//   this file's device code: one segment with reinit off takes the same steps
+//   on the same Philox stream, and tau_out is not written.  Its bound is the
+//   same arithmetic bound as below at segments = 1.
 //
 // What bounds it on the H100: arithmetic.  Per walker-step it evaluates d
 // Box-Muller normals, the Hermite tables and an N x N pivoted Gaussian
@@ -20,104 +26,9 @@
 // compared on one random stream.  Between segments tau adapts per walker,
 // tau *= exp(gain * (rate - target)); with reinit each segment restarts from
 // fresh Gaussians at fixed tau.
-#include "common.cuh"
+#include "sampler.cuh"
 
 namespace {
-
-constexpr float kPref = 0.56418958354775628f;  // pi^{-1/2}
-constexpr float kTwoPi = 6.28318530717958648f;
-
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c.x);
-    const uint32_t lo0 = 0xD2511F53u * c.x;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c.z);
-    const uint32_t lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Uniform in (0, 1) from 24 random bits, floored at 1e-12 (log(0) guard of
-// the TPU kernel's _uniform01).
-__device__ __forceinline__ float bits_to_uniform(uint32_t b) {
-  return fmaxf((float)(b >> 8) * (1.f / 16777216.f), 1e-12f);
-}
-
-// NU uniforms for (segment, step) of one walker.
-template <int NU>
-__device__ __forceinline__ void philox_uniforms(float (&u)[NU], uint32_t seed,
-                                                uint32_t walker, uint32_t step,
-                                                uint32_t segment) {
-  const uint2 key = make_uint2(seed, walker);
-#pragma unroll
-  for (int q = 0; q < (NU + 3) / 4; ++q) {
-    const uint4 r = philox4x32_10(make_uint4((uint32_t)q, step, segment, 0u), key);
-    const uint32_t bits[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      if (4 * q + e < NU) u[4 * q + e] = bits_to_uniform(bits[e]);
-  }
-}
-
-// d standard normals by Box-Muller: pair k uses u[k], u[k + d/2];
-// coordinate k gets r cos, coordinate k + d/2 gets r sin (TPU order).
-template <int D, int NU>
-__device__ __forceinline__ void box_muller(const float (&u)[NU], float (&z)[D]) {
-#pragma unroll
-  for (int k = 0; k < D / 2; ++k) {
-    const float r = sqrtf(-2.f * logf(u[k]));
-    float s, c;
-    sincosf(kTwoPi * u[k + D / 2], &s, &c);
-    z[k] = r * c;
-    z[k + D / 2] = r * s;
-  }
-}
-
-// 2 log|det D| by pivoted elimination without row swaps (the TPU kernel's
-// _ge_logabsdet): pivot = first row with the largest |entry| among unused.
-template <int N>
-__device__ __forceinline__ float ge_logabsdet2(float (&D)[N][N]) {
-  bool used[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) used[i] = false;
-  float logabs = 0.f;
-#pragma unroll
-  for (int col = 0; col < N; ++col) {
-    float best = -2.f;
-    int bi = 0;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const float cand = used[i] ? -1.f : fabsf(D[i][col]);
-      if (cand > best) { best = cand; bi = i; }
-    }
-    float pv = 0.f;
-    float prow[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) prow[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const bool isp = (bi == i);
-      pv = isp ? D[i][col] : pv;
-#pragma unroll
-      for (int j = col; j < N; ++j) prow[j] = isp ? D[i][j] : prow[j];
-    }
-    logabs += logf(fmaxf(fabsf(pv), 1e-30f));
-    const float sp = fabsf(pv) > 1e-30f ? pv : 1.f;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const bool isp = (bi == i);
-      const float m = (!used[i] && !isp) ? D[i][col] / sp : 0.f;
-#pragma unroll
-      for (int j = col + 1; j < N; ++j) D[i][j] = D[i][j] - m * prow[j];
-      used[i] = used[i] || isp;
-    }
-  }
-  return 2.f * logabs;
-}
 
 // log p(x) = 2 sum_sectors log|det|: one N x N matrix whose cross-sector
 // entries are zero (det of a block-diagonal matrix = product of the blocks).
@@ -212,7 +123,7 @@ __global__ void __launch_bounds__(128) metropolis_chains_kernel(
     rates[(size_t)s * Bs + w] = rate;
     if (!reinit) tau = tau * expf(gain * (rate - target));
   }
-  tau_out[w] = tau;
+  if (tau_out) tau_out[w] = tau;
 }
 
 template <int N>
@@ -248,4 +159,17 @@ extern "C" int ff_metropolis_chains(
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// One fixed-tau chain of `steps` (the segments = 1, reinit = 0 case of the
+// kernel above): x (d, B), logp (B,), acc (B,).  Injected noise, when given,
+// is normals (steps, d, B) and uniforms (steps, B): with one segment and no
+// restart the kernel reads exactly those slots.
+extern "C" int ff_metropolis_free_fermion(
+    const float* x0, const float* tau, float* x, float* logp, float* acc,
+    const float* normals, const float* uniforms, int B, int n, int nup,
+    const int* nx, const int* ny, unsigned int seed, int steps, void* stream) {
+  return ff_metropolis_chains(x0, tau, x, logp, acc, nullptr, normals,
+                              uniforms, B, n, nup, nx, ny, seed, steps, 1,
+                              0.f, 0.f, 0, stream);
 }

@@ -24,18 +24,22 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "build_all", "library",
            "BUILD_DIR", "SOURCES", "ptr", "stream_ptr", "check_rc",
-           "check_cuda_f32"]
+           "check_cuda_f32", "check_cuda_i32"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-SOURCES = ("metropolis", "slater_vgh", "hessian_flow", "reinforce")
+SOURCES = ("metropolis", "metropolis_ms", "slater_vgh", "slater_vgh_ms",
+           "hessian_flow", "reinforce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 LAUNCHES = {
     "metropolis_chains": 0,
+    "metropolis_single": 0,
+    "metropolis_multistate": 0,
     "slater_vgh": 0,
+    "slater_vgh_ms": 0,
     "hessian_flow": 0,
     "reinforce_adjoint": 0,
     "reinforce_reduce": 0,
@@ -127,8 +131,7 @@ def check_rc(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def check_cuda_f32(**tensors) -> None:
-    """Every tensor lies on one CUDA device, is float32 and contiguous."""
+def _check_cuda(dtype: torch.dtype, tensors: dict) -> None:
     dev = None
     for name, t in tensors.items():
         if t is None:
@@ -138,8 +141,18 @@ def check_cuda_f32(**tensors) -> None:
         if dev is not None and t.device != dev:
             raise ValueError(f"{name} lies on {t.device}, expected {dev}")
         dev = t.device
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 for the CUDA kernel, "
+        if t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} for the CUDA kernel, "
                              f"got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_cuda_f32(**tensors) -> None:
+    """Every tensor lies on one CUDA device, is float32 and contiguous."""
+    _check_cuda(torch.float32, tensors)
+
+
+def check_cuda_i32(**tensors) -> None:
+    """Every tensor lies on one CUDA device, is int32 and contiguous."""
+    _check_cuda(torch.int32, tensors)

@@ -1,17 +1,28 @@
-"""Multi-segment Metropolis sampler of the free-fermion base density.
+"""Metropolis samplers of the free-fermion base density.
 
-Kernel: ``csrc/metropolis.cu`` (replaces the TPU kernel
-``fermiflow_tpu/ops/pallas_metropolis.py:metropolis_free_fermion_chains``).
-Plain version: ``metropolis_chains_plain`` below, batched PyTorch over the same
-Hermite-table + pivoted-elimination log-density.  The plain version runs only
-for CPU tensors; a CUDA tensor launches the kernel or raises.
+Three kernels, each with its plain PyTorch version in this module (batched
+over the same Hermite-table + pivoted-elimination log-density).  A plain
+version runs only for CPU tensors; a CUDA tensor launches the kernel or
+raises.
 
-Both take an optional ``noise = (normals, uniforms)`` with normals shaped
-(segments, steps + 1, d, B) (slot ``steps`` feeds the ``reinit`` restart)
-and uniforms (segments, steps, B), so the two can be compared on one random
-stream.  Without it the kernel draws from Philox keyed by ``seed`` and the
-plain version from a ``torch.Generator`` seeded with ``seed``: the two
-streams differ and are compared by distribution.
+* ``metropolis_chains``: K segments with tau adapted between them.  Kernel
+  ``csrc/metropolis.cu`` (replaces
+  ``fermiflow_tpu/ops/pallas_metropolis.py:metropolis_free_fermion_chains``).
+* ``metropolis_single_cm``: one fixed-tau chain, the per-iteration sampler.
+  Kernel ``csrc/metropolis.cu``, entry ``ff_metropolis_free_fermion`` (the
+  one-segment case of the kernel above; replaces ``metropolis_free_fermion``).
+* ``metropolis_multistate_cm``: one fixed-tau chain with per-walker
+  occupations, one spin sector.  Kernel ``csrc/metropolis_ms.cu`` (replaces
+  ``metropolis_free_fermion_multistate``).
+
+Each takes an optional ``noise = (normals, uniforms)`` so that a kernel and
+its plain version can be compared on one random stream: for the chains
+normals (segments, steps + 1, d, B) (slot ``steps`` feeds the ``reinit``
+restart) and uniforms (segments, steps, B); for the single chains normals
+(steps, d, B) and uniforms (steps, B).  Without it a kernel draws from
+Philox keyed by ``seed`` and a plain version from a ``torch.Generator``
+seeded with ``seed``: the two streams differ and are compared by
+distribution.
 """
 
 from __future__ import annotations
@@ -24,13 +35,27 @@ import torch
 from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.logdet import logabsdet
 from fermiflow_tpu_torch.physics.orbitals import hermite_functions
+from fermiflow_tpu_torch.physics.slater import slater_matrix_qnums
 
 __all__ = ["metropolis_chains", "metropolis_chains_plain",
-           "metropolis_free_fermion_chains", "slater_logp_qn", "SUPPORTED_N",
-           "KMAX"]
+           "metropolis_free_fermion_chains", "metropolis_single_cm",
+           "metropolis_single_cm_plain", "metropolis_free_fermion",
+           "metropolis_multistate_cm", "metropolis_multistate_cm_plain",
+           "metropolis_free_fermion_multistate", "slater_logp_qn",
+           "slater_logp_ms", "ms_depth", "SUPPORTED_N", "KMAX", "MS_DEPTHS"]
 
 SUPPORTED_N = (2, 3, 4, 5, 6)  # instantiations in csrc/*.cu
-KMAX = 3  # Hermite orders the kernels tabulate (FF_KMAX)
+KMAX = 3  # Hermite orders the ground-state kernels tabulate (FF_KMAX)
+MS_DEPTHS = (4, 5, 6, 8)  # Hermite depths the mixed-state kernels are built for
+
+
+def ms_depth(num_shells: int) -> int:
+    """The smallest compiled mixed-state Hermite depth covering num_shells."""
+    for k in MS_DEPTHS:
+        if num_shells <= k:
+            return k
+    raise ValueError(f"mixed-state CUDA kernels are built for Hermite depths "
+                     f"up to {MS_DEPTHS[-1]}; got num_shells={num_shells}")
 
 
 def slater_logp_qn(x: torch.Tensor, nx: tuple, ny: tuple, nup: int,
@@ -51,6 +76,22 @@ def slater_logp_qn(x: torch.Tensor, nx: tuple, ny: tuple, nup: int,
     up = torch.arange(n, device=x.device) < nup
     same = (up[:, None] == up[None, :]).to(x.dtype)
     return 2.0 * logabsdet(D * same, tiny=1e-30)
+
+
+def _chain_plain(x, logp, tau, logp_fn, steps, draws):
+    """``steps`` Metropolis steps of walkers x (B, n, 2) at per-walker tau
+    (B,); ``draws(t)`` gives step t's normals (B, n, 2) and uniforms (B,).
+    Returns (x, logp, accept rate)."""
+    acc = torch.zeros_like(logp)
+    for t in range(steps):
+        z, u = draws(t)
+        xn = x + tau[:, None, None] * z
+        lpn = logp_fn(xn)
+        accept = u < torch.exp(torch.clamp(lpn - logp, max=0.0))
+        x = torch.where(accept[:, None, None], xn, x)
+        logp = torch.where(accept, lpn, logp)
+        acc = acc + accept.to(acc.dtype)
+    return x, logp, acc / max(steps, 1)
 
 
 def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
@@ -92,15 +133,9 @@ def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
         if reinit and s > 0:
             x = to_walkers(normals(s, steps))
             logp = logp_fn(x)
-        acc = torch.zeros(B, **kw)
-        for t in range(steps):
-            xn = x + tau[:, None, None] * to_walkers(normals(s, t))
-            lpn = logp_fn(xn)
-            accept = uniform(s, t) < torch.exp(torch.clamp(lpn - logp, max=0.0))
-            x = torch.where(accept[:, None, None], xn, x)
-            logp = torch.where(accept, lpn, logp)
-            acc = acc + accept.to(acc.dtype)
-        rate = acc / max(steps, 1)
+        x, logp, rate = _chain_plain(
+            x, logp, tau, logp_fn, steps,
+            lambda t: (to_walkers(normals(s, t)), uniform(s, t)))
         xs.append(x.reshape(B, d).T)
         logps.append(logp)
         rates.append(rate)
@@ -200,3 +235,217 @@ def metropolis_free_fermion_chains(x0: torch.Tensor, seed: int, tau, steps: int,
         ny_dn=ny_dn, num_shells=num_shells, target=target, gain=gain,
         reinit=reinit, noise=noise, generator=generator)
     return xs.transpose(1, 2).reshape(segments, B, n, dim), logps, rates, tau_out
+
+
+# ---- one fixed-tau chain (the per-iteration ground-state sampler) ----
+
+
+def metropolis_single_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
+                               seed: int, *, steps: int, nx_occ: tuple,
+                               ny_occ: tuple, nx_dn: tuple = (),
+                               ny_dn: tuple = (), num_shells: int = 3,
+                               noise=None,
+                               generator: torch.Generator | None = None):
+    """Plain PyTorch version of ``metropolis_single_cm`` (same arguments and
+    returns), on any device: ``metropolis_chains_plain`` at one segment."""
+    if noise is not None:
+        noise = (noise[0][None], noise[1][None])
+    xs, logps, rates, _ = metropolis_chains_plain(
+        x0_cm, tau, seed, steps=steps, segments=1, nx_occ=nx_occ,
+        ny_occ=ny_occ, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells,
+        noise=noise, generator=generator)
+    return xs[0], logps[0], rates[0]
+
+
+def _single_cuda(x0_cm, tau, seed, steps, nx, ny, nup, noise):
+    d, B = x0_cm.shape
+    n = d // 2
+    normals, uniforms = noise if noise is not None else (None, None)
+    _build.check_cuda_f32(x0=x0_cm, tau=tau, normals=normals, uniforms=uniforms)
+    if tuple(tau.shape) != (B,):
+        raise ValueError(f"tau must be ({B},), got {tuple(tau.shape)}")
+    if normals is not None and (tuple(normals.shape) != (steps, d, B)
+                                or tuple(uniforms.shape) != (steps, B)):
+        raise ValueError("noise must be (normals (steps, d, B), "
+                         "uniforms (steps, B))")
+    out = dict(device=x0_cm.device, dtype=torch.float32)
+    x = torch.empty((d, B), **out)
+    logp = torch.empty((B,), **out)
+    acc = torch.empty((B,), **out)
+    fn = _build.library("metropolis").ff_metropolis_free_fermion
+    fn.restype = ctypes.c_int
+    ints = ctypes.c_int * n
+    rc = fn(_build.ptr(x0_cm), _build.ptr(tau), _build.ptr(x), _build.ptr(logp),
+            _build.ptr(acc), _build.ptr(normals), _build.ptr(uniforms),
+            ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(nup), ints(*nx),
+            ints(*ny), ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_int(steps),
+            _build.stream_ptr(x0_cm.device))
+    _build.check_rc(rc, "metropolis_single")
+    _build.LAUNCHES["metropolis_single"] += 1
+    return x, logp, acc
+
+
+def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
+                         steps: int, nx_occ: tuple, ny_occ: tuple,
+                         nx_dn: tuple = (), ny_dn: tuple = (),
+                         num_shells: int = 3, noise=None,
+                         generator: torch.Generator | None = None):
+    """One chain of ``steps`` Metropolis steps at fixed per-walker tau.
+
+    x0_cm (d, B), tau (B,) -> x (d, B), logp (B,), accept rate (B,).
+    Occupations and ``noise`` as for ``metropolis_chains`` (noise shapes in
+    the module docstring).
+    """
+    nx = tuple(nx_occ) + tuple(nx_dn)
+    ny = tuple(ny_occ) + tuple(ny_dn)
+    if len(nx) * 2 != x0_cm.shape[0]:
+        raise ValueError("occupations must cover all particles (dim = 2)")
+    if x0_cm.device.type == "cpu":
+        return metropolis_single_cm_plain(
+            x0_cm, tau, seed, steps=steps, nx_occ=nx_occ, ny_occ=ny_occ,
+            nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells, noise=noise,
+            generator=generator)
+    if len(nx) not in SUPPORTED_N or max(nx + ny) >= KMAX:
+        raise ValueError(f"CUDA sampler built for n in {SUPPORTED_N} with "
+                         f"quantum numbers < {KMAX}; got n={len(nx)}")
+    return _single_cuda(x0_cm, tau, int(seed), steps, nx, ny, len(nx_occ),
+                        noise)
+
+
+def metropolis_free_fermion(x0: torch.Tensor, seed: int, tau, steps: int,
+                            nx_occ: tuple, ny_occ: tuple, num_shells: int = 8,
+                            nx_dn: tuple = (), ny_dn: tuple = (), noise=None,
+                            generator=None):
+    """JAX-layout wrapper: x0 (B, n, dim), tau scalar or (B,) -> (x (B, n, dim),
+    logp (B,), accept_rate (B,)), as the TPU function returns."""
+    B, n, dim = x0.shape
+    tau = torch.broadcast_to(torch.as_tensor(tau, dtype=x0.dtype, device=x0.device),
+                             (B,)).contiguous()
+    x, logp, acc = metropolis_single_cm(
+        x0.reshape(B, n * dim).T.contiguous(), tau, seed, steps=steps,
+        nx_occ=nx_occ, ny_occ=ny_occ, nx_dn=nx_dn, ny_dn=ny_dn,
+        num_shells=num_shells, noise=noise, generator=generator)
+    return x.T.reshape(B, n, dim), logp, acc
+
+
+# ---- one fixed-tau chain with per-walker occupations (finite T) ----
+
+
+def slater_logp_ms(x: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
+                   num_shells: int) -> torch.Tensor:
+    """2 log|det| with per-walker occupations, one spin sector.
+
+    x (B, n, 2); nx, ny (B, n) integer quantum numbers: column j of walker
+    b's Slater matrix holds orbital (nx[b, j], ny[b, j]).
+    """
+    return 2.0 * logabsdet(slater_matrix_qnums(x, nx, ny, num_shells),
+                           tiny=1e-30)
+
+
+def metropolis_multistate_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
+                                   seed: int, *, steps: int,
+                                   nx_cm: torch.Tensor, ny_cm: torch.Tensor,
+                                   num_shells: int, noise=None,
+                                   generator: torch.Generator | None = None):
+    """Plain PyTorch version of ``metropolis_multistate_cm`` (same arguments
+    and returns), on any device."""
+    if noise is None and generator is None:
+        generator = torch.Generator(x0_cm.device).manual_seed(int(seed))
+    d, B = x0_cm.shape
+    n = d // 2
+    to_walkers = lambda a: a.T.reshape(B, n, 2)
+    nx, ny = nx_cm.T, ny_cm.T
+    logp_fn = lambda x: slater_logp_ms(x, nx, ny, num_shells)
+    kw = dict(dtype=x0_cm.dtype, device=x0_cm.device)
+
+    def draws(t):
+        if noise is not None:
+            return to_walkers(noise[0][t]), noise[1][t]
+        z = torch.randn((d, B), generator=generator, **kw)
+        return to_walkers(z), torch.rand((B,), generator=generator,
+                                         **kw).clamp_min(1e-12)
+
+    x = to_walkers(x0_cm)
+    x, logp, rate = _chain_plain(x, logp_fn(x), tau, logp_fn, steps, draws)
+    return x.reshape(B, d).T.contiguous(), logp, rate
+
+
+def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise):
+    d, B = x0_cm.shape
+    n = d // 2
+    normals, uniforms = noise if noise is not None else (None, None)
+    _build.check_cuda_f32(x0=x0_cm, tau=tau, normals=normals, uniforms=uniforms)
+    _build.check_cuda_i32(nx=nx_cm, ny=ny_cm)
+    if tuple(tau.shape) != (B,):
+        raise ValueError(f"tau must be ({B},), got {tuple(tau.shape)}")
+    if tuple(nx_cm.shape) != (n, B) or tuple(ny_cm.shape) != (n, B):
+        raise ValueError(f"nx, ny must be ({n}, {B}) per-walker quantum numbers")
+    if normals is not None and (tuple(normals.shape) != (steps, d, B)
+                                or tuple(uniforms.shape) != (steps, B)):
+        raise ValueError("noise must be (normals (steps, d, B), "
+                         "uniforms (steps, B))")
+    out = dict(device=x0_cm.device, dtype=torch.float32)
+    x = torch.empty((d, B), **out)
+    logp = torch.empty((B,), **out)
+    acc = torch.empty((B,), **out)
+    fn = _build.library("metropolis_ms").ff_metropolis_multistate
+    fn.restype = ctypes.c_int
+    P = _build.ptr
+    rc = fn(P(x0_cm), P(tau), P(nx_cm), P(ny_cm), P(x), P(logp), P(acc),
+            P(normals), P(uniforms), ctypes.c_int(B), ctypes.c_int(n),
+            ctypes.c_int(ms_depth(num_shells)),
+            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_int(steps),
+            _build.stream_ptr(x0_cm.device))
+    _build.check_rc(rc, "metropolis_multistate")
+    _build.LAUNCHES["metropolis_multistate"] += 1
+    return x, logp, acc
+
+
+def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
+                             seed: int, *, steps: int, nx_cm: torch.Tensor,
+                             ny_cm: torch.Tensor, num_shells: int, noise=None,
+                             generator: torch.Generator | None = None):
+    """One fixed-tau chain per walker on its own Slater state's density.
+
+    Args:
+      x0_cm: (d, B) walker coordinates, walkers contiguous.
+      tau: (B,) per-walker proposal scale.
+      seed: stream seed (Philox key on the GPU; generator seed on the CPU).
+      nx_cm, ny_cm: (n, B) int32 quantum numbers of each walker's occupied
+        orbitals (one spin sector), all below ``num_shells``.
+      num_shells: Hermite depth covering the quantum numbers.
+      noise: optional shared random stream, see the module docstring.
+
+    Returns:
+      x (d, B), logp (B,), accept rate (B,).  On the GPU a walker with a
+      quantum number outside the compiled depth comes back NaN.
+    """
+    if nx_cm.shape[0] * 2 != x0_cm.shape[0]:
+        raise ValueError("occupations must cover all particles (dim = 2)")
+    if x0_cm.device.type == "cpu":
+        return metropolis_multistate_cm_plain(
+            x0_cm, tau, seed, steps=steps, nx_cm=nx_cm, ny_cm=ny_cm,
+            num_shells=num_shells, noise=noise, generator=generator)
+    if nx_cm.shape[0] not in SUPPORTED_N:
+        raise ValueError(f"CUDA sampler built for n in {SUPPORTED_N}; "
+                         f"got n={nx_cm.shape[0]}")
+    return _multistate_cuda(x0_cm, tau, int(seed), steps, nx_cm, ny_cm,
+                            num_shells, noise)
+
+
+def metropolis_free_fermion_multistate(x0: torch.Tensor, seed: int, tau,
+                                       steps: int, nx: torch.Tensor,
+                                       ny: torch.Tensor, num_shells: int = 8,
+                                       noise=None, generator=None):
+    """JAX-layout wrapper: x0 (B, n, dim), tau scalar or (B,), nx/ny (B, n)
+    -> (x (B, n, dim), logp (B,), accept_rate (B,)), as the TPU function
+    returns."""
+    B, n, dim = x0.shape
+    tau = torch.broadcast_to(torch.as_tensor(tau, dtype=x0.dtype, device=x0.device),
+                             (B,)).contiguous()
+    x, logp, acc = metropolis_multistate_cm(
+        x0.reshape(B, n * dim).T.contiguous(), tau, seed, steps=steps,
+        nx_cm=nx.T.to(torch.int32).contiguous(),
+        ny_cm=ny.T.to(torch.int32).contiguous(), num_shells=num_shells,
+        noise=noise, generator=generator)
+    return x.T.reshape(B, n, dim), logp, acc

@@ -1,11 +1,14 @@
 """Slater base (value, gradient, packed Hessian), coordinate-major.
 
-Kernel: ``csrc/slater_vgh.cu`` (replaces the TPU kernel
-``fermiflow_tpu/ops/pallas_slater_vgh.py:slater_vgh_pallas``).  Plain
-version: ``FreeFermion.log_prob_vgh``'s closed form
-(``physics/slater.py``), packed into ``np.triu_indices`` order.  The plain
+Two kernels, each with its plain version here: ``FreeFermion``'s closed
+form (``physics/slater.py``), packed into ``np.triu_indices`` order.  A plain
 version runs only for CPU tensors; a CUDA tensor launches the kernel or
 raises.
+
+* ``slater_vgh_cm``: static occupations.  Kernel ``csrc/slater_vgh.cu``
+  (replaces ``fermiflow_tpu/ops/pallas_slater_vgh.py:slater_vgh_pallas``).
+* ``slater_vgh_ms_cm``: per-walker occupations, one spin sector (finite T).
+  Kernel ``csrc/slater_vgh_ms.cu`` (replaces ``slater_vgh_ms_pallas``).
 """
 
 from __future__ import annotations
@@ -16,11 +19,17 @@ import numpy as np
 import torch
 
 from fermiflow_tpu_torch.ops import _build
-from fermiflow_tpu_torch.ops.metropolis import KMAX, SUPPORTED_N
-from fermiflow_tpu_torch.physics.slater import _derivs_from_1d, _ho1d_val_d1_d2, logdet_vgh
+from fermiflow_tpu_torch.ops.metropolis import KMAX, SUPPORTED_N, ms_depth
+from fermiflow_tpu_torch.physics.slater import (
+    _derivs_from_1d,
+    _ho1d_val_d1_d2,
+    derivs_from_qnums,
+    logdet_vgh,
+)
 
-__all__ = ["slater_vgh_cm", "slater_vgh_cm_plain", "slater_vgh", "pack_triu",
-           "unpack_triu"]
+__all__ = ["slater_vgh_cm", "slater_vgh_cm_plain", "slater_vgh",
+           "slater_vgh_ms_cm", "slater_vgh_ms_cm_plain", "slater_vgh_ms",
+           "pack_triu", "unpack_triu"]
 
 
 def pack_triu(H: torch.Tensor) -> torch.Tensor:
@@ -117,4 +126,67 @@ def slater_vgh(x: torch.Tensor, nx_occ: tuple, ny_occ: tuple,
     B, n, dim = x.shape
     y, g, Hp = slater_vgh_cm(x.reshape(B, n * dim).T.contiguous(), nx_occ,
                              ny_occ, num_shells, nx_dn, ny_dn)
+    return y, g.T, Hp.T
+
+
+# ---- per-walker occupations (finite T) ----
+
+
+def slater_vgh_ms_cm_plain(x_cm: torch.Tensor, nx_cm: torch.Tensor,
+                           ny_cm: torch.Tensor, num_shells: int):
+    """Plain PyTorch version of ``slater_vgh_ms_cm`` (same arguments and
+    returns), on any device."""
+    d, B = x_cm.shape
+    x = x_cm.T.reshape(B, d // 2, 2)
+    y, g, H = logdet_vgh(*derivs_from_qnums(x, nx_cm.T, ny_cm.T, num_shells))
+    return 2.0 * y, (2.0 * g).T.contiguous(), pack_triu(2.0 * H).T.contiguous()
+
+
+def _vgh_ms_cuda(x_cm, nx_cm, ny_cm, num_shells):
+    d, B = x_cm.shape
+    n = d // 2
+    _build.check_cuda_f32(x=x_cm)
+    _build.check_cuda_i32(nx=nx_cm, ny=ny_cm)
+    if tuple(nx_cm.shape) != (n, B) or tuple(ny_cm.shape) != (n, B):
+        raise ValueError(f"nx, ny must be ({n}, {B}) per-walker quantum numbers")
+    nut = d * (d + 1) // 2
+    kw = dict(device=x_cm.device, dtype=torch.float32)
+    y = torch.empty((B,), **kw)
+    g = torch.empty((d, B), **kw)
+    Hp = torch.empty((nut, B), **kw)
+    fn = _build.library("slater_vgh_ms").ff_slater_vgh_ms
+    fn.restype = ctypes.c_int
+    P = _build.ptr
+    rc = fn(P(x_cm), P(nx_cm), P(ny_cm), P(y), P(g), P(Hp), ctypes.c_int(B),
+            ctypes.c_int(n), ctypes.c_int(ms_depth(num_shells)),
+            _build.stream_ptr(x_cm.device))
+    _build.check_rc(rc, "slater_vgh_ms")
+    _build.LAUNCHES["slater_vgh_ms"] += 1
+    return y, g, Hp
+
+
+def slater_vgh_ms_cm(x_cm: torch.Tensor, nx_cm: torch.Tensor,
+                     ny_cm: torch.Tensor, num_shells: int):
+    """x_cm (d, B), nx_cm/ny_cm (n, B) int32 quantum numbers below
+    ``num_shells`` -> y (B,), g (d, B), Hp (d(d+1)/2, B) of each walker's own
+    base log-density 2 log|det|, dim = 2.  On the GPU a walker with a
+    quantum number outside the compiled depth comes back NaN."""
+    if nx_cm.shape[0] * 2 != x_cm.shape[0]:
+        raise ValueError("occupations must cover all particles (dim = 2)")
+    if x_cm.device.type == "cpu":
+        return slater_vgh_ms_cm_plain(x_cm, nx_cm, ny_cm, num_shells)
+    if nx_cm.shape[0] not in SUPPORTED_N:
+        raise ValueError(f"CUDA Slater VGH built for n in {SUPPORTED_N}; "
+                         f"got n={nx_cm.shape[0]}")
+    return _vgh_ms_cuda(x_cm, nx_cm, ny_cm, num_shells)
+
+
+def slater_vgh_ms(x: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
+                  num_shells: int = 8):
+    """JAX-layout wrapper (``slater_vgh_ms_pallas(..., packed=True)``):
+    x (B, n, 2), nx/ny (B, n) -> y (B,), g (B, d), Hp (B, d(d+1)/2)."""
+    B, n, dim = x.shape
+    y, g, Hp = slater_vgh_ms_cm(x.reshape(B, n * dim).T.contiguous(),
+                                nx.T.to(torch.int32).contiguous(),
+                                ny.T.to(torch.int32).contiguous(), num_shells)
     return y, g.T, Hp.T

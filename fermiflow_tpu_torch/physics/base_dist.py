@@ -1,18 +1,22 @@
 """Free-fermion base distribution (port of ``fermiflow_tpu/physics/base_dist.py``).
 
-``log_prob`` and ``log_prob_vgh`` are the plain versions behind the
-Metropolis and Slater-VGH kernels (``ops/metropolis.py``, ``ops/slater_vgh.py``).
+``log_prob`` and ``log_prob_vgh`` (and their mixed-state counterparts, each
+walker in its own Slater state) are the plain math behind the Metropolis and
+Slater-VGH kernels (``ops/metropolis.py``, ``ops/slater_vgh.py``).
 """
 
 from __future__ import annotations
 
 import torch
 
+from fermiflow_tpu_torch import mcmc
 from fermiflow_tpu_torch.physics.orbitals import HO2D
 from fermiflow_tpu_torch.physics.slater import (
     log_abs_slater_det,
+    log_abs_slater_det_multstates,
     logdet_vgh,
     slater_derivs,
+    slater_derivs_multstates,
 )
 
 __all__ = ["FreeFermion"]
@@ -53,6 +57,36 @@ class FreeFermion:
         g = 2.0 * torch.cat([p[1] for p in parts], dim=-1)
         H = 2.0 * _block_diag(*[p[2] for p in parts])
         return y, g, H
+
+    # ---- mixed-state (finite-temperature) path, spin-polarized ----
+
+    def log_prob_multstates(self, occ_table, state_idx: torch.Tensor,
+                            x: torch.Tensor) -> torch.Tensor:
+        """log p per walker, each in its own Slater state: occ_table
+        (Nstates, n), state_idx (batch,), x (batch, n, dim) -> (batch,)."""
+        return 2.0 * log_abs_slater_det_multstates(
+            self.orbitals, occ_table, state_idx, x)
+
+    def log_prob_vgh_multstates(self, occ_table, state_idx: torch.Tensor,
+                                x: torch.Tensor):
+        """Mixed-state (log p, grad, Hessian) per walker, closed form."""
+        y, g, H = logdet_vgh(*slater_derivs_multstates(
+            self.orbitals, occ_table, state_idx, x))
+        return 2.0 * y, 2.0 * g, 2.0 * H
+
+    def sample_multstates(self, occ_table, state_idx: torch.Tensor,
+                          generator: torch.Generator,
+                          equilibrium_steps: int = 100, tau: float = 0.1,
+                          dtype=torch.float64) -> torch.Tensor:
+        """Metropolis-sample the per-walker mixed-state Slater densities from
+        a fresh Gaussian init; draws from ``generator`` on its device."""
+        n = len(occ_table[0])
+        x0 = torch.randn((state_idx.shape[0], n, self.dim), dtype=dtype,
+                         device=state_idx.device, generator=generator)
+        state = mcmc.metropolis(
+            lambda x: self.log_prob_multstates(occ_table, state_idx, x),
+            generator, x0, equilibrium_steps, tau)
+        return state.x
 
 
 def _block_diag(*blocks: torch.Tensor) -> torch.Tensor:

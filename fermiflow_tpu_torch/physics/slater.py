@@ -1,5 +1,10 @@
-"""Slater-determinant primitives, ground-state subset
-(port of ``fermiflow_tpu/physics/slater.py``)."""
+"""Slater-determinant primitives (port of ``fermiflow_tpu/physics/slater.py``).
+
+The mixed-state functions take per-walker occupations as a dense (batch,)
+state index into an (Nstates, n) occupation table, as the JAX package does;
+the orbital columns are picked by ``gather`` where JAX multiplies by one-hot
+masks (the same values: a one-hot product adds exact zeros).
+"""
 
 from __future__ import annotations
 
@@ -12,7 +17,13 @@ from fermiflow_tpu_torch.physics.orbitals import HO2D, hermite_functions
 __all__ = [
     "slater_matrix",
     "log_abs_slater_det",
+    "slater_matrix_multstates",
+    "slater_matrix_qnums",
+    "log_abs_slater_det_multstates",
     "slater_derivs",
+    "slater_derivs_multstates",
+    "derivs_from_qnums",
+    "walker_qnums",
     "logdet_vgh",
 ]
 
@@ -68,6 +79,43 @@ def slater_derivs(orbitals: HO2D, occ, x: torch.Tensor):
     )
 
 
+def walker_qnums(orbitals: HO2D, occ_table, state_idx: torch.Tensor):
+    """Per-walker 1D quantum numbers (nx, ny), each ``state_idx.shape + (n,)``
+    long, of the orbitals ``occ_table[state_idx]`` occupies."""
+    dev = state_idx.device
+    occ = torch.as_tensor(np.asarray(occ_table), dtype=torch.long,
+                          device=dev)[state_idx.long()]
+    nx = torch.as_tensor(orbitals.nx, dtype=torch.long, device=dev)[occ]
+    ny = torch.as_tensor(orbitals.ny, dtype=torch.long, device=dev)[occ]
+    return nx, ny
+
+
+def _pick(V: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """V (..., n, K), q (..., n) -> (..., n, n) with [..., i, j] = V[..., i, q[..., j]]."""
+    idx = q[..., None, :].expand(V.shape[:-1] + (q.shape[-1],))
+    return V.gather(-1, idx)
+
+
+def derivs_from_qnums(x: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
+                      num_shells: int):
+    """(D, D1, D2) as ``slater_derivs`` with per-walker quantum numbers
+    nx, ny (..., n) below ``num_shells``; x (..., n, 2)."""
+    vx, dvx, d2vx = _ho1d_val_d1_d2(x[..., 0], num_shells)
+    vy, dvy, d2vy = _ho1d_val_d1_d2(x[..., 1], num_shells)
+    nx, ny = nx.long(), ny.long()
+    return _derivs_from_1d(
+        _pick(vx, nx), _pick(dvx, nx), _pick(d2vx, nx),
+        _pick(vy, ny), _pick(dvy, ny), _pick(d2vy, ny),
+    )
+
+
+def slater_derivs_multstates(orbitals: HO2D, occ_table, state_idx: torch.Tensor,
+                             x: torch.Tensor):
+    """Per-walker (D, D1, D2) for per-walker occupations ``occ_table[state_idx]``."""
+    nx, ny = walker_qnums(orbitals, occ_table, state_idx)
+    return derivs_from_qnums(x, nx, ny, orbitals.num_shells)
+
+
 def logdet_vgh(D: torch.Tensor, D1: torch.Tensor, D2: torch.Tensor):
     """(value, gradient, Hessian) of log|det D(x)| by determinant calculus.
 
@@ -105,3 +153,27 @@ def slater_matrix(orbitals: HO2D, occ, x: torch.Tensor) -> torch.Tensor:
 def log_abs_slater_det(orbitals: HO2D, occ, x: torch.Tensor) -> torch.Tensor:
     """log|det D| by unrolled Gaussian elimination: (..., n, dim) -> (...,)."""
     return logabsdet(slater_matrix(orbitals, occ, x))
+
+
+def slater_matrix_qnums(x: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
+                        num_shells: int) -> torch.Tensor:
+    """D[..., i, j] = phi_{(nx[..., j], ny[..., j])}(x[..., i]) for per-walker
+    quantum numbers nx, ny (..., n) below ``num_shells``: (..., n, n)."""
+    gauss = torch.exp(-0.5 * torch.sum(x * x, dim=-1)) * float(1 / np.sqrt(np.pi))
+    hx = hermite_functions(x[..., 0], num_shells)
+    hy = hermite_functions(x[..., 1], num_shells)
+    return gauss[..., :, None] * _pick(hx, nx.long()) * _pick(hy, ny.long())
+
+
+def slater_matrix_multstates(orbitals: HO2D, occ_table, state_idx: torch.Tensor,
+                             x: torch.Tensor) -> torch.Tensor:
+    """D[b, i, j] = phi_{occ_table[state_idx[b], j]}(x[b, i]): (batch, n, n)."""
+    nx, ny = walker_qnums(orbitals, occ_table, state_idx)
+    return slater_matrix_qnums(x, nx, ny, orbitals.num_shells)
+
+
+def log_abs_slater_det_multstates(orbitals: HO2D, occ_table,
+                                  state_idx: torch.Tensor,
+                                  x: torch.Tensor) -> torch.Tensor:
+    """log|det D| per walker for per-walker states -> (batch,)."""
+    return logabsdet(slater_matrix_multstates(orbitals, occ_table, state_idx, x))

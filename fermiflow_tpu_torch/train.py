@@ -1,10 +1,18 @@
-"""Ground-state training iteration (port of the GS half of ``fermiflow_tpu/train.py``).
+"""Training iterations (port of ``fermiflow_tpu/train.py``).
 
-One chunk of K iterations = one multi-segment sampler launch (the K
-iterations' base chains are parameter-independent) followed, per iteration,
-by the kernel-chain update (``GSVMC.loss_metrics_grads_cm``) and one
-``torch.optim.Adam`` step.  Walkers stay coordinate-major (d, B) from the
-sampler through the update.
+Ground state:
+  * ``make_gs_fused_multi_step``: a chunk of K iterations is one
+    multi-segment sampler launch (the K iterations' base chains are
+    parameter-independent) followed, per iteration, by the kernel-chain
+    update (``GSVMC.loss_metrics_grads_cm``) and one ``torch.optim.Adam``
+    step;
+  * ``make_gs_train_step``: one iteration, one single-chain sampler launch.
+
+Finite temperature: ``make_beta_train_step``, one iteration of
+(occupation-state refresh, mixed-state sampler launch, kernel-chain update,
+Adam over the flow and the state logits).  ``make_multi_step`` runs K
+one-iteration steps with the metrics kept on the device.  Walkers stay
+coordinate-major (d, B) from the sampler through the update.
 """
 
 from __future__ import annotations
@@ -14,26 +22,45 @@ import dataclasses
 import torch
 
 from fermiflow_tpu_torch.config import Config
+from fermiflow_tpu_torch.mcmc import MCMCState, adapt_tau
 from fermiflow_tpu_torch.nn.backflow import Backflow
-from fermiflow_tpu_torch.ops.metropolis import metropolis_chains
+from fermiflow_tpu_torch.ops.metropolis import (
+    metropolis_chains,
+    metropolis_multistate_cm,
+    metropolis_single_cm,
+)
+from fermiflow_tpu_torch.vmc.beta import BetaVMC
 from fermiflow_tpu_torch.vmc.gs import GSVMC
 
-__all__ = ["TrainState", "init_gs_state", "make_adam",
-           "make_gs_fused_multi_step"]
+__all__ = ["TrainState", "init_gs_state", "init_beta_state", "make_adam",
+           "make_gs_fused_multi_step", "make_gs_train_step",
+           "make_beta_train_step", "make_multi_step"]
 
 
 @dataclasses.dataclass
 class TrainState:
-    flow: Backflow  # owns the parameters
+    flow: Backflow  # owns the flow parameters
     optimizer: torch.optim.Optimizer
     generator: torch.Generator  # host stream: sampler seeds, fresh walkers
     step: int
     walkers_cm: torch.Tensor  # (n*dim, batch) persistent chain positions
     tau: torch.Tensor  # (batch,) per-walker proposal scales
+    # Finite T only: the occupation-state logits (a parameter Adam updates),
+    # each walker's state and the probabilities it was drawn from, and the
+    # device stream the states are drawn from.
+    log_state_weights: torch.nn.Parameter | None = None
+    state_idx: torch.Tensor | None = None  # (batch,) int32
+    sample_probs: torch.Tensor | None = None  # (Nstates,)
+    device_generator: torch.Generator | None = None
 
     @property
     def params(self) -> dict:
-        return self.flow.params()
+        """The flow parameters, or for finite T ``{"flow": ...,
+        "log_state_weights": ...}`` as the JAX package's pytree."""
+        if self.log_state_weights is None:
+            return self.flow.params()
+        return {"flow": self.flow.params(),
+                "log_state_weights": self.log_state_weights}
 
     @property
     def walkers(self) -> torch.Tensor:
@@ -42,10 +69,17 @@ class TrainState:
         return self.walkers_cm.T.reshape(B, d // 2, 2)
 
 
-def make_adam(flow: Backflow, lr: float) -> torch.optim.Adam:
-    """Adam with ``optax.adam``'s defaults (b1=0.9, b2=0.999, eps=1e-8)."""
-    return torch.optim.Adam(flow.parameters(), lr=lr, betas=(0.9, 0.999),
-                            eps=1e-8)
+def make_adam(flow: Backflow, lr: float, extra=()) -> torch.optim.Adam:
+    """Adam with ``optax.adam``'s defaults (b1=0.9, b2=0.999, eps=1e-8) over
+    the flow's parameters and any ``extra`` ones."""
+    return torch.optim.Adam(list(flow.parameters()) + list(extra), lr=lr,
+                            betas=(0.9, 0.999), eps=1e-8)
+
+
+def _flow_on(params: dict, device, dtype) -> Backflow:
+    return Backflow({k: None if v is None else
+                     {kk: t.to(device=device, dtype=dtype) for kk, t in v.items()}
+                     for k, v in params.items()})
 
 
 def init_gs_state(model: GSVMC, params: dict, cfg: Config,
@@ -55,9 +89,7 @@ def init_gs_state(model: GSVMC, params: dict, cfg: Config,
     gen = torch.Generator().manual_seed(cfg.seed)
     d = model.n * model.basedist.dim
     walkers = torch.randn((d, cfg.batch), generator=gen, dtype=dtype)
-    flow = Backflow({k: None if v is None else
-                     {kk: t.to(device=device, dtype=dtype) for kk, t in v.items()}
-                     for k, v in params.items()})
+    flow = _flow_on(params, device, dtype)
     return TrainState(
         flow=flow,
         optimizer=make_adam(flow, cfg.lr),
@@ -68,21 +100,54 @@ def init_gs_state(model: GSVMC, params: dict, cfg: Config,
     )
 
 
+def _apply_grads(state: TrainState, grads: dict) -> None:
+    """Hand the kernel chain's gradients to the optimizer and step it."""
+    flow_grads = grads.get("flow", grads)
+    for name, mod in (("eta", state.flow.eta), ("mu", state.flow.mu)):
+        if mod is None:
+            continue
+        for k, p in mod.items():
+            p.grad = flow_grads[name][k].to(p.dtype)
+    if state.log_state_weights is not None:
+        state.log_state_weights.grad = grads["log_state_weights"].to(
+            state.log_state_weights.dtype)
+    state.optimizer.step()
+
+
 def _make_gs_update(model: GSVMC):
     """(state, z_cm) -> (loss, metrics): Eloc, REINFORCE gradient and one
     Adam step; the gradient comes from the kernel chain, not autograd."""
 
     def update(state: TrainState, z_cm: torch.Tensor):
         loss, metrics, grads = model.loss_metrics_grads_cm(state.params, z_cm)
-        for name, mod in (("eta", state.flow.eta), ("mu", state.flow.mu)):
-            if mod is None:
-                continue
-            for k, p in mod.items():
-                p.grad = grads[name][k].to(p.dtype)
-        state.optimizer.step()
+        _apply_grads(state, grads)
         return loss, metrics
 
     return update
+
+
+def _chain_start(state: TrainState, cfg: Config):
+    """(z0, steps, tau) of this iteration's chains: the persistent walkers
+    at their own tau, or fresh Gaussians at cfg.tau."""
+    if cfg.persistent_walkers:
+        return state.walkers_cm, cfg.mcmc_steps, state.tau
+    z0 = torch.randn(state.walkers_cm.shape, generator=state.generator,
+                     dtype=state.walkers_cm.dtype).to(state.walkers_cm.device)
+    return z0, cfg.equilibrium_steps, torch.full_like(state.tau, cfg.tau)
+
+
+def _new_seed(state: TrainState) -> int:
+    return int(torch.randint(0, 2**31 - 1, (1,), generator=state.generator))
+
+
+def _end_iteration(state: TrainState, cfg: Config, z: torch.Tensor,
+                   acc: torch.Tensor) -> None:
+    """Persist the chains; adapt tau per walker when they persist."""
+    state.walkers_cm = z
+    if cfg.persistent_walkers:
+        state.tau = adapt_tau(MCMCState(None, None, state.tau, acc),
+                              cfg.tau_target_accept, cfg.tau_gain)
+    state.step += 1
 
 
 def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
@@ -99,20 +164,13 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
     K = steps_per_call
 
     def multi(state: TrainState):
-        seed = int(torch.randint(0, 2**31 - 1, (1,), generator=state.generator))
-        dev, dtype = state.walkers_cm.device, state.walkers_cm.dtype
-        if cfg.persistent_walkers:
-            z0, n_steps, tau, reinit = (state.walkers_cm, cfg.mcmc_steps,
-                                        state.tau, False)
-        else:
-            z0 = torch.randn(state.walkers_cm.shape, generator=state.generator,
-                             dtype=dtype).to(dev)
-            n_steps, reinit = cfg.equilibrium_steps, True
-            tau = torch.full_like(state.tau, cfg.tau)
+        seed = _new_seed(state)
+        z0, n_steps, tau = _chain_start(state, cfg)
         zs, _, rates, tau_out = metropolis_chains(
             z0, tau, seed, steps=n_steps, segments=K, nx_occ=nx_up,
             ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
-            target=cfg.tau_target_accept, gain=cfg.tau_gain, reinit=reinit)
+            target=cfg.tau_target_accept, gain=cfg.tau_gain,
+            reinit=not cfg.persistent_walkers)
         rows = []
         for k in range(K):
             loss, metrics = update(state, zs[k])
@@ -124,3 +182,148 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
         return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     return multi
+
+
+def make_gs_train_step(model: GSVMC, cfg: Config):
+    """One ground-state iteration: a single-chain sampler launch (the
+    per-iteration kernel), the kernel-chain update and Adam.  Returns
+    ``step(state) -> (state, metrics)``."""
+    nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
+    update = _make_gs_update(model)
+
+    def step(state: TrainState):
+        seed = _new_seed(state)
+        z0, n_steps, tau = _chain_start(state, cfg)
+        z, _, acc = metropolis_single_cm(
+            z0, tau, seed, steps=n_steps, nx_occ=nx_up, ny_occ=ny_up,
+            nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells)
+        loss, metrics = update(state, z)
+        _end_iteration(state, cfg, z, acc)
+        return state, dict(metrics, accept_rate=acc.mean(), loss=loss)
+
+    return step
+
+
+def make_multi_step(step_fn, steps_per_call: int):
+    """K calls of a one-iteration ``step_fn``, metrics stacked to (K,) on the
+    device, so that the caller fetches them once per chunk."""
+
+    def multi(state: TrainState):
+        rows = []
+        for _ in range(steps_per_call):
+            state, metrics = step_fn(state)
+            rows.append(metrics)
+        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+    return multi
+
+
+# ---- finite temperature ----
+
+
+def _categorical(generator: torch.Generator, probs: torch.Tensor,
+                 n: int) -> torch.Tensor:
+    return torch.multinomial(probs, n, replacement=True,
+                             generator=generator).to(torch.int32)
+
+
+def _coupled_state_refresh(generator: torch.Generator, logits_new: torch.Tensor,
+                           probs_old: torch.Tensor, state_idx_old: torch.Tensor,
+                           u: torch.Tensor | None = None,
+                           redraw: torch.Tensor | None = None):
+    """Refresh per-walker occupation states to the current Categorical while
+    keeping as many walkers as possible on their previous state.
+
+    The maximal coupling of Categorical(p_old) and Categorical(p_new) keeps
+    state s with probability min(p_new, p_old)[s] / p_old[s] and otherwise
+    redraws from the normalized residual (p_new - p_old)_+: the new marginal
+    is exactly p_new, and only a TV(p_old, p_new) fraction of walkers switch
+    target densities (JAX ``train.py:_coupled_state_refresh``).  The keep
+    uniforms ``u`` and the residual draws ``redraw`` come from ``generator``
+    on the walkers' device unless given.
+
+    Returns (state_idx_new, p_new, switch_fraction).
+    """
+    p_new = torch.softmax(logits_new, dim=-1)
+    pmin = torch.minimum(p_new, probs_old)
+    idx = state_idx_old.long()
+    keep_prob = pmin[idx] / probs_old[idx].clamp_min(1e-30)
+    B = state_idx_old.shape[0]
+    if u is None:
+        u = torch.rand((B,), generator=generator, dtype=p_new.dtype,
+                       device=p_new.device)
+    keep = u < keep_prob
+    if redraw is None:
+        # When the distributions coincide the residual is ~0 and every walker
+        # keeps its state; the floor only keeps the draw well defined.
+        resid = torch.clamp(p_new - pmin, min=0.0)
+        redraw = _categorical(generator, resid + 1e-30, B)
+    state_idx = torch.where(keep, state_idx_old, redraw.to(state_idx_old.dtype))
+    return state_idx, p_new, 1.0 - keep.to(p_new.dtype).mean()
+
+
+def init_beta_state(model: BetaVMC, params: dict, cfg: Config,
+                    device: torch.device) -> TrainState:
+    """Fresh finite-T state: Gaussian walkers, tau = cfg.tau, and states
+    drawn from the initial logits, all from ``cfg.seed``.  ``params`` is
+    ``{"flow": ..., "log_state_weights": ...}``."""
+    dtype = cfg.torch_dtype()
+    gen = torch.Generator().manual_seed(cfg.seed)
+    dev_gen = torch.Generator(device).manual_seed(cfg.seed + 2)
+    d = model.n * model.basedist.dim
+    walkers = torch.randn((d, cfg.batch), generator=gen, dtype=dtype)
+    flow = _flow_on(params["flow"], device, dtype)
+    logits = torch.nn.Parameter(
+        params["log_state_weights"].detach().to(device=device, dtype=dtype)
+        .clone())
+    probs0 = torch.softmax(logits.detach(), dim=-1)
+    return TrainState(
+        flow=flow,
+        optimizer=make_adam(flow, cfg.lr, extra=[logits]),
+        generator=gen,
+        step=0,
+        walkers_cm=walkers.to(device),
+        tau=torch.full((cfg.batch,), cfg.tau, dtype=dtype, device=device),
+        log_state_weights=logits,
+        state_idx=_categorical(dev_gen, probs0, cfg.batch),
+        sample_probs=probs0,
+        device_generator=dev_gen,
+    )
+
+
+def make_beta_train_step(model: BetaVMC, cfg: Config):
+    """One finite-T iteration: the state refresh (maximal coupling with
+    persistent walkers, a fresh Categorical draw otherwise), one mixed-state
+    sampler launch, the kernel-chain update, Adam over the flow and the
+    logits, and tau adaptation.  Returns ``step(state) -> (state, metrics)``."""
+    _, _, kshells = model._qnum_tables()
+
+    def step(state: TrainState):
+        logits = state.log_state_weights.detach()
+        if cfg.persistent_walkers:
+            # Chains continue; states refresh by maximal coupling so almost
+            # every chain keeps its own target density and stays equilibrated.
+            state_idx, probs, switch_frac = _coupled_state_refresh(
+                state.device_generator, logits, state.sample_probs,
+                state.state_idx)
+        else:
+            probs = torch.softmax(logits, dim=-1)
+            state_idx = _categorical(state.device_generator, probs,
+                                     state.state_idx.shape[0])
+        seed = _new_seed(state)
+        z0, n_steps, tau = _chain_start(state, cfg)
+        nx_cm, ny_cm = model.qnums_cm(state_idx)
+        z, _, acc = metropolis_multistate_cm(
+            z0, tau, seed, steps=n_steps, nx_cm=nx_cm, ny_cm=ny_cm,
+            num_shells=kshells)
+        loss, metrics, grads = model.loss_metrics_grads_cm(state.params,
+                                                           state_idx, z)
+        _apply_grads(state, grads)
+        state.state_idx, state.sample_probs = state_idx, probs
+        _end_iteration(state, cfg, z, acc)
+        metrics = dict(metrics, accept_rate=acc.mean(), loss=loss)
+        if cfg.persistent_walkers:
+            metrics["state_switch_frac"] = switch_frac
+        return state, metrics
+
+    return step

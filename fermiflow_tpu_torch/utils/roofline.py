@@ -1,5 +1,5 @@
-"""Hand-counted work of the four ground-state kernels, and the least time an
-H100 could take for it.
+"""Hand-counted work of the port's kernels, and the least time an H100
+could take for it.
 
 A kernel's bound is the larger of (bytes it must move) / (memory rate) and
 (operations) / (FP32 rate): every input read once, every output written
@@ -7,6 +7,10 @@ once, and the flop-equivalents the algorithm needs on this call's shapes.
 Transcendentals (exp, log, sqrt, sin, cos) count as ~8 flop-equivalents, as
 the JAX package's ``bench.py`` counts them; ``sampler_flops`` and
 ``hflow_flops`` are copies of its ``_sampler_flops`` and ``_hflow_flops``.
+The mixed-state kernels do the ground-state sampler's and VGH's work at
+K = num_shells and also read each walker's 2n int32 quantum numbers; how an
+implementation picks the orbitals (selects here, one-hot FMAs on the TPU)
+is not counted.
 None of these kernels uses the tensor cores, so the FP32 rate is the
 denominator.
 """
@@ -15,7 +19,8 @@ from __future__ import annotations
 
 __all__ = ["H100_FP32_FLOPS", "H100_BYTES_PER_S", "bound_ms",
            "sampler_flops", "vgh_flops", "hflow_flops", "reinforce_flops",
-           "metropolis_work", "vgh_work", "hflow_work", "reinforce_work",
+           "metropolis_work", "metropolis_single_work", "metropolis_ms_work",
+           "vgh_work", "vgh_ms_work", "hflow_work", "reinforce_work",
            "reduce_work"]
 
 # Published H100 SXM peaks at the 700 W limit (NVIDIA data sheet): FP32
@@ -100,9 +105,30 @@ def metropolis_work(B, n, K, steps, segments):
     return flops, nbytes
 
 
+def metropolis_single_work(B, n, K, steps):
+    """(flops, bytes) of one fixed-tau chain: x0 and tau in; x, logp and
+    the accept rate out."""
+    d = 2 * n
+    return (B * (steps + 1) * sampler_flops(n, K),
+            F32 * (B * (d + 1) + B * (d + 2)))
+
+
+def metropolis_ms_work(B, n, K, steps):
+    """The fixed-tau chain at Hermite depth K with per-walker occupations:
+    the (n, B) int32 nx and ny are read as well."""
+    flops, nbytes = metropolis_single_work(B, n, K, steps)
+    return flops, nbytes + 4 * 2 * n * B
+
+
 def vgh_work(B, n, K):
     d = 2 * n
     return B * vgh_flops(n, K), F32 * B * (d + 1 + d + d * (d + 1) // 2)
+
+
+def vgh_ms_work(B, n, K):
+    """The Slater VGH at Hermite depth K with per-walker occupations."""
+    flops, nbytes = vgh_work(B, n, K)
+    return flops, nbytes + 4 * 2 * n * B
 
 
 def hflow_work(B, n, d_eta, d_mu, steps, stages):

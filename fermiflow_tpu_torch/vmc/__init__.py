@@ -1,3 +1,4 @@
+from fermiflow_tpu_torch.vmc.beta import BetaVMC
 from fermiflow_tpu_torch.vmc.gs import GSVMC
 
-__all__ = ["GSVMC"]
+__all__ = ["BetaVMC", "GSVMC"]

@@ -1,0 +1,215 @@
+"""Finite-temperature variational Monte Carlo (port of ``fermiflow_tpu/vmc/beta.py``).
+
+A learnable Categorical over the truncated many-body Slater basis (logits
+``log_state_weights``), composed with the shared flow.  Estimators:
+
+    Floc = Eloc + logp_states / beta
+    S    = -mean(logp_states)            (MC entropy)
+    S_an = -sum(p log p)                 (von Neumann, analytic)
+
+Two REINFORCE surrogate losses over disjoint parameter groups:
+
+    loss_phi   = mean[logp_states (Floc - F)]       (occupation logits)
+    loss_theta = mean[logp_full (Eloc - E_state)]   (flow parameters)
+
+with E_state the mean Eloc of the walkers in the same state.  Every walker
+carries a dense state index; the per-state sums are a one-hot (Nstates, B)
+product, which sums in a fixed order on every device (JAX: ``segment_sum``).
+
+Two gradient paths, as in ``vmc/gs.py``:
+  * ``loss_and_metrics_from_base``: the autograd reference, any dtype;
+  * ``loss_metrics_grads_cm``: no autograd.  Mixed-state Slater VGH ->
+    Hessian flow -> Eloc -> phi loss and weights -> REINFORCE adjoint, on
+    coordinate-major (rows, B) buffers.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import numpy as np
+import torch
+
+from fermiflow_tpu_torch.flow.cnf import CNF
+from fermiflow_tpu_torch.physics.base_dist import FreeFermion
+from fermiflow_tpu_torch.physics.orbitals import HO2D
+from fermiflow_tpu_torch.vmc.gs import (
+    GSVMC,
+    KERNEL_OPS,
+    ChainOps,
+    _detach,
+    flow_local_energy_cm,
+)
+from fermiflow_tpu_torch.vmc.hessian_flow import local_energy_flow
+
+__all__ = ["BetaVMC"]
+
+
+class BetaVMC:
+    """Finite-T VMC model.  Parameters: ``{"flow": flow params,
+    "log_state_weights": (Nstates,)}``."""
+
+    def __init__(self, beta: float, nup: int, ndown: int, deltaE: float,
+                 orbitals: HO2D, basedist: FreeFermion, cnf: CNF,
+                 pair_potential: Callable, sp_potential: Callable | None = None,
+                 ops: ChainOps = KERNEL_OPS):
+        self.beta = beta
+        self.nup, self.ndown = nup, ndown
+        self.n = nup + ndown
+        occ, Es = orbitals.fermion_states(nup, ndown, deltaE)
+        self.occ_table = occ  # (Nstates, nup) numpy int32
+        self.Es_original = Es  # (Nstates,) numpy float64
+        self.Nstates = occ.shape[0]
+        self.basedist = basedist
+        self.cnf = cnf
+        self.pair_potential = pair_potential
+        self.sp_potential = sp_potential
+        self.ops = ops
+        self._state_qnums = {}  # device -> (nx, ny) tables, (n, Nstates) int32
+
+    def init_log_state_weights(self, boltzmann: bool,
+                               generator: torch.Generator | None = None,
+                               dtype=torch.float64, device=None) -> torch.Tensor:
+        """Boltzmann init -beta (E_s - E_0), or standard Gaussian logits drawn
+        from ``generator``."""
+        if boltzmann:
+            Es = self.Es_original
+            return torch.as_tensor(-self.beta * (Es - Es[0]), dtype=dtype,
+                                   device=device)
+        if generator is None:
+            raise ValueError("random init requires a generator")
+        return torch.randn((self.Nstates,), generator=generator, dtype=dtype,
+                           device=generator.device).to(device)
+
+    # -- likelihood --
+
+    def log_prob(self, flow_params, x: torch.Tensor,
+                 state_idx: torch.Tensor) -> torch.Tensor:
+        """Conditional log p_theta(x | state) via the reverse flow."""
+        z, delta_logp = self.cnf.delta_logp(flow_params, x)
+        return (self.basedist.log_prob_multstates(self.occ_table, state_idx, z)
+                - delta_logp)
+
+    # The same potential as the ground state's (pair + one-body terms).
+    potential = GSVMC.potential
+    potential_rows = GSVMC.potential_rows
+
+    def _qnum_tables(self):
+        """(nx_tab, ny_tab, kshells): the orbitals' quantum-number tables and
+        the Hermite depth covering the truncated state space."""
+        orb = self.basedist.orbitals
+        ks = int(max(orb.nx[self.occ_table].max(),
+                     orb.ny[self.occ_table].max())) + 1
+        return orb.nx, orb.ny, ks
+
+    def qnums_cm(self, state_idx: torch.Tensor):
+        """(nx_cm, ny_cm): (n, B) int32 quantum numbers of each walker's
+        occupied orbitals, on ``state_idx``'s device, walkers contiguous."""
+        dev = state_idx.device
+        tabs = self._state_qnums.get(dev)
+        if tabs is None:
+            nx_tab, ny_tab, _ = self._qnum_tables()
+            tabs = self._state_qnums[dev] = tuple(
+                torch.as_tensor(np.ascontiguousarray(t[self.occ_table].T),
+                                dtype=torch.int32, device=dev)
+                for t in (nx_tab, ny_tab))
+        idx = state_idx.long()
+        return tabs[0][:, idx].contiguous(), tabs[1][:, idx].contiguous()
+
+    # -- Hessian-flow path: local energy directly from base samples --
+
+    def local_energy_from_base(self, flow_params, state_idx: torch.Tensor,
+                               z: torch.Tensor, return_grad: bool = False):
+        """(x, eloc, logp[, g]) by the plain Hessian flow from z (B, n, dim),
+        each walker in its own Slater state."""
+        return local_energy_flow(
+            self.cnf.field_tensors,
+            lambda z_: self.basedist.log_prob_vgh_multstates(
+                self.occ_table, state_idx, z_),
+            self.potential, flow_params, z, self.cnf.t0, self.cnf.t1,
+            steps=self.cnf.steps, method=self.cnf.method,
+            return_grad=return_grad)
+
+    def _state_sums(self, state_idx: torch.Tensor, *values: torch.Tensor):
+        """Per-state walker counts and per-state sums of each value (B,),
+        by a one-hot (Nstates, B) product."""
+        states = torch.arange(self.Nstates, device=state_idx.device)
+        onehot = (state_idx[None, :] == states[:, None]).to(values[0].dtype)
+        return (onehot.sum(1),) + tuple(onehot @ v for v in values)
+
+    def _observables(self, logits: torch.Tensor, state_idx: torch.Tensor,
+                     eloc: torch.Tensor):
+        """(floc, F, metrics) from detached logits and local energies."""
+        lps_all = torch.log_softmax(logits, dim=-1)
+        lps = lps_all[state_idx]
+        floc = eloc + lps / self.beta
+        F = torch.mean(floc)
+        metrics = {
+            "E": torch.mean(eloc), "E_std": torch.std(eloc, correction=0),
+            "F": F, "F_std": torch.std(floc, correction=0),
+            "S": -torch.mean(lps),
+            "S_analytical": -torch.sum(lps_all * torch.exp(lps_all)),
+        }
+        return floc, F, metrics
+
+    def _losses_from_eloc(self, params, state_idx, x, eloc):
+        """Both surrogate losses (differentiable in params) and the metrics,
+        given detached local energies."""
+        logits = params["log_state_weights"]
+        logp = self.log_prob(params["flow"], x, state_idx)
+        floc, F, metrics = self._observables(logits.detach(), state_idx, eloc)
+        lps = torch.log_softmax(logits, dim=-1)[state_idx]
+        loss_phi = torch.mean(lps * (floc - F))
+        counts, sums = self._state_sums(state_idx, eloc)
+        baseline = (sums / counts.clamp_min(1.0))[state_idx]
+        loss_theta = torch.mean(logp * (eloc - baseline))
+        return loss_phi + loss_theta, metrics
+
+    def loss_and_metrics_from_base(self, params, state_idx: torch.Tensor,
+                                   z: torch.Tensor):
+        """Surrogate loss and metrics from base samples z (B, n, dim); the
+        local energy comes from the Hessian flow under detached parameters."""
+        with torch.no_grad():
+            x, eloc, _ = self.local_energy_from_base(
+                _detach(params["flow"]), state_idx, z)
+        return self._losses_from_eloc(params, state_idx, x, eloc)
+
+    def _phi_loss_and_weights(self, params, state_idx: torch.Tensor,
+                              eloc: torch.Tensor):
+        """(w, loss_phi, grad_logits, metrics): the phi loss and its gradient
+        in closed form, and the per-state-baselined theta weights w (B,).
+
+        d/dl mean_b log_softmax(l)[s_b] c_b = (sum_{b: s_b = s} c_b
+        - p_s sum_b c_b) / B with c = Floc - F held fixed.
+        """
+        logits = params["log_state_weights"].detach()
+        B = eloc.shape[0]
+        floc, F, metrics = self._observables(logits, state_idx, eloc)
+        c = floc - F
+        lps_all = torch.log_softmax(logits, dim=-1)
+        loss_phi = torch.mean(lps_all[state_idx] * c)
+        counts, sums, c_sums = self._state_sums(state_idx, eloc, c)
+        grad_logits = (c_sums - torch.exp(lps_all) * c.sum()) / B
+        baseline = (sums / counts.clamp_min(1.0))[state_idx]
+        w = (eloc - baseline) / B
+        return w, loss_phi, grad_logits, metrics
+
+    @torch.no_grad()
+    def loss_metrics_grads_cm(self, params, state_idx: torch.Tensor,
+                              z_cm: torch.Tensor):
+        """(loss, metrics, grads) for base walkers z_cm (d, B) in states
+        state_idx (B,), with no autograd: the kernel chain of ``self.ops``."""
+        flow = _detach(params["flow"])
+        cnf = self.cnf
+        nx_cm, ny_cm = self.qnums_cm(state_idx)
+        _, _, ks = self._qnum_tables()
+        y, g0, Hp0 = self.ops.slater_vgh_ms(z_cm, nx_cm, ny_cm, ks)
+        x, eloc, logp, g = flow_local_energy_cm(self, flow, z_cm, y, g0, Hp0)
+        w, loss_phi, grad_logits, metrics = self._phi_loss_and_weights(
+            params, state_idx, eloc)
+        grads_flow, _ = self.ops.reinforce(flow, x, g, w.contiguous(), cnf.t0,
+                                           cnf.t1, steps=cnf.steps,
+                                           method=cnf.method)
+        loss = loss_phi + torch.sum(w * logp)
+        return loss, metrics, {"flow": grads_flow,
+                               "log_state_weights": grad_logits}

@@ -24,31 +24,57 @@ from fermiflow_tpu_torch.ops.hessian_flow import (
     hessian_flow_cm_plain,
 )
 from fermiflow_tpu_torch.ops.reinforce import reinforce_cm, reinforce_cm_plain
-from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_cm, slater_vgh_cm_plain
+from fermiflow_tpu_torch.ops.slater_vgh import (
+    slater_vgh_cm,
+    slater_vgh_cm_plain,
+    slater_vgh_ms_cm,
+    slater_vgh_ms_cm_plain,
+)
 from fermiflow_tpu_torch.physics.base_dist import FreeFermion
 from fermiflow_tpu_torch.vmc.hessian_flow import local_energy_flow
 
-__all__ = ["GSVMC", "ChainOps", "KERNEL_OPS", "PLAIN_OPS"]
+__all__ = ["GSVMC", "ChainOps", "KERNEL_OPS", "PLAIN_OPS",
+           "flow_local_energy_cm"]
 
 
 class ChainOps(NamedTuple):
-    """The three coordinate-major operations the no-autograd update chains."""
+    """The coordinate-major operations the no-autograd updates chain (the
+    finite-T update takes the mixed-state VGH in place of ``slater_vgh``)."""
 
     slater_vgh: Callable
     hessian_flow: Callable
     reinforce: Callable
+    slater_vgh_ms: Callable
 
 
 # The kernel wrappers (plain versions only for CPU tensors), and the plain
 # versions on any device, which chip_smoke.py holds the kernels against.
-KERNEL_OPS = ChainOps(slater_vgh_cm, hessian_flow_cm, reinforce_cm)
+KERNEL_OPS = ChainOps(slater_vgh_cm, hessian_flow_cm, reinforce_cm,
+                      slater_vgh_ms_cm)
 PLAIN_OPS = ChainOps(slater_vgh_cm_plain, hessian_flow_cm_plain,
-                     reinforce_cm_plain)
+                     reinforce_cm_plain, slater_vgh_ms_cm_plain)
 
 
 def _detach(params):
     return {k: None if v is None else {kk: t.detach() for kk, t in v.items()}
             for k, v in params.items()}
+
+
+def flow_local_energy_cm(model, params, z_cm: torch.Tensor, y: torch.Tensor,
+                         g0: torch.Tensor, Hp0: torch.Tensor):
+    """Hessian flow from base samples z_cm (d, B) and their base (y, g0, Hp0)
+    -> x (d, B), eloc (B,), logp (B,), g (d, B), through ``model.ops``."""
+    d = z_cm.shape[0]
+    cnf = model.cnf
+    x, logp, g, Hp = model.ops.hessian_flow(params, z_cm, y, g0, Hp0, cnf.t0,
+                                            cnf.t1, steps=cnf.steps,
+                                            method=cnf.method)
+    # Diagonal (p, p) of the packed upper triangle sits at row p*d - p(p-1)/2.
+    diag = [p * d - p * (p - 1) // 2 for p in range(d)]
+    lap = Hp[diag].sum(0)
+    eloc = -0.25 * lap - 0.125 * torch.sum(g * g, dim=0) \
+        + model.potential_rows(x)
+    return x, eloc, logp, g
 
 
 class GSVMC:
@@ -131,19 +157,9 @@ class GSVMC:
         buffer stays (rows, B).
         """
         params = _detach(params)
-        d = z_cm.shape[0]
-        cnf = self.cnf
         nx_up, ny_up, nx_dn, ny_dn, ks = self.occ_qnums()
         y, g0, Hp0 = self.ops.slater_vgh(z_cm, nx_up, ny_up, ks, nx_dn, ny_dn)
-        x, logp, g, Hp = self.ops.hessian_flow(params, z_cm, y, g0, Hp0,
-                                               cnf.t0, cnf.t1, steps=cnf.steps,
-                                               method=cnf.method)
-        # Diagonal (p, p) of the packed upper triangle sits at row p*d - p(p-1)/2.
-        diag = [p * d - p * (p - 1) // 2 for p in range(d)]
-        lap = Hp[diag].sum(0)
-        eloc = -0.25 * lap - 0.125 * torch.sum(g * g, dim=0) \
-            + self.potential_rows(x)
-        return x, eloc, logp, g
+        return flow_local_energy_cm(self, params, z_cm, y, g0, Hp0)
 
     @torch.no_grad()
     def loss_metrics_grads_cm(self, params, z_cm: torch.Tensor):

@@ -20,14 +20,25 @@ from fermiflow_tpu_torch.ops.hessian_flow import (
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
     metropolis_chains_plain,
+    metropolis_multistate_cm,
+    metropolis_multistate_cm_plain,
+    metropolis_single_cm,
+    metropolis_single_cm_plain,
 )
 from fermiflow_tpu_torch.ops.reinforce import (
     block_sum,
     reinforce_cm,
     reinforce_cm_plain,
 )
-from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_cm, slater_vgh_cm_plain
+from fermiflow_tpu_torch.ops.slater_vgh import (
+    slater_vgh_cm,
+    slater_vgh_cm_plain,
+    slater_vgh_ms_cm,
+    slater_vgh_ms_cm_plain,
+)
 from fermiflow_tpu_torch.physics import HO2D
+
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -155,3 +166,93 @@ def test_reinforce_kernels_match_plain(cuda, d_mu, B):
     assert torch.equal(s1, s2)
     torch.testing.assert_close(s1.double(), parts.double().sum(0), rtol=1e-5,
                                atol=1e-5)
+
+
+# ---- the per-iteration and mixed-state kernels ----
+
+
+def ms_inputs(device, nup, B, seed=4, deltaE=2.0):
+    """Walkers equilibrated by the mixed-state kernel in states drawn
+    uniformly from the deltaE table, and the states' quantum numbers."""
+    occ_table, _ = ORB.fermion_states(nup, 0, deltaE)
+    ks = int(max(ORB.nx[occ_table].max(), ORB.ny[occ_table].max())) + 1
+    gen = torch.Generator(device=device).manual_seed(seed)
+    idx = torch.randint(0, occ_table.shape[0], (B,), generator=gen,
+                        device=device)
+    occ = torch.as_tensor(occ_table, device=device).long()[idx]
+    nx = torch.as_tensor(ORB.nx, device=device)[occ].T.contiguous()
+    ny = torch.as_tensor(ORB.ny, device=device)[occ].T.contiguous()
+    x0 = torch.randn((2 * nup, B), generator=gen, device=device)
+    tau = torch.full((B,), 0.3, device=device)
+    x, _, _ = metropolis_multistate_cm(x0, tau, seed, steps=200, nx_cm=nx,
+                                       ny_cm=ny, num_shells=ks)
+    return x, nx, ny, ks, gen
+
+
+def _agree_on_shared_stream(k, p):
+    """Positions equal on all but a rare walker whose accept decision
+    flips on the last bit of exp(); logp and rates agree on the rest."""
+    agree = (k[0] - p[0]).abs().amax(dim=0) == 0
+    assert float(agree.double().mean()) >= 0.95
+    torch.testing.assert_close(k[1][agree], p[1][agree], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(k[2][agree], p[2][agree], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 1000), (2, 1, 33)])
+def test_single_chain_kernel_matches_plain_on_shared_stream(cuda, nup, ndown,
+                                                            B):
+    n = nup + ndown
+    x0 = equilibrated(cuda, nup, ndown, B)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    steps = 20
+    noise = (torch.randn((steps, 2 * n, B), generator=gen, device=cuda),
+             torch.rand((steps, B), generator=gen, device=cuda).clamp_min(1e-12))
+    tau = torch.full((B,), 0.2, device=cuda)
+    kw = dict(steps=steps, noise=noise, **occ(nup, ndown))
+    before = _build.LAUNCHES["metropolis_single"]
+    k = metropolis_single_cm(x0, tau, 0, **kw)
+    p = metropolis_single_cm_plain(x0, tau, 0, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["metropolis_single"] == before + 1
+    _agree_on_shared_stream(k, p)
+
+
+@pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37)])
+def test_multistate_kernel_matches_plain_on_shared_stream(cuda, nup, B):
+    x0, nx, ny, ks, gen = ms_inputs(cuda, nup, B)
+    steps = 20
+    noise = (torch.randn((steps, 2 * nup, B), generator=gen, device=cuda),
+             torch.rand((steps, B), generator=gen, device=cuda).clamp_min(1e-12))
+    tau = torch.full((B,), 0.2, device=cuda)
+    kw = dict(steps=steps, nx_cm=nx, ny_cm=ny, num_shells=ks, noise=noise)
+    before = _build.LAUNCHES["metropolis_multistate"]
+    k = metropolis_multistate_cm(x0, tau, 0, **kw)
+    p = metropolis_multistate_cm_plain(x0, tau, 0, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["metropolis_multistate"] == before + 1
+    _agree_on_shared_stream(k, p)
+    # A quantum number beyond the compiled depth marks the walker NaN.
+    bad = nx.clone()
+    bad[0, 0] = 99
+    xb, lb, ab = metropolis_multistate_cm(x0, tau, 1, steps=2, nx_cm=bad,
+                                          ny_cm=ny, num_shells=ks)
+    assert torch.isnan(lb[0]) and torch.isfinite(lb[1:]).all()
+
+
+@pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37)])
+def test_slater_vgh_ms_kernel_matches_plain(cuda, nup, B):
+    z, nx, ny, ks, _ = ms_inputs(cuda, nup, B)
+    before = _build.LAUNCHES["slater_vgh_ms"]
+    k = slater_vgh_ms_cm(z, nx, ny, ks)
+    r = slater_vgh_ms_cm_plain(z.double(), nx, ny, ks)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["slater_vgh_ms"] == before + 1
+    # tests/test_pallas_slater_vgh.py's f32 tolerances for y, g, H.
+    for a, b, tol in zip(k, r, (2e-4, 3e-3, 5e-3)):
+        assert a.shape == b.shape
+        torch.testing.assert_close(a.double(), b, rtol=tol, atol=tol)
+    bad = ny.clone()
+    bad[1, 2] = -1
+    yb, gb, hb = slater_vgh_ms_cm(z, nx, bad, ks)
+    assert torch.isnan(yb[2]) and torch.isnan(hb[:, 2]).all()
+    assert torch.isfinite(yb[:2]).all()

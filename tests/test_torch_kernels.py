@@ -1,4 +1,4 @@
-"""The port's four kernel modules, through their plain versions, against the
+"""The port's kernel modules, through their plain versions, against the
 JAX package's Pallas kernels run in interpret mode (float32, CPU).
 
 The CUDA kernels run only on the card (``chip_smoke.py`` holds them against
@@ -9,7 +9,8 @@ those of the JAX package's own interpret tests of the same kernel
 
 Every Pallas call uses one set of shapes (N=3, B=64, d_eta=d_mu=8, dopri5,
 2 steps) and the call signature ``GSVMC.loss_metrics_grads_pallas`` uses, so
-the whole-update test at the end reuses the compiled interpret programs.
+the whole-update tests at the end (ground state and finite T, N=3 with
+deltaE=2: 21 states) reuse the compiled interpret programs.
 """
 
 import numpy as np
@@ -27,13 +28,18 @@ from fermiflow_tpu.nn.backflow import backflow_apply as j_apply
 from fermiflow_tpu.nn.backflow import backflow_divergence as j_div
 from fermiflow_tpu.nn.backflow_derivs import backflow_field_tensors as j_ft
 from fermiflow_tpu.ops.pallas_hessian_flow import hessian_flow_pallas
+from fermiflow_tpu.ops.pallas_metropolis import metropolis_free_fermion as j_single
 from fermiflow_tpu.ops.pallas_metropolis import metropolis_free_fermion_chains as j_chains
+from fermiflow_tpu.ops.pallas_metropolis import (
+    metropolis_free_fermion_multistate as j_multistate,
+)
 from fermiflow_tpu.ops.pallas_reinforce import reinforce_flow_grad_pallas
-from fermiflow_tpu.ops.pallas_slater_vgh import slater_vgh_pallas
+from fermiflow_tpu.ops.pallas_slater_vgh import slater_vgh_ms_pallas, slater_vgh_pallas
 from fermiflow_tpu.physics import HO2D as JHO2D
 from fermiflow_tpu.physics import CoulombPairPotential as JCoulomb
 from fermiflow_tpu.physics import FreeFermion as JFreeFermion
 from fermiflow_tpu.physics import HOPotential as JHO
+from fermiflow_tpu.vmc import BetaVMC as JBetaVMC
 from fermiflow_tpu.vmc import GSVMC as JGSVMC
 
 from fermiflow_tpu_torch.flow import CNF
@@ -47,10 +53,13 @@ from fermiflow_tpu_torch.ode import odeint
 from fermiflow_tpu_torch.ops.hessian_flow import hessian_flow_packed
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
+    metropolis_free_fermion,
     metropolis_free_fermion_chains,
+    metropolis_free_fermion_multistate,
+    metropolis_multistate_cm,
 )
 from fermiflow_tpu_torch.ops.reinforce import block_sum, reinforce_flow_grad
-from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, slater_vgh
+from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, slater_vgh, slater_vgh_ms
 from fermiflow_tpu_torch.physics import (
     HO2D,
     CoulombPairPotential,
@@ -58,7 +67,7 @@ from fermiflow_tpu_torch.physics import (
     HOPotential,
 )
 from fermiflow_tpu_torch.train import TrainState, _make_gs_update, make_adam
-from fermiflow_tpu_torch.vmc import GSVMC
+from fermiflow_tpu_torch.vmc import BetaVMC, GSVMC
 
 from _torch_port import (
     flat_np,
@@ -69,8 +78,38 @@ from _torch_port import (
     walkers,
 )
 
+torch.set_num_threads(1)
+
+
+def finished(out):
+    """``out`` once every array in it is computed.
+
+    A Pallas call in interpret mode runs io_callbacks that dispatch JAX work
+    of their own.  JAX work dispatched from the test's thread while those
+    callbacks run can deadlock the CPU client: ``optax``'s update right after
+    ``loss_metrics_grads_pallas``, both eager, hung about one run in ten.  So
+    every interpret-mode result here is waited for before the next JAX call.
+    """
+    return jax.block_until_ready(out)
+
+
+def finishing(fn):
+    """``fn`` whose results are ``finished`` before it returns."""
+    return lambda *args, **kwargs: finished(fn(*args, **kwargs))
+
+
 B, STEPS, METHOD, T0, T1 = 64, 2, "dopri5", 0.0, 1.0
 ORB = HO2D()
+OCC_MS, _ = ORB.fermion_states(3, 0, 2.0)  # 21 states, quantum numbers < 4
+KS_MS = 4
+
+
+def ms_qnums(seed):
+    """Uniformly drawn states of the N=3, deltaE=2 table and their (B, n)
+    quantum numbers."""
+    idx = np.random.default_rng(seed).integers(0, len(OCC_MS), B)
+    occ = OCC_MS[idx]
+    return idx, ORB.nx[occ].astype(np.int32), ORB.ny[occ].astype(np.int32)
 
 
 def qnums(nup, ndown):
@@ -108,8 +147,8 @@ def inputs():
 def test_slater_vgh_plain_matches_pallas_interpret(inputs, nup, ndown):
     z, _ = inputs
     nx_up, ny_up, nx_dn, ny_dn, ks = qnums(nup, ndown)
-    jy, jg, jH = slater_vgh_pallas(jnp.asarray(z), nx_up, ny_up, ks, nx_dn,
-                                   ny_dn, interpret=True)
+    jy, jg, jH = finished(slater_vgh_pallas(jnp.asarray(z), nx_up, ny_up, ks,
+                                            nx_dn, ny_dn, interpret=True))
     y, g, Hp = slater_vgh(torch.as_tensor(z), nx_up, ny_up, ks, nx_dn, ny_dn)
     iu = np.triu_indices(6)
     # tests/test_pallas_slater_vgh.py: y 2e-4, g 3e-3, H 5e-3, no violations.
@@ -123,6 +162,25 @@ def test_slater_vgh_plain_matches_pallas_interpret(inputs, nup, ndown):
         np.asarray(jH)[:, iu[0], iu[1]])
 
 
+# ---- kernel 6: Slater value / gradient / packed Hessian, per-walker states ----
+
+
+def test_slater_vgh_ms_plain_matches_pallas_interpret():
+    """The mixed-state VGH's plain version against ``slater_vgh_ms_pallas``
+    (packed H) on walkers in uniformly drawn states, at the tolerances of
+    tests/test_pallas_slater_vgh.py:117."""
+    idx, nx, ny = ms_qnums(26)
+    x = walkers(27, B, 3, dtype=np.float32)
+    jy, jg, jH = finished(slater_vgh_ms_pallas(
+        jnp.asarray(x), jnp.asarray(nx), jnp.asarray(ny), KS_MS,
+        interpret=True, packed=True))
+    y, g, Hp = slater_vgh_ms(torch.as_tensor(x), torch.as_tensor(nx),
+                             torch.as_tensor(ny), KS_MS)
+    np.testing.assert_allclose(y.numpy(), np.asarray(jy), rtol=2e-4, atol=2e-4)
+    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=3e-3, atol=3e-3)
+    np.testing.assert_allclose(Hp.numpy(), np.asarray(jH), rtol=5e-3, atol=5e-3)
+
+
 # ---- kernel 3: Hessian flow ----
 
 
@@ -130,10 +188,11 @@ def test_hessian_flow_plain_matches_pallas_interpret(inputs):
     z, p = inputs
     nx_up, ny_up, nx_dn, ny_dn, ks = qnums(3, 0)
     jz = jnp.asarray(z)
-    jy, jg, jH = slater_vgh_pallas(jz, nx_up, ny_up, ks, nx_dn, ny_dn,
-                                   interpret=True)
-    ref = hessian_flow_pallas(jax_params(p), jz, jy, jg, jH, T0, T1,
-                              steps=STEPS, method=METHOD, interpret=True)
+    jy, jg, jH = finished(slater_vgh_pallas(jz, nx_up, ny_up, ks, nx_dn, ny_dn,
+                                            interpret=True))
+    ref = finished(hessian_flow_pallas(jax_params(p), jz, jy, jg, jH, T0, T1,
+                                       steps=STEPS, method=METHOD,
+                                       interpret=True))
     iu = np.triu_indices(6)
     out = hessian_flow_packed(
         torch_params(p, torch.float32), torch.as_tensor(z),
@@ -209,9 +268,9 @@ def test_reinforce_plain_matches_autograd_oracle_f64(d_mu):
 def test_reinforce_plain_matches_pallas_interpret(inputs):
     _, p = inputs
     x1, ghat, w = (a.astype(np.float32) for a in _reinforce_inputs(24))
-    jgrads, jz = reinforce_flow_grad_pallas(
+    jgrads, jz = finished(reinforce_flow_grad_pallas(
         jax_params(p), jnp.asarray(x1), jnp.asarray(ghat), jnp.asarray(w),
-        T0, T1, steps=STEPS, method=METHOD, interpret=True)
+        T0, T1, steps=STEPS, method=METHOD, interpret=True))
     grads, z_back = reinforce_flow_grad(
         torch_params(p, torch.float32), torch.as_tensor(x1),
         torch.as_tensor(ghat), torch.as_tensor(w), T0, T1, STEPS, METHOD)
@@ -272,10 +331,10 @@ def test_metropolis_plain_matches_pallas_interpret(inputs, reinit, nup, ndown):
     else:
         tau0 = np.linspace(0.05, 0.2, B)
     tau0 = tau0.astype(np.float32)
-    jxs, jlp, jrate, jtau = j_chains(
+    jxs, jlp, jrate, jtau = finished(j_chains(
         jnp.asarray(x0), 7, jnp.asarray(tau0), steps, S, nx_up, ny_up, ks,
         interpret=True, nx_dn=nx_dn, ny_dn=ny_dn, target=0.5, gain=gain,
-        reinit=reinit)
+        reinit=reinit))
     xs, lp, rate, tau = metropolis_free_fermion_chains(
         torch.as_tensor(x0), 7, torch.as_tensor(tau0), steps, S, nx_up, ny_up,
         ks, nx_dn, ny_dn, target=0.5, gain=gain, reinit=reinit,
@@ -326,6 +385,56 @@ def test_metropolis_segments_equal_chained_single_segments(inputs, reinit):
     assert 0.2 < float(rate.mean()) < 0.95
 
 
+# ---- kernels 5 and 7: one fixed-tau chain, static and per-walker states ----
+
+
+@pytest.mark.parametrize("steps", [0, 4])
+@pytest.mark.parametrize("kind", ["single", "multistate"])
+def test_single_chain_plain_matches_pallas_interpret(inputs, kind, steps):
+    """The single-segment sampler (kernel 5) and the mixed-state sampler
+    (kernel 7), plain versions, against the TPU kernels in interpret mode.
+
+    At steps=0 the chain is its start: logp against the kernel's and against
+    ``FreeFermion.log_prob[_multstates]`` (tests/test_pallas_metropolis.py:36
+    and :76, atol 1e-4 and 1e-3).  At steps=4 both run on the interpreter's
+    stubbed random stream, as the multi-segment test above."""
+    z, _ = inputs
+    x0 = 0.5 * z
+    tau0 = np.linspace(0.05, 0.2, B).astype(np.float32)
+    normals, uniforms = _interpret_noise(1, steps, 3)
+    noise = (normals[0, :steps], uniforms[0])
+    if kind == "single":
+        nx_up, ny_up, _, _, ks = qnums(3, 0)
+        jx, jlp, jacc = finished(j_single(jnp.asarray(x0), 7, jnp.asarray(tau0),
+                                          steps, nx_up, ny_up, ks,
+                                          interpret=True))
+        x, lp, acc = metropolis_free_fermion(
+            torch.as_tensor(x0), 7, torch.as_tensor(tau0), steps, nx_up,
+            ny_up, ks, noise=noise)
+        ref = JFreeFermion(JHO2D()).log_prob(np.arange(3), (),
+                                             jnp.asarray(x0, jnp.float64))
+        ref_atol = 1e-4
+    else:
+        idx, nx, ny = ms_qnums(28)
+        jx, jlp, jacc = finished(j_multistate(
+            jnp.asarray(x0), 7, jnp.asarray(tau0), steps, jnp.asarray(nx),
+            jnp.asarray(ny), KS_MS, interpret=True))
+        x, lp, acc = metropolis_free_fermion_multistate(
+            torch.as_tensor(x0), 7, torch.as_tensor(tau0), steps,
+            torch.as_tensor(nx), torch.as_tensor(ny), KS_MS, noise=noise)
+        ref = JFreeFermion(JHO2D()).log_prob_multstates(
+            jnp.asarray(OCC_MS), jnp.asarray(idx), jnp.asarray(x0, jnp.float64))
+        ref_atol = 1e-3
+    np.testing.assert_allclose(x.numpy(), np.asarray(jx), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(lp.numpy(), np.asarray(jlp), rtol=1e-5, atol=1e-4)
+    np.testing.assert_array_equal(acc.numpy(), np.asarray(jacc))
+    if steps == 0:
+        np.testing.assert_array_equal(x.numpy(), x0)
+        np.testing.assert_allclose(lp.numpy(), np.asarray(ref), atol=ref_atol)
+    else:
+        assert 0.0 < float(acc.mean()) < 1.0
+
+
 # ---- the whole update: Slater VGH -> Hessian flow -> Eloc -> REINFORCE -> Adam ----
 
 
@@ -352,6 +461,8 @@ def test_update_and_adam_match_jax_pallas_path(inputs):
     z, p = inputs
     lr = 1e-3
     model, jmodel = _models(p)
+    # The JAX update calls this method, then optax: see ``finished``.
+    jmodel.loss_metrics_grads_pallas = finishing(jmodel.loss_metrics_grads_pallas)
     jcfg = JConfig(nup=3, batch=B, dtype="float32", ode_steps=STEPS,
                    pallas_local_energy=True, pallas_interpret=True, lr=lr)
     jopt = optax.adam(lr)
@@ -384,3 +495,74 @@ def test_update_and_adam_match_jax_pallas_path(inputs):
         update(state, z_cm)
         np.testing.assert_allclose(flat_torch(state.params),
                                    flat_np(jp_new), rtol=1e-5, atol=1e-7)
+
+
+def test_beta_update_and_adam_match_jax_pallas_path():
+    """The port's finite-T no-autograd update (``BetaVMC.loss_metrics_grads_cm``:
+    mixed-state VGH -> Hessian flow -> Eloc -> phi loss and per-state
+    baseline -> REINFORCE adjoint; plain versions, f32) against the JAX
+    package's ``loss_metrics_grads_pallas`` in interpret mode, on walkers
+    equilibrated in their own states, then one Adam step on each side.
+
+    Tolerances as the ground-state update's above: E, F, S and their spreads
+    1e-5; loss, every flow gradient leaf and the logits gradient rtol 1e-4,
+    atol 1e-6; parameters after Adam rtol 1e-5, atol 1e-7.  The exception
+    is the logit of a state no walker is in: its gradient is -p_s sum(Floc
+    - F) / B, zero but for f32 roundoff of opposite sign in the two
+    packages, and Adam's first step moves it by lr times that sign, so
+    there each side is held to a move of at most lr."""
+    p = np_params(29, dtype=np.float32)
+    idx, _, _ = ms_qnums(30)
+    cnf = CNF(backflow_apply, backflow_divergence, backflow_field_tensors,
+              steps=STEPS, method=METHOD)
+    model = BetaVMC(2.0, 3, 0, 2.0, ORB, FreeFermion(ORB), cnf,
+                    CoulombPairPotential(0.5), HOPotential())
+    jcnf = JCNF(j_apply, j_div, j_ft, steps=STEPS, method=METHOD)
+    jorb = JHO2D()
+    jmodel = JBetaVMC(2.0, 3, 0, 2.0, jorb, JFreeFermion(jorb), jcnf,
+                      JCoulomb(0.5), JHO())
+    nx_cm, ny_cm = model.qnums_cm(torch.as_tensor(idx))
+    z0 = torch.as_tensor(walkers(31, B, 3).reshape(B, 6).T.copy())
+    z_cm, _, _ = metropolis_multistate_cm(
+        z0, torch.full((B,), 0.3, dtype=torch.float64), 31, steps=100,
+        nx_cm=nx_cm, ny_cm=ny_cm, num_shells=KS_MS)
+    z_cm = z_cm.float().contiguous()
+    z = z_cm.T.reshape(B, 3, 2).numpy()
+    logits = (0.3 * np.random.default_rng(32).standard_normal(len(OCC_MS))
+              ).astype(np.float32)
+
+    jparams = {"flow": jax_params(p), "log_state_weights": jnp.asarray(logits)}
+    jloss, jm, jgrads = finished(jmodel.loss_metrics_grads_pallas(
+        jparams, jnp.asarray(idx), jnp.asarray(z), pallas_interpret=True))
+    flow = Backflow(torch_params(p, torch.float32))
+    lg = torch.nn.Parameter(torch.tensor(logits))
+    params = {"flow": flow.params(), "log_state_weights": lg}
+    loss, m, grads = model.loss_metrics_grads_cm(params, torch.as_tensor(idx),
+                                                 z_cm)
+    for key in ("E", "E_std", "F", "F_std", "S", "S_analytical"):
+        np.testing.assert_allclose(float(m[key]), float(jm[key]), rtol=1e-5)
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(flat_torch(grads["flow"]),
+                               flat_np(jgrads["flow"]), rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(grads["log_state_weights"].numpy(),
+                               np.asarray(jgrads["log_state_weights"]),
+                               rtol=1e-4, atol=1e-6)
+
+    jopt = optax.adam(1e-3)
+    updates, _ = jopt.update(jgrads, jopt.init(jparams), jparams)
+    jnew = optax.apply_updates(jparams, updates)
+    opt = make_adam(flow, 1e-3, extra=[lg])
+    for name, mod in (("eta", flow.eta), ("mu", flow.mu)):
+        for k, v in mod.items():
+            v.grad = grads["flow"][name][k]
+    lg.grad = grads["log_state_weights"]
+    opt.step()
+    np.testing.assert_allclose(flat_torch(flow.params()), flat_np(jnew["flow"]),
+                               rtol=1e-5, atol=1e-7)
+    occupied = np.bincount(idx, minlength=len(OCC_MS)) > 0
+    assert not occupied.all()
+    new, jnew_lg = lg.detach().numpy(), np.asarray(jnew["log_state_weights"])
+    np.testing.assert_allclose(new[occupied], jnew_lg[occupied], rtol=1e-5,
+                               atol=1e-7)
+    for moved in (new - logits, jnew_lg - logits):
+        assert np.abs(moved[~occupied]).max() <= 1e-3 * (1 + 1e-5)

@@ -52,6 +52,8 @@ from fermiflow_tpu_torch.vmc import hessian_flow as thf
 
 from _torch_port import jax_params, np_params, torch_params, walkers
 
+torch.set_num_threads(1)
+
 RTOL, ATOL = 1e-9, 1e-10
 
 

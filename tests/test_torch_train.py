@@ -50,6 +50,8 @@ from fermiflow_tpu_torch.vmc import GSVMC
 
 from _torch_port import flat_np, flat_torch, jax_params, np_params, walkers
 
+torch.set_num_threads(1)
+
 B, STEPS, METHOD, LR = 32, 2, "dopri5", 1e-3
 # The JAX sampler's acceptance at tau = 0.1 for N=3 (0.847 on the walkers
 # of the mcmc test below; the verify notes round it to 0.8).
