@@ -7,7 +7,9 @@ Phases; any failure ends the run with a non-zero exit code and no result:
 
   1. the card's name and power limit; every CUDA kernel built from
      ``fermiflow_tpu_torch/csrc`` (one nvcc per source, in parallel), with
-     the build seconds and ptxas' register/spill report per kernel;
+     the build seconds and ptxas' register/spill report per kernel; the
+     ``occupancy:`` line, resident warps per SM of the Hessian flow and the
+     REINFORCE adjoint at the paths' widths;
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes (N=6, batch 8192, d_eta=d_mu=50, dopri5 with 4 steps,
      30 Metropolis steps per iteration, 10 sampler segments) on equilibrated
@@ -15,7 +17,11 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      random stream and by their distribution (acceptance at tau=0.1, logp
      against log_prob).  The finite-T kernels (mixed-state sampler and
      VGH) run on states drawn from the Boltzmann probabilities at beta=2,
-     deltaE=2 (54 states);
+     deltaE=2 (54 states).  Kernels are timed with CUDA events over a run
+     of launches; the reduce pass and its yardstick ``Tensor.sum`` also by
+     replaying a CUDA graph of 50 launches each (device time only), printed
+     on the ``reinforce_reduce timing:`` line beside the dispatch-inclusive
+     pair;
   3. the oracles through the kernels: the identity flow at N=6, Z=0 gives
      Eloc = 14; at finite T (beta=2, deltaE=2, Boltzmann logits) every
      walker's Floc is the exact free energy 13.391808;
@@ -113,6 +119,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int = 50, replays: int = 10):
+    """Mean device milliseconds of one ``fn`` launch, from a CUDA graph
+    that captures ``reps`` launches, timed with CUDA events over
+    ``replays`` replays: no host dispatch inside the window.  Fails unless
+    the replay recomputes the last captured output (proof that the launch
+    was captured).  Returns (ms, that output)."""
+    import torch
+
+    expected = fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            out = fn()
+    out.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    check(torch.equal(out, expected), "graph replay recomputes the captured "
+          "launch's output")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays), out
+
+
 def maxabs(a, b) -> float:
     return float((a.double() - b.double()).abs().max())
 
@@ -205,6 +240,27 @@ def phase_build():
             for kern, regs, stack, st, ld in ptxas_kernels(report.read_text()):
                 print(f"ptxas {name}: {kern}: {regs} registers, stack {stack} "
                       f"B, spill stores {st} B, spill loads {ld} B")
+
+
+def phase_occupancy():
+    """Resident warps per SM of the two long kernels at the paths' widths."""
+    from fermiflow_tpu_torch.ops.hessian_flow import (
+        LANES,
+        hessian_flow_occupancy,
+        lane_plan,
+    )
+    from fermiflow_tpu_torch.ops.reinforce import reinforce_occupancy
+
+    warps = {"hessian_flow": hessian_flow_occupancy(N, D_ETA, D_MU),
+             "reinforce_adjoint": reinforce_occupancy(N, D_ETA, D_MU)}
+    plan = lane_plan(N)
+    print(f"occupancy: {json.dumps(warps)} resident warps per SM; "
+          f"hessian_flow: {LANES} lanes per walker, per lane "
+          f"{plan['entries'][1]} state entries, {plan['pairs'][1]} pair and "
+          f"{plan['one_body'][1]} one-body MLP inputs", flush=True)
+    check(warps["hessian_flow"] >= 8, "hessian_flow: >= 8 resident warps per "
+          "SM")
+    return warps
 
 
 def make_model(Z: float, device):
@@ -361,7 +417,7 @@ def phase_kernels(device, rows):
     rows["hessian_flow"] = dict(
         max_abs_err=err_hf, plain_f32_max_abs_err=err_hf32,
         ms=cuda_ms(lambda: hessian_flow_cm(params, z_eq, y_k, g_k, H_k, *ts),
-                   5),
+                   20),
         plain_ms=cuda_ms(lambda: hessian_flow_cm_plain(
             params, z_eq, y_k, g_k, H_k, *ts), 1),
         work=roofline.hflow_work(BATCH, N, D_ETA, D_MU, ODE_STEPS, 6),
@@ -397,6 +453,8 @@ def phase_kernels(device, rows):
     red_tol = partials.shape[0] * 2.0**-24 * partials.double().abs().sum(0)
     check(bool((red_err <= red_tol + 1e-30).all()),
           "reinforce_reduce: block sum within nblocks * 2^-24 * sum|partials|")
+    check(torch.equal(block_sum(partials), rows_k),
+          "reinforce_reduce: two sums of the same partials are bitwise equal")
     nblocks, nq = partials.shape
     rows["reinforce_adjoint"] = dict(
         max_abs_err=e_k, plain_f32_max_abs_err=e_p,
@@ -408,12 +466,20 @@ def phase_kernels(device, rows):
         tolerance="gradient error vs f64 plain <= max(3 x plain f32 error, "
                   "1e-5 max|ref| + 1e-7)")
     # The plain version is itself one PyTorch call, so it is also the
-    # library yardstick; no single call computes the other kernels.
-    sum_ms = cuda_ms(lambda: partials.sum(0), 50)
+    # library yardstick; no single call computes the other kernels.  Both
+    # are timed on the device alone (graph replay); the dispatch-inclusive
+    # times (back-to-back calls from Python) are printed beside them.
+    red_ms, _ = graph_ms(lambda: block_sum(partials))
+    sum_ms, _ = graph_ms(lambda: partials.sum(0))
+    red_disp = cuda_ms(lambda: block_sum(partials), 50)
+    sum_disp = cuda_ms(lambda: partials.sum(0), 50)
+    print(f"reinforce_reduce timing: graph replay (device only) kernel "
+          f"{red_ms:.6f} ms, Tensor.sum {sum_ms:.6f} ms; dispatch-inclusive "
+          f"kernel {red_disp:.6f} ms, Tensor.sum {sum_disp:.6f} ms")
     rows["reinforce_reduce"] = dict(
         max_abs_err=float(red_err.max()),
-        ms=cuda_ms(lambda: block_sum(partials), 50),
-        plain_ms=sum_ms, library_ms=sum_ms,
+        ms=red_ms, plain_ms=sum_ms, library_ms=sum_ms,
+        ms_dispatch=red_disp, library_ms_dispatch=sum_disp,
         work=roofline.reduce_work(nblocks, nq),
         tolerance="nblocks * 2^-24 * sum_b |partials[b]| per row")
     return z_eq, params
@@ -813,6 +879,7 @@ def main() -> int:
     try:
         print("== phase 1: build", flush=True)
         phase_build()
+        warps = phase_occupancy()
         print("== phase 2: kernels against their plain versions", flush=True)
         z_eq, params = phase_kernels(device, rows)
         z_ms, idx = phase_kernels_ms(device, rows, z_eq)
@@ -845,6 +912,8 @@ def main() -> int:
             max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
             plain_ms=r.pop("plain_ms"), bound_ms=b_ms, bound_by=b_by,
             library_ms=r.pop("library_ms", None), **r))
+        if name in warps:
+            kernels[-1]["warps_per_sm"] = warps[name]
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

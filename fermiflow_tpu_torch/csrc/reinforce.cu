@@ -21,9 +21,14 @@
 // block because its grid runs in order; Hopper blocks run in no order, so
 // each block reduces its own walkers in a fixed order into one row of a
 // (num_blocks, nq) partials buffer, and a second kernel sums the rows in a
-// fixed pairwise order.  No float atomics: the gradient is bitwise
-// reproducible.
+// fixed order.  No float atomics: the gradient is bitwise reproducible.
 // Walkers past B carry w = 0 and contribute exactly zero.
+//
+// The reduce pass moves ~0.3 MB and does no arithmetic to speak of: it is
+// bound by latency.  Each thread owns one column (neighbouring threads read
+// neighbouring addresses) and sums a strided set of rows, 32 row groups
+// per block; one warp per column then adds the 32 group sums in a fixed
+// butterfly.  ff_reinforce launches both passes from one host call.
 #include "common.cuh"
 
 namespace {
@@ -266,25 +271,55 @@ __global__ void __launch_bounds__(BW) reinforce_kernel(
   }
 }
 
-constexpr int kReduceThreads = 256;
+constexpr int kReduceCols = 32, kReduceRows = 32;
 
-// grads[r] = sum over blocks of partials[b][r]: one CUDA block per row, a
-// strided per-thread sum, then a pairwise tree in shared memory.  The order
-// is fixed, so the sum is the same on every run.
-__global__ void __launch_bounds__(kReduceThreads) reinforce_reduce_kernel(
+// grads[r] = sum over blocks of partials[b][r]: thread (tx, ty) sums rows
+// ty, ty + 32, ... of column tx in order; after the barrier, warp ty adds
+// column ty's 32 group sums by a butterfly (adds commute, so every lane
+// holds the same bits).
+__global__ void __launch_bounds__(kReduceCols * kReduceRows) reinforce_reduce_kernel(
     const float* __restrict__ partials, float* __restrict__ grads, int nblocks,
     int nq) {
-  __shared__ float buf[kReduceThreads];
-  const int r = blockIdx.x, t = threadIdx.x;
+  __shared__ float buf[kReduceRows][kReduceCols + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int col = blockIdx.x * kReduceCols + tx;
   float s = 0.f;
-  for (int b = t; b < nblocks; b += kReduceThreads) s += partials[(size_t)b * nq + r];
-  buf[t] = s;
-  __syncthreads();
-  for (int half = kReduceThreads / 2; half > 0; half /= 2) {
-    if (t < half) buf[t] += buf[t + half];
-    __syncthreads();
+  if (col < nq) {
+#pragma unroll 8
+    for (int b = ty; b < nblocks; b += kReduceRows) s += partials[(size_t)b * nq + col];
   }
-  if (t == 0) grads[r] = buf[0];
+  buf[ty][tx] = s;
+  __syncthreads();
+  float v = buf[tx][ty];
+#pragma unroll
+  for (int off = kReduceRows / 2; off > 0; off /= 2)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  const int out = blockIdx.x * kReduceCols + ty;
+  if (tx == 0 && out < nq) grads[out] = v;
+}
+
+template <int N>
+size_t smem_bytes(int de, int dm, int stages) {
+  using L = Layout<N>;
+  const size_t per_walker =
+      (size_t)(2 + stages) * L::S + 3 * (de + dm) + 10 * L::P + 6 * N;
+  return (per_walker * BW + 3 * (size_t)(de + dm)) * sizeof(float);
+}
+
+// Once per instantiation: allow the card's largest dynamic shared memory.
+template <int N>
+cudaError_t prepare() {
+  static const cudaError_t err = [] {
+    int dev = 0, optin = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(reinforce_kernel<N>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    return e;
+  }();
+  return err;
 }
 
 template <int N>
@@ -293,18 +328,24 @@ cudaError_t launch(const float* x1, const float* ghat, const float* w,
                    const float* eb1, const float* ew2, int de, const float* mw1,
                    const float* mb1, const float* mw2, int dm, int steps,
                    const Tableau& hab, cudaStream_t stream) {
-  using L = Layout<N>;
-  const size_t per_walker = (size_t)(2 + hab.stages) * L::S + 3 * (de + dm) +
-                            10 * L::P + 6 * N;
-  const size_t bytes = (per_walker * BW + 3 * (size_t)(de + dm)) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      reinforce_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = prepare<N>();
   if (err != cudaSuccess) return err;
   const int blocks = (B + BW - 1) / BW;
-  reinforce_kernel<N><<<blocks, BW, bytes, stream>>>(
+  reinforce_kernel<N><<<blocks, BW, smem_bytes<N>(de, dm, hab.stages), stream>>>(
       x1, ghat, w, z_out, partials, B, ew1, eb1, ew2, de, mw1, mb1, mw2, dm,
       steps, hab);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t occupancy(int de, int dm, int stages, int* warps_per_sm) {
+  cudaError_t err = prepare<N>();
+  if (err != cudaSuccess) return err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinforce_kernel<N>, BW,
+                                                      smem_bytes<N>(de, dm, stages));
+  *warps_per_sm = blocks * (BW / 32);
+  return err;
 }
 
 }  // namespace
@@ -340,7 +381,40 @@ extern "C" int ff_reinforce_adjoint(const float* x1, const float* ghat,
 
 extern "C" int ff_reinforce_reduce(const float* partials, float* grads,
                                    int nblocks, int nq, void* stream) {
-  reinforce_reduce_kernel<<<nq, kReduceThreads, 0, (cudaStream_t)stream>>>(
-      partials, grads, nblocks, nq);
+  const dim3 block(kReduceCols, kReduceRows);
+  reinforce_reduce_kernel<<<(nq + kReduceCols - 1) / kReduceCols, block, 0,
+                            (cudaStream_t)stream>>>(partials, grads, nblocks, nq);
   return (int)cudaGetLastError();
+}
+
+// Both passes on one stream from one host call: the adjoint, then the
+// reduce of its partials into grads (nq = 3 (d_eta + d_mu)).
+extern "C" int ff_reinforce(const float* x1, const float* ghat, const float* w,
+                            float* z_out, float* partials, float* grads, int B, int n,
+                            const float* eta_w1, const float* eta_b1,
+                            const float* eta_w2, int d_eta, const float* mu_w1,
+                            const float* mu_b1, const float* mu_w2, int d_mu,
+                            int steps, int stages, const float* h_a,
+                            const float* h_b, void* stream) {
+  const int err = ff_reinforce_adjoint(x1, ghat, w, z_out, partials, B, n, eta_w1,
+                                       eta_b1, eta_w2, d_eta, mu_w1, mu_b1, mu_w2,
+                                       d_mu, steps, stages, h_a, h_b, stream);
+  if (err != 0) return err;
+  return ff_reinforce_reduce(partials, grads, ff_reinforce_blocks(B), 3 * (d_eta + d_mu),
+                             stream);
+}
+
+// Resident warps per SM of the adjoint pass for n at these widths.
+extern "C" int ff_reinforce_occupancy(int n, int d_eta, int d_mu, int stages,
+                                      int* warps_per_sm) {
+  cudaError_t err;
+  switch (n) {
+    case 2: err = occupancy<2>(d_eta, d_mu, stages, warps_per_sm); break;
+    case 3: err = occupancy<3>(d_eta, d_mu, stages, warps_per_sm); break;
+    case 4: err = occupancy<4>(d_eta, d_mu, stages, warps_per_sm); break;
+    case 5: err = occupancy<5>(d_eta, d_mu, stages, warps_per_sm); break;
+    case 6: err = occupancy<6>(d_eta, d_mu, stages, warps_per_sm); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)err;
 }

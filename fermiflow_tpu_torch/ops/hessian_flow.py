@@ -1,8 +1,9 @@
 """Fixed-grid Hessian-flow integration, coordinate-major with packed H.
 
 Kernel: ``csrc/hessian_flow.cu`` (replaces the TPU kernel
-``fermiflow_tpu/ops/pallas_hessian_flow.py:hessian_flow_pallas``).  Plain
-version: ``vmc.hessian_flow.hessian_flow`` with the closed-form field
+``fermiflow_tpu/ops/pallas_hessian_flow.py:hessian_flow_pallas``), a group
+of ``LANES`` lanes per walker (``lane_plan`` says which lane owns what).
+Plain version: ``vmc.hessian_flow.hessian_flow`` with the closed-form field
 tensors, on the unpacked Hessian.  The plain version runs only for CPU
 tensors; a CUDA tensor launches the kernel or raises.
 """
@@ -20,9 +21,39 @@ from fermiflow_tpu_torch.ops.metropolis import SUPPORTED_N
 from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, unpack_triu
 
 __all__ = ["hessian_flow_cm", "hessian_flow_cm_plain", "hessian_flow_packed",
-           "tableau_args", "w2k"]
+           "hessian_flow_occupancy", "lane_plan", "tableau_args", "w2k",
+           "LANES"]
 
 _MAXSTAGES = 6  # FF_MAXSTAGES in csrc/common.cuh
+LANES = 8  # kLanes in csrc/hessian_flow.cu: lanes of a warp per walker
+
+
+def lane_plan(n: int, lanes: int = LANES) -> dict:
+    """Which lane of a walker's group owns what in ``csrc/hessian_flow.cu``.
+
+    Item i of each kind goes to lane i % lanes, register slot i // lanes:
+    the state entries (x, logp, g, packed H), the pair MLP inputs (in
+    ``np.triu_indices`` order) and the one-body MLP inputs.  Returns
+    ``{kind: (per-lane lists of (item, slot), slots the kernel compiles)}``;
+    the slot counts are the kernel's ``E``, ``QP`` and ``QN``.
+    """
+    d = 2 * n
+    counts = {"entries": 2 * d + 1 + d * (d + 1) // 2,
+              "pairs": n * (n - 1) // 2, "one_body": n}
+    return {kind: ([[(i, i // lanes) for i in range(c) if i % lanes == lane]
+                    for lane in range(lanes)], -(-c // lanes))
+            for kind, c in counts.items()}
+
+
+def hessian_flow_occupancy(n: int, d_eta: int, d_mu: int | None) -> int:
+    """Resident warps per SM of the CUDA kernel at these widths (needs the
+    card)."""
+    warps = ctypes.c_int(0)
+    rc = _build.library("hessian_flow").ff_hessian_flow_occupancy(
+        ctypes.c_int(n), ctypes.c_int(d_eta), ctypes.c_int(d_mu or 0),
+        ctypes.byref(warps))
+    _build.check_rc(rc, "hessian_flow occupancy")
+    return warps.value
 
 
 def tableau_args(method: str, h: float):

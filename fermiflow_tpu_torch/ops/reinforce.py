@@ -9,7 +9,8 @@ continuous adjoint integrated backward on the flow's grid:
 Kernels: ``csrc/reinforce.cu`` (replaces the TPU kernel
 ``fermiflow_tpu/ops/pallas_reinforce.py:reinforce_flow_grad_pallas``), an
 adjoint pass writing per-block partial sums and a reduce pass summing them
-in a fixed pairwise order.  Plain version: the same closed form batched in PyTorch
+in a fixed order; ``reinforce_cm`` launches both from one host call.
+Plain version: the same closed form batched in PyTorch
 (``reinforce_cm_plain``); the reduce pass's plain version is
 ``partials.sum(0)``.  The plain versions run only for CPU tensors; a CUDA
 tensor launches the kernels or raises.
@@ -28,7 +29,8 @@ from fermiflow_tpu_torch.ops.hessian_flow import tableau_args
 from fermiflow_tpu_torch.ops.metropolis import SUPPORTED_N
 
 __all__ = ["reinforce_cm", "reinforce_cm_plain", "reinforce_partials",
-           "block_sum", "reinforce_flow_grad", "grads_from_rows"]
+           "block_sum", "reinforce_flow_grad", "grads_from_rows",
+           "reinforce_occupancy"]
 
 
 def _mlp_sources(r, sp, w, mlp, div_pair, div_one):
@@ -149,11 +151,9 @@ def _weights_f32(mlp: dict | None):
     return w1, f32(mlp["b1"]), f32(mlp["w2"]), w1.shape[0]
 
 
-def reinforce_partials(params: dict, x_cm: torch.Tensor, g_cm: torch.Tensor,
-                       w: torch.Tensor, t0: float, t1: float, steps: int = 8,
-                       method: str = "dopri5"):
-    """The adjoint kernel alone (CUDA tensors only): returns the per-block
-    theta partial sums (num_blocks, nq) and z_back (d, B)."""
+def _adjoint_call(params, x_cm, g_cm, w, t0, t1, steps, method):
+    """Checks and outputs of the adjoint pass: (library, z (d, B), partials
+    (num_blocks, nq), ctypes arguments before and after the partials)."""
     d, B = x_cm.shape
     n = d // 2
     if n not in SUPPORTED_N:
@@ -171,13 +171,24 @@ def reinforce_partials(params: dict, x_cm: torch.Tensor, g_cm: torch.Tensor,
     partials = torch.empty((nblocks, nq), **kw)
     stages, ha, hb = tableau_args(method, (float(t0) - float(t1)) / steps)
     P = _build.ptr
+    head = (P(x_cm), P(g_cm), P(w), P(z), P(partials))
+    tail = (ctypes.c_int(B), ctypes.c_int(n), P(ew1), P(eb1), P(ew2),
+            ctypes.c_int(d_eta), P(mw1), P(mb1), P(mw2), ctypes.c_int(d_mu),
+            ctypes.c_int(steps), ctypes.c_int(stages), ha, hb,
+            _build.stream_ptr(x_cm.device))
+    return lib, z, partials, head, tail
+
+
+def reinforce_partials(params: dict, x_cm: torch.Tensor, g_cm: torch.Tensor,
+                       w: torch.Tensor, t0: float, t1: float, steps: int = 8,
+                       method: str = "dopri5"):
+    """The adjoint kernel alone (CUDA tensors only): returns the per-block
+    theta partial sums (num_blocks, nq) and z_back (d, B)."""
+    lib, z, partials, head, tail = _adjoint_call(params, x_cm, g_cm, w, t0,
+                                                 t1, steps, method)
     fn = lib.ff_reinforce_adjoint
     fn.restype = ctypes.c_int
-    rc = fn(P(x_cm), P(g_cm), P(w), P(z), P(partials), ctypes.c_int(B),
-            ctypes.c_int(n), P(ew1), P(eb1), P(ew2), ctypes.c_int(d_eta),
-            P(mw1), P(mb1), P(mw2), ctypes.c_int(d_mu), ctypes.c_int(steps),
-            ctypes.c_int(stages), ha, hb, _build.stream_ptr(x_cm.device))
-    _build.check_rc(rc, "reinforce_adjoint")
+    _build.check_rc(fn(*head, *tail), "reinforce_adjoint")
     _build.LAUNCHES["reinforce_adjoint"] += 1
     return partials, z
 
@@ -201,6 +212,20 @@ def block_sum(partials: torch.Tensor) -> torch.Tensor:
     return rows
 
 
+def _reinforce_cuda(params, x_cm, g_cm, w, t0, t1, steps, method):
+    """Both kernels from one host call: the adjoint, then the reduce."""
+    lib, z, partials, head, tail = _adjoint_call(params, x_cm, g_cm, w, t0,
+                                                 t1, steps, method)
+    rows = torch.empty((partials.shape[1],), device=x_cm.device,
+                       dtype=torch.float32)
+    fn = lib.ff_reinforce
+    fn.restype = ctypes.c_int
+    _build.check_rc(fn(*head, _build.ptr(rows), *tail), "reinforce")
+    _build.LAUNCHES["reinforce_adjoint"] += 1
+    _build.LAUNCHES["reinforce_reduce"] += 1
+    return grads_from_rows(rows, params), z
+
+
 def reinforce_cm(params: dict, x_cm: torch.Tensor, g_cm: torch.Tensor,
                  w: torch.Tensor, t0: float, t1: float, steps: int = 8,
                  method: str = "dopri5"):
@@ -211,9 +236,19 @@ def reinforce_cm(params: dict, x_cm: torch.Tensor, g_cm: torch.Tensor,
     """
     if x_cm.device.type == "cpu":
         return reinforce_cm_plain(params, x_cm, g_cm, w, t0, t1, steps, method)
-    partials, z = reinforce_partials(params, x_cm, g_cm, w, t0, t1, steps,
-                                     method)
-    return grads_from_rows(block_sum(partials), params), z
+    return _reinforce_cuda(params, x_cm, g_cm, w, t0, t1, steps, method)
+
+
+def reinforce_occupancy(n: int, d_eta: int, d_mu: int | None,
+                        method: str = "dopri5") -> int:
+    """Resident warps per SM of the adjoint kernel at these widths (needs
+    the card)."""
+    warps = ctypes.c_int(0)
+    rc = _build.library("reinforce").ff_reinforce_occupancy(
+        ctypes.c_int(n), ctypes.c_int(d_eta), ctypes.c_int(d_mu or 0),
+        ctypes.c_int(TABLEAUS[method].stages), ctypes.byref(warps))
+    _build.check_rc(rc, "reinforce_adjoint occupancy")
+    return warps.value
 
 
 def reinforce_flow_grad(params: dict, x1: torch.Tensor, ghat: torch.Tensor,

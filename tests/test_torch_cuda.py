@@ -16,6 +16,7 @@ from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.hessian_flow import (
     hessian_flow_cm,
     hessian_flow_cm_plain,
+    hessian_flow_occupancy,
 )
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
@@ -29,6 +30,7 @@ from fermiflow_tpu_torch.ops.reinforce import (
     block_sum,
     reinforce_cm,
     reinforce_cm_plain,
+    reinforce_occupancy,
 )
 from fermiflow_tpu_torch.ops.slater_vgh import (
     slater_vgh_cm,
@@ -124,19 +126,35 @@ def test_slater_vgh_kernel_matches_plain(cuda, nup, ndown, B):
         torch.testing.assert_close(a.double(), b, rtol=tol, atol=tol)
 
 
-@pytest.mark.parametrize("d_mu,B", [(8, 100), (None, 37)])
-def test_hessian_flow_kernel_matches_plain(cuda, d_mu, B):
-    z = equilibrated(cuda, 3, 0, B)
-    y, g, H = slater_vgh_cm(z, **occ(3, 0))
+# Batch sizes that leave the last block ragged (16 walkers per block, 4 per
+# warp): 37 and 8191 end mid-warp, 100 mid-block.
+@pytest.mark.parametrize("nup,d_mu,B", [
+    (3, 8, 100), (3, None, 37), (2, 8, 37), (2, None, 8191), (6, 8, 8191),
+    (6, None, 37)])
+def test_hessian_flow_kernel_matches_plain(cuda, nup, d_mu, B):
+    z = equilibrated(cuda, nup, 0, B)
+    y, g, H = slater_vgh_cm(z, **occ(nup, 0))
     p = params(cuda, d_mu)
+    before = _build.LAUNCHES["hessian_flow"]
     k = hessian_flow_cm(p, z, y, g, H, *TS)
+    again = hessian_flow_cm(p, z, y, g, H, *TS)
     ref = hessian_flow_cm_plain(f64(p), z.double(), y.double(), g.double(),
                                 H.double(), *TS)
     torch.cuda.synchronize()
-    for a, r in zip(k, ref):
+    assert _build.LAUNCHES["hessian_flow"] == before + 2
+    for a, b, r in zip(k, again, ref):
+        # No atomics: the same inputs give the same bits.
+        assert torch.equal(a, b)
         # tests/test_hessian_flow.py: err < 1e-4 * scale + 1e-5.
         err = float((a.double() - r).abs().max())
         assert err < 1e-4 * float(r.abs().max()) + 1e-5
+
+
+def test_hessian_flow_occupancy(cuda):
+    # The paths' widths (N=6, d_eta = d_mu = 50): at least 8 warps per SM,
+    # against one warp per SM for the one-thread-per-walker design.
+    assert hessian_flow_occupancy(6, 50, 50) >= 8
+    assert reinforce_occupancy(6, 50, 50) >= 1
 
 
 @pytest.mark.parametrize("d_mu,B", [(8, 100), (None, 37)])
@@ -146,12 +164,14 @@ def test_reinforce_kernels_match_plain(cuda, d_mu, B):
     g = torch.randn((6, B), generator=gen, device=cuda)
     w = torch.randn((B,), generator=gen, device=cuda) / B
     p = params(cuda, d_mu)
-    before = _build.LAUNCHES["reinforce_reduce"]
+    before = dict(_build.LAUNCHES)
     grads, zb = reinforce_cm(p, z, g, w, *TS)
     ref, zr = reinforce_cm_plain(f64(p), z.double(), g.double(), w.double(),
                                  *TS)
     torch.cuda.synchronize()
-    assert _build.LAUNCHES["reinforce_reduce"] == before + 1
+    # One host call, both kernels counted.
+    for k in ("reinforce_adjoint", "reinforce_reduce"):
+        assert _build.LAUNCHES[k] == before[k] + 1
     flat = lambda gr: torch.cat([gr[m][k].reshape(-1).double()
                                  for m in ("eta", "mu") if gr[m] is not None
                                  for k in ("w2", "w1", "b1")])
@@ -163,6 +183,20 @@ def test_reinforce_kernels_match_plain(cuda, d_mu, B):
     # The reduce pass is deterministic: the same partials, the same sum.
     parts = torch.randn((37, 300), generator=gen, device=cuda)
     s1, s2 = block_sum(parts), block_sum(parts)
+    assert torch.equal(s1, s2)
+    torch.testing.assert_close(s1.double(), parts.double().sum(0), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("nq", [150, 300])
+@pytest.mark.parametrize("nblocks", [1, 37, 257])
+def test_reduce_kernel_matches_plain(cuda, nblocks, nq):
+    gen = torch.Generator(device=cuda).manual_seed(nblocks + nq)
+    parts = torch.randn((nblocks, nq), generator=gen, device=cuda)
+    before = _build.LAUNCHES["reinforce_reduce"]
+    s1, s2 = block_sum(parts), block_sum(parts)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["reinforce_reduce"] == before + 2
     assert torch.equal(s1, s2)
     torch.testing.assert_close(s1.double(), parts.double().sum(0), rtol=1e-5,
                                atol=1e-5)

@@ -50,7 +50,7 @@ from fermiflow_tpu_torch.nn.backflow import (
 )
 from fermiflow_tpu_torch.nn.backflow_derivs import backflow_field_tensors
 from fermiflow_tpu_torch.ode import odeint
-from fermiflow_tpu_torch.ops.hessian_flow import hessian_flow_packed
+from fermiflow_tpu_torch.ops.hessian_flow import hessian_flow_packed, lane_plan
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
     metropolis_free_fermion,
@@ -248,6 +248,29 @@ def _reinforce_inputs(seed):
     ghat = rng.standard_normal((B, 6))
     w = rng.standard_normal(B) / B
     return x1, ghat, w
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6])
+def test_hessian_flow_lane_plan_owns_everything_once(n, lanes):
+    # csrc/hessian_flow.cu deals state entries and MLP inputs over the lanes
+    # of a walker's group; every item must have exactly one owner, in a
+    # register slot the kernel compiles.
+    d = 2 * n
+    counts = {"entries": 2 * d + 1 + d * (d + 1) // 2,
+              "pairs": n * (n - 1) // 2, "one_body": n}
+    plan = lane_plan(n, lanes)
+    assert set(plan) == set(counts)
+    for kind, count in counts.items():
+        per_lane, slots = plan[kind]
+        assert len(per_lane) == lanes
+        owned = [item for items in per_lane for item, _ in items]
+        assert sorted(owned) == list(range(count))
+        for lane, items in enumerate(per_lane):
+            assert [slot for _, slot in items] == list(range(len(items)))
+            assert len(items) <= slots
+            assert all(item % lanes == lane for item, _ in items)
+        assert slots == -(-count // lanes)
 
 
 @pytest.mark.parametrize("d_mu", [8, None])
