@@ -9,7 +9,8 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      ``fermiflow_tpu_torch/csrc`` (one nvcc per source, in parallel), with
      the build seconds and ptxas' register/spill report per kernel; the
      ``occupancy:`` line, resident warps per SM of the Hessian flow and the
-     REINFORCE adjoint at the paths' widths;
+     REINFORCE adjoint at the paths' widths (each must reach 8) and their
+     lane plans;
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes (N=6, batch 8192, d_eta=d_mu=50, dopri5 with 4 steps,
      30 Metropolis steps per iteration, 10 sampler segments) on equilibrated
@@ -244,22 +245,24 @@ def phase_build():
 
 def phase_occupancy():
     """Resident warps per SM of the two long kernels at the paths' widths."""
-    from fermiflow_tpu_torch.ops.hessian_flow import (
-        LANES,
-        hessian_flow_occupancy,
-        lane_plan,
-    )
-    from fermiflow_tpu_torch.ops.reinforce import reinforce_occupancy
+    from fermiflow_tpu_torch.ops import hessian_flow as hf
+    from fermiflow_tpu_torch.ops import reinforce as rf
 
-    warps = {"hessian_flow": hessian_flow_occupancy(N, D_ETA, D_MU),
-             "reinforce_adjoint": reinforce_occupancy(N, D_ETA, D_MU)}
-    plan = lane_plan(N)
+    warps = {"hessian_flow": hf.hessian_flow_occupancy(N, D_ETA, D_MU),
+             "reinforce_adjoint": rf.reinforce_occupancy(N, D_ETA, D_MU)}
+    plan = hf.lane_plan(N)
+    rplan = rf.lane_plan(N, D_ETA, D_MU)
+    units = [len(items) for items in rplan["eta_units"][0]]
     print(f"occupancy: {json.dumps(warps)} resident warps per SM; "
-          f"hessian_flow: {LANES} lanes per walker, per lane "
+          f"hessian_flow: {hf.LANES} lanes per walker, per lane "
           f"{plan['entries'][1]} state entries, {plan['pairs'][1]} pair and "
-          f"{plan['one_body'][1]} one-body MLP inputs", flush=True)
-    check(warps["hessian_flow"] >= 8, "hessian_flow: >= 8 resident warps per "
-          "SM")
+          f"{plan['one_body'][1]} one-body MLP inputs; reinforce_adjoint: "
+          f"{rf.LANES} lanes per walker, per lane {rplan['entries'][1]} state "
+          f"entries, eta/mu hidden units {units} by lane, coefficient totals "
+          f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
+          "inputs", flush=True)
+    for name, w in warps.items():
+        check(w >= 8, f"{name}: >= 8 resident warps per SM")
     return warps
 
 
@@ -458,7 +461,7 @@ def phase_kernels(device, rows):
     nblocks, nq = partials.shape
     rows["reinforce_adjoint"] = dict(
         max_abs_err=e_k, plain_f32_max_abs_err=e_p,
-        ms=cuda_ms(lambda: reinforce_partials(params, x1, g1, w, *ts), 5),
+        ms=cuda_ms(lambda: reinforce_partials(params, x1, g1, w, *ts), 20),
         plain_ms=cuda_ms(lambda: reinforce_cm_plain(params, x1, g1, w, *ts),
                          1),
         work=roofline.reinforce_work(BATCH, N, D_ETA, D_MU, ODE_STEPS, 6,

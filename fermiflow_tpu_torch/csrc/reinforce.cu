@@ -10,21 +10,52 @@
 // theta_bar = int [(dv/dtheta)^T a - w d(div)/dtheta] dt, for the eta and
 // mu MLPs (w2, w1, b1 rows; 3 x 50 + 3 x 50 = 300 at the production width).
 //
-// What bounds it on the H100: arithmetic.  Per walker and stage the hidden
-// loop evaluates one sigmoid and ~25 flops per (pair, unit); device traffic
-// is 25 floats per walker in and 12 out, plus the 300-row partials.
+// What bounds it on the H100: FP32 and SFU issue.  Per walker and RK stage
+// at N=6 with 50 hidden units it evaluates 21 MLP inputs x 50 units = 1050
+// sigmoids (an exp and an IEEE reciprocal each) inside ~41 kflop-equivalents
+// (utils/roofline.py:reinforce_flops), 24 stages per launch, against 25
+// floats of device traffic in and 12 out per walker plus one 300-row
+// partials row per 16 walkers.  The per-walker working set is small (the
+// 24-entry state and its six dopri5 slopes, the pair geometry, 300 theta
+// accumulators); kept in one thread's shared-memory columns it fit two
+// warps per SM, which then ran bound by latency.
 //
-// Design: one thread per walker, 32 walkers per block; (x, a), the stage
-// input, the dopri5 slopes, the pair scratch and the walker's own 300
-// theta accumulators live in dynamic shared memory as [entry][walker]
-// columns.  The TPU kernel summed theta across walker blocks in one output
-// block because its grid runs in order; Hopper blocks run in no order, so
-// each block reduces its own walkers in a fixed order into one row of a
-// (num_blocks, nq) partials buffer, and a second kernel sums the rows in a
-// fixed order.  No float atomics: the gradient is bitwise reproducible.
-// Walkers past B carry w = 0 and contribute exactly zero.
+// Design: a group of G lanes of one warp shares a walker (32/G walkers per
+// warp), 16 walkers per 128-thread block, 4 blocks (16 warps) per SM at
+// <= 128 registers: 8192 walkers fit one wave.
+// - The hidden units are dealt over the lanes, unit h to lane h % G (at
+//   50 units lanes 0-1 take 7, the others 6).  The lane that owns a unit
+//   loops over all of the walker's MLP inputs itself, so it forms the
+//   unit's eight theta sums over pairs (or particles) in registers and adds
+//   its three bw * (...) rows to the walker's accumulators exactly as the
+//   one-thread design did: no theta value crosses lanes until the block's
+//   end.  Dealing the inputs instead (as the Hessian flow does) would put
+//   those sums across lanes: 800 values a stage, or 300 accumulators per
+//   lane.
+// - What crosses lanes is each input's field coefficients e0, e1, e2, a sum
+//   over units: 3 (P + N) = 63 values a stage at N=6.  Each lane holds its
+//   units' partials in registers and a reduce-scatter of log2(G) xor-shuffle
+//   rounds leaves lane l with the totals of inputs l Q .. l Q + Q - 1
+//   (pairs in np.triu_indices order, Q = ceil(P / G); particles likewise).
+//   Each total is formed by one lane along a fixed tree: no float atomics,
+//   and the same inputs give the same bits.
+// - The 2D = 4N (x, a) state entries are dealt over the lanes, entry e to
+//   (lane e % G, slot e / G), with their state and six slopes in registers
+//   (every index a compile-time constant).
+// - Shared memory per walker holds the stage input, each input's geometry
+//   (r, u.da, w r), each input's contribution to its particles' slopes, and
+//   the walker's 3 (d_eta + d_mu) theta accumulators: 2.1 KB at N=6 against
+//   2.7 KB of private columns before, so registers, not shared memory, set
+//   the occupancy.  Four __syncwarp per stage; no block-wide barrier after
+//   the set-up.  A region's stride is 8 (mod 32) floats, so the four walkers
+//   of a warp fall on distinct banks.
+// Hopper blocks run in no order, so each block sums its 16 walkers' theta
+// rows in a fixed pairwise order into one row of a (num_blocks, nq)
+// partials buffer, and a second kernel sums the rows in a fixed order.
+// Walkers past B compute on a copy of walker B-1 with w = 0 and a = 0, add
+// nothing to the accumulators and store nothing.
 //
-// The reduce pass moves ~0.3 MB and does no arithmetic to speak of: it is
+// The reduce pass moves ~0.6 MB and does no arithmetic to speak of: it is
 // bound by latency.  Each thread owns one column (neighbouring threads read
 // neighbouring addresses) and sums a strided set of rows, 32 row groups
 // per block; one warp per column then adds the 32 group sums in a fixed
@@ -33,65 +64,102 @@
 
 namespace {
 
-constexpr int BW = 32;
+constexpr int kLanes = 8;      // lanes per walker
+constexpr int THREADS = 128;
+constexpr int MIN_BLOCKS = 4;  // resident blocks per SM: <= 128 registers
+constexpr int TABLEAU = FF_MAXSTAGES * FF_MAXSTAGES + FF_MAXSTAGES;
 
-template <int N>
+template <int N, int G>
 struct Layout {
+  static_assert(32 % G == 0, "a lane group divides a warp");
   static constexpr int D = 2 * N;
-  static constexpr int P = N * (N - 1) / 2;
   static constexpr int S = 2 * D;  // x, a
+  static constexpr int P = N * (N - 1) / 2;
+  static constexpr int E = (S + G - 1) / G;   // state entries per lane
+  static constexpr int QP = (P + G - 1) / G;  // pair inputs per lane
+  static constexpr int QN = (N + G - 1) / G;  // one-body inputs per lane
+  static constexpr int NW = THREADS / G;      // walkers per block
+  // A walker's shared region, in floats (float4 fields 16-byte aligned).
+  static constexpr int IN = 0;                   // stage-input x (D), a (D)
+  static constexpr int GEO = (S + 3) / 4 * 4;    // pairs: (r, u.da, w r, 0)
+  static constexpr int GEO1 = GEO + 4 * P;       // particles: (|x|, x.a, w|x|, 0)
+  static constexpr int CELL = GEO1 + 4 * N;      // pairs: (dx_i, da_i), 2 + 2
+  static constexpr int CELL1 = CELL + 4 * P;     // particles: (dx_i, da_i)
+  static constexpr int Q = CELL1 + 4 * N;        // theta accumulators (nq)
 };
 
-#define COL(off) sm[(off) * BW + t]
+// A walker's region stride for nq theta rows: = 8 (mod 32) floats.
+template <int N, int G>
+__host__ __device__ inline int region_floats(int nq) {
+  return (Layout<N, G>::Q + nq + 23) / 32 * 32 + 8;
+}
 
-// One evaluation of (dx/dt, da/dt) into `out`, and q += bw * theta integrand
-// when bw != 0.  Pair scratch at `pr` (7 P columns + 3 P accumulators),
-// one-body scratch at `mr` (6 N columns).
-template <int N>
-__device__ void adjoint_rhs(float* sm, int t, int in, int out, int q_off,
-                            int pr, int mr, float w, float bw, const float* ew1,
-                            const float* eb1, const float* ew2, int de,
-                            const float* mw1, const float* mb1, const float* mw2,
-                            int dm) {
-  using L = Layout<N>;
-  constexpr int D = L::D, P = L::P;
-  const bool acc_q = bw != 0.f;
-  // Pair geometry: u0, u1, da0, da1, r, s = u.da, w r; then e0, e1, e2.
-  {
-    int p = 0;
-    for (int i = 0; i < N; ++i) {
-      for (int j = i + 1; j < N; ++j, ++p) {
-        const float u0 = COL(in + 2 * i) - COL(in + 2 * j);
-        const float u1 = COL(in + 2 * i + 1) - COL(in + 2 * j + 1);
-        const float d0 = COL(in + D + 2 * i) - COL(in + D + 2 * j);
-        const float d1 = COL(in + D + 2 * i + 1) - COL(in + D + 2 * j + 1);
-        const float r = sqrtf(u0 * u0 + u1 * u1);
-        COL(pr + 0 * P + p) = u0;
-        COL(pr + 1 * P + p) = u1;
-        COL(pr + 2 * P + p) = d0;
-        COL(pr + 3 * P + p) = d1;
-        COL(pr + 4 * P + p) = r;
-        COL(pr + 5 * P + p) = u0 * d0 + u1 * d1;
-        COL(pr + 6 * P + p) = w * r;
-        COL(pr + 7 * P + p) = 0.f;
-        COL(pr + 8 * P + p) = 0.f;
-        COL(pr + 9 * P + p) = 0.f;
+// Floats before the walkers' regions: the weights (eta then mu, a float4 of
+// (w1, b1, w2, 0) per unit), the tableau and the pair index table.
+template <int N, int G>
+__host__ __device__ inline int header_floats(int de, int dm) {
+  return (4 * (de + dm) + TABLEAU + Layout<N, G>::P + 3) / 4 * 4;
+}
+
+template <int N, int G>
+size_t smem_bytes(int de, int dm) {
+  using L = Layout<N, G>;
+  const int nq = 3 * (de + dm);
+  return sizeof(float) *
+         ((size_t)header_floats<N, G>(de, dm) + (size_t)L::NW * region_floats<N, G>(nq));
+}
+
+// Reduce-scatter over the lane group: on entry v holds this lane's partials
+// of G * Q inputs; on return v[0 .. Q) holds the group's totals of inputs
+// lane * Q .. lane * Q + Q - 1.  The round at HALF pairs lanes that differ
+// in bit HALF / Q: each keeps the half of the remaining inputs that its bit
+// names and adds the partner's partials of that half.
+template <int HALF, int G, int Q>
+__device__ __forceinline__ void reduce_scatter(float (&v)[G * Q][3], int lane) {
+  if constexpr (HALF >= Q) {
+    constexpr int m = HALF / Q;
+    const bool upper = (lane & m) != 0;
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float lo = v[j][c], hi = v[j + HALF][c];
+        v[j][c] = (upper ? hi : lo) + __shfl_xor_sync(0xffffffffu, upper ? lo : hi, m);
       }
     }
+    reduce_scatter<HALF / 2, G, Q>(v, lane);
   }
-  for (int hh = 0; hh < de; ++hh) {
-    const float w1h = ew1[hh], w2h = ew2[hh], b1h = eb1[hh];
+}
+
+// This lane's hidden units h = lane, lane + G, ... of one MLP over the M
+// inputs whose geometry is at geo: adds each unit's field coefficients into
+// e[input] and, when acc_q, its three theta rows bw * (...) into q (w2 rows
+// at q, w1 rows at q + du, b1 rows at q + 2 du).  CP, CO: the divergence
+// coefficients (2, 4 for pairs; 1, 2 for the one-body term).  Then the
+// group's totals: e[0 .. Q) for inputs lane * Q + k.
+template <int M, int G, int Q, int CP, int CO>
+__device__ __forceinline__ void mlp_coefficients(const float4* geo, const float4* wt,
+                                                 int du, int lane, float w, float bw,
+                                                 bool acc_q, float* q,
+                                                 float (&e)[G * Q][3]) {
+#pragma unroll
+  for (int p = 0; p < G * Q; ++p) e[p][0] = e[p][1] = e[p][2] = 0.f;
+  for (int hh = lane; hh < du; hh += G) {
+    const float4 wu = wt[hh];
+    const float w1h = wu.x, b1h = wu.y, w2h = wu.z;
+    const float c1 = w2h * w1h, c2 = w2h * w1h * w1h;
     float t_ss = 0.f, t_sd = 0.f, t_srd = 0.f, t_s = 0.f, t_d = 0.f;
     float t_wrd = 0.f, t_wrd2 = 0.f, t_wr2d2 = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const float r = COL(pr + 4 * P + p), sp = COL(pr + 5 * P + p);
-      const float wr = COL(pr + 6 * P + p);
+#pragma unroll
+    for (int p = 0; p < M; ++p) {
+      const float4 g = geo[p];
+      const float r = g.x, sp = g.y, wr = g.z;
       const float s = sigmoidf_(r * w1h + b1h);
       const float s1 = s * (1.f - s);
       const float s2 = s1 * (1.f - 2.f * s);
-      COL(pr + 7 * P + p) += s * w2h;
-      COL(pr + 8 * P + p) += s1 * (w2h * w1h);
-      COL(pr + 9 * P + p) += s2 * (w2h * w1h * w1h);
+      e[p][0] += s * w2h;
+      e[p][1] += s1 * c1;
+      e[p][2] += s2 * c2;
       t_ss += sp * s;
       t_sd += sp * s1;
       t_srd += (sp * r) * s1;
@@ -102,170 +170,255 @@ __device__ void adjoint_rhs(float* sm, int t, int in, int out, int q_off,
       t_wr2d2 += (wr * r) * s2;
     }
     if (acc_q) {
-      COL(q_off + hh) += bw * (t_ss - 2.f * w1h * t_wrd - 4.f * (w * t_s));
-      COL(q_off + de + hh) += bw * (w2h * (t_srd - 6.f * t_wrd - 2.f * w1h * t_wr2d2));
-      COL(q_off + 2 * de + hh) += bw * (w2h * (t_sd - 2.f * w1h * t_wrd2 - 4.f * (w * t_d)));
+      q[hh] += bw * (t_ss - (float)CP * w1h * t_wrd - (float)CO * (w * t_s));
+      q[du + hh] += bw * (w2h * (t_srd - (float)(CP + CO) * t_wrd -
+                                 (float)CP * w1h * t_wr2d2));
+      q[2 * du + hh] += bw * (w2h * (t_sd - (float)CP * w1h * t_wrd2 -
+                                     (float)CO * (w * t_d)));
     }
   }
-  for (int c = 0; c < D; ++c) {
-    COL(out + c) = 0.f;
-    COL(out + D + c) = 0.f;
-  }
-  {
-    int p = 0;
-    for (int i = 0; i < N; ++i) {
-      for (int j = i + 1; j < N; ++j, ++p) {
-        const float ua = COL(pr + p), ub = COL(pr + P + p);
-        const float r = COL(pr + 4 * P + p), iv = 1.f / r;
-        const float e0 = COL(pr + 7 * P + p), e1 = COL(pr + 8 * P + p);
-        const float e2 = COL(pr + 9 * P + p);
-        COL(out + 2 * i) += e0 * ua;
-        COL(out + 2 * i + 1) += e0 * ub;
-        COL(out + 2 * j) -= e0 * ua;
-        COL(out + 2 * j + 1) -= e0 * ub;
-        const float cu = e1 * iv * COL(pr + 5 * P + p);
-        const float m0 = cu * ua + e0 * COL(pr + 2 * P + p);
-        const float m1 = cu * ub + e0 * COL(pr + 3 * P + p);
-        const float cg = (2.f * (e2 * r + 3.f * e1)) * iv * w;
-        COL(out + D + 2 * i) = COL(out + D + 2 * i) - m0 + cg * ua;
-        COL(out + D + 2 * i + 1) = COL(out + D + 2 * i + 1) - m1 + cg * ub;
-        COL(out + D + 2 * j) = COL(out + D + 2 * j) + m0 - cg * ua;
-        COL(out + D + 2 * j + 1) = COL(out + D + 2 * j + 1) + m1 - cg * ub;
-      }
+  reduce_scatter<G * Q / 2, G, Q>(e, lane);
+}
+
+// Pair p = (i, j), i < j, in np.triu_indices order.
+template <int N>
+__device__ __forceinline__ int pair_index(int i, int j) {
+  return i * (2 * N - i - 1) / 2 + (j - i - 1);
+}
+
+// Geometry of this lane's inputs from the stage input.
+template <int N, int G>
+__device__ __forceinline__ void geometry(float* me, const int* ptab, int lane, float w,
+                                         bool has_mu) {
+  using L = Layout<N, G>;
+  const float* x = me + L::IN;
+  const float* a = x + L::D;
+  float4* geo = reinterpret_cast<float4*>(me + L::GEO);
+#pragma unroll
+  for (int k = 0; k < L::QP; ++k) {
+    const int p = lane * L::QP + k;
+    if (p < L::P) {
+      const int ij = ptab[p], i = ij & 0xff, j = ij >> 8;
+      const float u0 = x[2 * i] - x[2 * j], u1 = x[2 * i + 1] - x[2 * j + 1];
+      const float d0 = a[2 * i] - a[2 * j], d1 = a[2 * i + 1] - a[2 * j + 1];
+      const float r = sqrtf(u0 * u0 + u1 * u1);
+      geo[p] = make_float4(r, u0 * d0 + u1 * d1, w * r, 0.f);
     }
   }
-  if (dm > 0) {
-    // rho, x.a, w rho, then m0, m1, m2 accumulators.
-    for (int i = 0; i < N; ++i) {
-      const float xa = COL(in + 2 * i), xb = COL(in + 2 * i + 1);
-      const float rho = sqrtf(xa * xa + xb * xb);
-      COL(mr + i) = rho;
-      COL(mr + N + i) = xa * COL(in + D + 2 * i) + xb * COL(in + D + 2 * i + 1);
-      COL(mr + 2 * N + i) = w * rho;
-      COL(mr + 3 * N + i) = 0.f;
-      COL(mr + 4 * N + i) = 0.f;
-      COL(mr + 5 * N + i) = 0.f;
-    }
-    const int qm = q_off + 3 * de;
-    for (int hh = 0; hh < dm; ++hh) {
-      const float w1h = mw1[hh], w2h = mw2[hh], b1h = mb1[hh];
-      float t_ss = 0.f, t_sd = 0.f, t_srd = 0.f, t_s = 0.f, t_d = 0.f;
-      float t_wrd = 0.f, t_wrd2 = 0.f, t_wr2d2 = 0.f;
-      for (int i = 0; i < N; ++i) {
-        const float rho = COL(mr + i), sx = COL(mr + N + i), wr = COL(mr + 2 * N + i);
-        const float s = sigmoidf_(rho * w1h + b1h);
-        const float s1 = s * (1.f - s);
-        const float s2 = s1 * (1.f - 2.f * s);
-        COL(mr + 3 * N + i) += s * w2h;
-        COL(mr + 4 * N + i) += s1 * (w2h * w1h);
-        COL(mr + 5 * N + i) += s2 * (w2h * w1h * w1h);
-        t_ss += sx * s;
-        t_sd += sx * s1;
-        t_srd += (sx * rho) * s1;
-        t_s += s;
-        t_d += s1;
-        t_wrd += wr * s1;
-        t_wrd2 += wr * s2;
-        t_wr2d2 += (wr * rho) * s2;
+  if (has_mu) {
+    float4* geo1 = reinterpret_cast<float4*>(me + L::GEO1);
+#pragma unroll
+    for (int k = 0; k < L::QN; ++k) {
+      const int i = lane * L::QN + k;
+      if (i < N) {
+        const float xa = x[2 * i], xb = x[2 * i + 1];
+        const float rho = sqrtf(xa * xa + xb * xb);
+        geo1[i] = make_float4(rho, xa * a[2 * i] + xb * a[2 * i + 1], w * rho, 0.f);
       }
-      if (acc_q) {
-        COL(qm + hh) += bw * (t_ss - w1h * t_wrd - 2.f * (w * t_s));
-        COL(qm + dm + hh) += bw * (w2h * (t_srd - 3.f * t_wrd - w1h * t_wr2d2));
-        COL(qm + 2 * dm + hh) += bw * (w2h * (t_sd - w1h * t_wrd2 - 2.f * (w * t_d)));
-      }
-    }
-    for (int i = 0; i < N; ++i) {
-      const float rho = COL(mr + i), iv = 1.f / rho;
-      const float xa = COL(in + 2 * i), xb = COL(in + 2 * i + 1);
-      const float m0 = COL(mr + 3 * N + i), m1 = COL(mr + 4 * N + i);
-      const float m2 = COL(mr + 5 * N + i);
-      COL(out + 2 * i) += m0 * xa;
-      COL(out + 2 * i + 1) += m0 * xb;
-      const float cu = m1 * iv * COL(mr + N + i);
-      const float cg = (m2 * rho + 3.f * m1) * iv * w;
-      COL(out + D + 2 * i) =
-          COL(out + D + 2 * i) - (cu * xa + m0 * COL(in + D + 2 * i)) + cg * xa;
-      COL(out + D + 2 * i + 1) =
-          COL(out + D + 2 * i + 1) - (cu * xb + m0 * COL(in + D + 2 * i + 1)) + cg * xb;
     }
   }
 }
 
-template <int N>
-__global__ void __launch_bounds__(BW) reinforce_kernel(
+// The MLPs (theta rows into the walker's accumulators) and, for this lane's
+// inputs, their contributions to the slopes of their particles.
+template <int N, int G>
+__device__ __forceinline__ void mlp_cells(float* me, const int* ptab, int lane,
+                                          const float4* ew, int de, const float4* mw,
+                                          int dm, int q_off, float w, float bw,
+                                          bool acc_q) {
+  using L = Layout<N, G>;
+  const float* x = me + L::IN;
+  const float* a = x + L::D;
+  float* q = me + L::Q;
+  {
+    const float4* geo = reinterpret_cast<const float4*>(me + L::GEO);
+    float e[G * L::QP][3];
+    mlp_coefficients<L::P, G, L::QP, 2, 4>(geo, ew, de, lane, w, bw, acc_q, q, e);
+    float4* cell = reinterpret_cast<float4*>(me + L::CELL);
+#pragma unroll
+    for (int k = 0; k < L::QP; ++k) {
+      const int p = lane * L::QP + k;
+      if (p < L::P) {
+        const int ij = ptab[p], i = ij & 0xff, j = ij >> 8;
+        const float ua = x[2 * i] - x[2 * j], ub = x[2 * i + 1] - x[2 * j + 1];
+        const float d0 = a[2 * i] - a[2 * j], d1 = a[2 * i + 1] - a[2 * j + 1];
+        const float4 g = geo[p];
+        const float r = g.x, iv = 1.f / r;
+        const float e0 = e[k][0], e1 = e[k][1], e2 = e[k][2];
+        const float cu = e1 * iv * g.y;
+        const float m0 = cu * ua + e0 * d0;
+        const float m1 = cu * ub + e0 * d1;
+        const float cg = (2.f * (e2 * r + 3.f * e1)) * iv * w;
+        cell[p] = make_float4(e0 * ua, e0 * ub, cg * ua - m0, cg * ub - m1);
+      }
+    }
+  }
+  if (dm > 0) {
+    const float4* geo1 = reinterpret_cast<const float4*>(me + L::GEO1);
+    float m[G * L::QN][3];
+    mlp_coefficients<N, G, L::QN, 1, 2>(geo1, mw, dm, lane, w, bw, acc_q, q + q_off, m);
+    float4* cell1 = reinterpret_cast<float4*>(me + L::CELL1);
+#pragma unroll
+    for (int k = 0; k < L::QN; ++k) {
+      const int i = lane * L::QN + k;
+      if (i < N) {
+        const float xa = x[2 * i], xb = x[2 * i + 1];
+        const float4 g = geo1[i];
+        const float rho = g.x, iv = 1.f / rho;
+        const float m0 = m[k][0], m1 = m[k][1], m2 = m[k][2];
+        const float cu = m1 * iv * g.y;
+        const float cg = (m2 * rho + 3.f * m1) * iv * w;
+        cell1[i] = make_float4(m0 * xa, m0 * xb, cg * xa - (cu * xa + m0 * a[2 * i]),
+                               cg * xb - (cu * xb + m0 * a[2 * i + 1]));
+      }
+    }
+  }
+}
+
+// Slope of state entry e (x entries: dx/dt; a entries: da/dt): its
+// particle's pair contributions in ascending partner order (+ where the
+// particle is the pair's first, - where second), then the one-body one.
+template <int N, int G>
+__device__ __forceinline__ float slope(const float* me, int e, bool has_mu) {
+  using L = Layout<N, G>;
+  if (e >= L::S) return 0.f;
+  const int f = e < L::D ? (e & 1) : 2 + (e & 1);
+  const int i = (e < L::D ? e : e - L::D) >> 1;
+  const float* cell = me + L::CELL + f;
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (j == i) continue;
+    const float v = cell[4 * (i < j ? pair_index<N>(i, j) : pair_index<N>(j, i))];
+    acc += i < j ? v : -v;
+  }
+  if (has_mu) acc += me[L::CELL1 + 4 * i + f];
+  return acc;
+}
+
+template <int N, int G>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) reinforce_kernel(
     const float* __restrict__ x1, const float* __restrict__ ghat,
     const float* __restrict__ wts_in, float* __restrict__ z_out,
     float* __restrict__ partials, int B, const float* __restrict__ eta_w1,
     const float* __restrict__ eta_b1, const float* __restrict__ eta_w2, int de,
     const float* __restrict__ mu_w1, const float* __restrict__ mu_b1,
     const float* __restrict__ mu_w2, int dm, int steps, Tableau hab) {
-  using L = Layout<N>;
-  constexpr int D = L::D, P = L::P, S = L::S;
-  extern __shared__ float sm[];
-  const int t = threadIdx.x;
-  const int w_idx = blockIdx.x * BW + t;
-  const bool live = w_idx < B;
+  using L = Layout<N, G>;
+  constexpr int D = L::D, S = L::S, E = L::E, NW = L::NW;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int tid = threadIdx.x, lane = tid % G, slot = tid / G;
+  const int w0 = blockIdx.x * NW;
   const int nq = 3 * (de + dm);
-  const int st = 0, tmp = S, ks = 2 * S, q_off = ks + hab.stages * S;
-  const int pr = q_off + nq, mr = pr + 10 * P;
-  const int per_walker = mr + 6 * N;
-  float* wts = sm + (size_t)per_walker * BW;
-  for (int j = t; j < de; j += BW) {
-    wts[j] = eta_w1[j];
-    wts[de + j] = eta_b1[j];
-    wts[2 * de + j] = eta_w2[j];
-  }
-  for (int j = t; j < dm; j += BW) {
-    wts[3 * de + j] = mu_w1[j];
-    wts[3 * de + dm + j] = mu_b1[j];
-    wts[3 * de + 2 * dm + j] = mu_w2[j];
-  }
-  for (int r = 0; r < nq; ++r) COL(q_off + r) = 0.f;
-  __syncthreads();
-  const size_t Bs = (size_t)B;
+  const int rw = region_floats<N, G>(nq);
+  const bool has_mu = dm > 0;
 
-  if (live) {
-    const float w = wts_in[w_idx];
-    for (int c = 0; c < D; ++c) {
-      COL(st + c) = x1[c * Bs + w_idx];
-      COL(st + D + c) = -w * ghat[c * Bs + w_idx];
-    }
-    for (int step = 0; step < steps; ++step) {
-      for (int i = 0; i < hab.stages; ++i) {
-        int in = st;
-        if (i > 0) {
-          for (int e = 0; e < S; ++e) {
-            float acc = COL(st + e);
-            for (int j = 0; j < i; ++j)
-              if (hab.a[i][j] != 0.f) acc = acc + hab.a[i][j] * COL(ks + j * S + e);
-            COL(tmp + e) = acc;
-          }
-          in = tmp;
-        }
-        // h < 0: -h b_i is the positive quadrature weight.
-        adjoint_rhs<N>(sm, t, in, ks + i * S, q_off, pr, mr, w, -hab.b[i],
-                       wts, wts + de, wts + 2 * de, de, wts + 3 * de,
-                       wts + 3 * de + dm, wts + 3 * de + 2 * dm, dm);
-      }
-      for (int e = 0; e < S; ++e) {
-        float acc = COL(st + e);
-        for (int j = 0; j < hab.stages; ++j)
-          if (hab.b[j] != 0.f) acc = acc + hab.b[j] * COL(ks + j * S + e);
-        COL(st + e) = acc;
-      }
-    }
-    for (int c = 0; c < D; ++c) z_out[c * Bs + w_idx] = COL(st + c);
+  float4* ew = smem4;
+  float4* mw = ew + de;
+  float* tab = reinterpret_cast<float*>(mw + dm);  // h a (6 x 6), then h b (6)
+  int* ptab = reinterpret_cast<int*>(tab + TABLEAU);  // pair -> i | j << 8
+  float* walkers = sm + header_floats<N, G>(de, dm);
+  float* me = walkers + slot * rw;
+
+  // Set-up, the only block-wide barriers: weights, tableau, pair table,
+  // zeroed accumulators, and the block's walkers, row by row (coalesced).
+  for (int j = tid; j < de; j += THREADS)
+    ew[j] = make_float4(eta_w1[j], eta_b1[j], eta_w2[j], 0.f);
+  for (int j = tid; j < dm; j += THREADS)
+    mw[j] = make_float4(mu_w1[j], mu_b1[j], mu_w2[j], 0.f);
+  for (int j = tid; j < FF_MAXSTAGES * FF_MAXSTAGES; j += THREADS)
+    tab[j] = hab.a[j / FF_MAXSTAGES][j % FF_MAXSTAGES];
+  for (int j = tid; j < FF_MAXSTAGES; j += THREADS)
+    tab[FF_MAXSTAGES * FF_MAXSTAGES + j] = hab.b[j];
+  for (int p = tid; p < L::P; p += THREADS) {
+    int i = 0, r = p;
+    while (r >= N - 1 - i) r -= N - 1 - i++;
+    ptab[p] = i | ((i + 1 + r) << 8);
+  }
+  for (int idx = tid; idx < NW * nq; idx += THREADS)
+    walkers[(idx / nq) * rw + L::Q + idx % nq] = 0.f;
+  const size_t Bs = (size_t)B;
+  for (int idx = tid; idx < S * NW; idx += THREADS) {
+    const int e = idx / NW, c = idx % NW;
+    const bool on = w0 + c < B;
+    const size_t wi = (size_t)min(w0 + c, B - 1);
+    float v;
+    if (e < D) v = x1[e * Bs + wi];
+    else v = on ? -wts_in[wi] * ghat[(e - D) * Bs + wi] : 0.f;
+    walkers[c * rw + e] = v;
   }
   __syncthreads();
+
+  const bool live = w0 + slot < B;
+  const float w = live ? wts_in[w0 + slot] : 0.f;
+  float y[E];
+#pragma unroll
+  for (int s = 0; s < E; ++s) {
+    const int e = lane + G * s;
+    y[s] = e < S ? me[L::IN + e] : 0.f;
+  }
+  const float* tb = tab + FF_MAXSTAGES * FF_MAXSTAGES;
+  float k[FF_MAXSTAGES][E];
+  for (int step = 0; step < steps; ++step) {
+    for (int st = 0; st < hab.stages; ++st) {
+      const float* ta = tab + st * FF_MAXSTAGES;
+      // h < 0: -h b_i is the positive quadrature weight.
+      const float bw = -tb[st];
+      __syncwarp();  // the group is done reading the last stage's shared data
+#pragma unroll
+      for (int s = 0; s < E; ++s) {
+        float acc = y[s];
+#pragma unroll
+        for (int j = 0; j < FF_MAXSTAGES - 1; ++j)
+          if (j < st && ta[j] != 0.f) acc = acc + ta[j] * k[j][s];
+        const int e = lane + G * s;
+        if (e < S) me[L::IN + e] = acc;
+      }
+      __syncwarp();
+      geometry<N, G>(me, ptab, lane, w, has_mu);
+      __syncwarp();
+      mlp_cells<N, G>(me, ptab, lane, ew, de, mw, dm, 3 * de, w, bw,
+                      live && bw != 0.f);
+      __syncwarp();
+#pragma unroll
+      for (int s = 0; s < E; ++s) {
+        const float ks = slope<N, G>(me, lane + G * s, has_mu);
+#pragma unroll
+        for (int j = 0; j < FF_MAXSTAGES; ++j)
+          if (j == st) k[j][s] = ks;
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < E; ++s) {
+      float acc = y[s];
+#pragma unroll
+      for (int j = 0; j < FF_MAXSTAGES; ++j)
+        if (j < hab.stages && tb[j] != 0.f) acc = acc + tb[j] * k[j][s];
+      y[s] = acc;
+    }
+  }
+
+  __syncwarp();
+#pragma unroll
+  for (int s = 0; s < E; ++s) {
+    const int e = lane + G * s;
+    if (e < D) me[L::IN + e] = y[s];
+  }
+  __syncthreads();
+  for (int idx = tid; idx < D * NW; idx += THREADS) {
+    const int e = idx / NW, c = idx % NW;
+    if (w0 + c < B) z_out[e * Bs + w0 + c] = walkers[c * rw + L::IN + e];
+  }
   // Fixed-order pairwise reduction of this block's walkers.
-  for (int r = t; r < nq; r += BW) {
-    float v[BW];
+  for (int r = tid; r < nq; r += THREADS) {
+    float v[NW];
 #pragma unroll
-    for (int k = 0; k < BW; ++k) v[k] = sm[(q_off + r) * BW + k];
+    for (int c = 0; c < NW; ++c) v[c] = walkers[c * rw + L::Q + r];
 #pragma unroll
-    for (int half = BW / 2; half > 0; half /= 2) {
+    for (int lvl = 1; lvl < NW; lvl *= 2) {
 #pragma unroll
-      for (int k = 0; k < half; ++k) v[k] += v[k + half];
+      for (int c = 0; c < NW / (2 * lvl); ++c) v[c] += v[c + NW / (2 * lvl)];
     }
     partials[(size_t)blockIdx.x * nq + r] = v[0];
   }
@@ -298,28 +451,30 @@ __global__ void __launch_bounds__(kReduceCols * kReduceRows) reinforce_reduce_ke
   if (tx == 0 && out < nq) grads[out] = v;
 }
 
-template <int N>
-size_t smem_bytes(int de, int dm, int stages) {
-  using L = Layout<N>;
-  const size_t per_walker =
-      (size_t)(2 + stages) * L::S + 3 * (de + dm) + 10 * L::P + 6 * N;
-  return (per_walker * BW + 3 * (size_t)(de + dm)) * sizeof(float);
-}
-
-// Once per instantiation: allow the card's largest dynamic shared memory.
+// Once per instantiation and process (the port drives one device per
+// process): allow the card's largest dynamic shared memory and prefer
+// shared memory over L1 (the kernel reads device memory only in its set-up).
 template <int N>
 cudaError_t prepare() {
   static const cudaError_t err = [] {
+    auto kern = reinforce_kernel<N, kLanes>;
     int dev = 0, optin = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
       e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(reinforce_kernel<N>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
     return e;
   }();
   return err;
+}
+
+int num_blocks(int B) {
+  constexpr int NW = THREADS / kLanes;
+  return (B + NW - 1) / NW;
 }
 
 template <int N>
@@ -330,27 +485,26 @@ cudaError_t launch(const float* x1, const float* ghat, const float* w,
                    const Tableau& hab, cudaStream_t stream) {
   cudaError_t err = prepare<N>();
   if (err != cudaSuccess) return err;
-  const int blocks = (B + BW - 1) / BW;
-  reinforce_kernel<N><<<blocks, BW, smem_bytes<N>(de, dm, hab.stages), stream>>>(
-      x1, ghat, w, z_out, partials, B, ew1, eb1, ew2, de, mw1, mb1, mw2, dm,
-      steps, hab);
+  reinforce_kernel<N, kLanes><<<num_blocks(B), THREADS, smem_bytes<N, kLanes>(de, dm),
+                                stream>>>(x1, ghat, w, z_out, partials, B, ew1, eb1,
+                                          ew2, de, mw1, mb1, mw2, dm, steps, hab);
   return cudaGetLastError();
 }
 
 template <int N>
-cudaError_t occupancy(int de, int dm, int stages, int* warps_per_sm) {
+cudaError_t occupancy(int de, int dm, int* warps_per_sm) {
   cudaError_t err = prepare<N>();
   if (err != cudaSuccess) return err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, reinforce_kernel<N>, BW,
-                                                      smem_bytes<N>(de, dm, stages));
-  *warps_per_sm = blocks * (BW / 32);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, reinforce_kernel<N, kLanes>, THREADS, smem_bytes<N, kLanes>(de, dm));
+  *warps_per_sm = blocks * (THREADS / 32);
   return err;
 }
 
 }  // namespace
 
-extern "C" int ff_reinforce_blocks(int B) { return (B + BW - 1) / BW; }
+extern "C" int ff_reinforce_blocks(int B) { return num_blocks(B); }
 
 extern "C" int ff_reinforce_adjoint(const float* x1, const float* ghat,
                                     const float* w, float* z_out, float* partials,
@@ -361,6 +515,7 @@ extern "C" int ff_reinforce_adjoint(const float* x1, const float* ghat,
                                     int d_mu, int steps, int stages,
                                     const float* h_a, const float* h_b,
                                     void* stream) {
+  if (B <= 0) return 0;
   const Tableau hab = make_tableau(stages, h_a, h_b);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
@@ -405,15 +560,14 @@ extern "C" int ff_reinforce(const float* x1, const float* ghat, const float* w,
 }
 
 // Resident warps per SM of the adjoint pass for n at these widths.
-extern "C" int ff_reinforce_occupancy(int n, int d_eta, int d_mu, int stages,
-                                      int* warps_per_sm) {
+extern "C" int ff_reinforce_occupancy(int n, int d_eta, int d_mu, int* warps_per_sm) {
   cudaError_t err;
   switch (n) {
-    case 2: err = occupancy<2>(d_eta, d_mu, stages, warps_per_sm); break;
-    case 3: err = occupancy<3>(d_eta, d_mu, stages, warps_per_sm); break;
-    case 4: err = occupancy<4>(d_eta, d_mu, stages, warps_per_sm); break;
-    case 5: err = occupancy<5>(d_eta, d_mu, stages, warps_per_sm); break;
-    case 6: err = occupancy<6>(d_eta, d_mu, stages, warps_per_sm); break;
+    case 2: err = occupancy<2>(d_eta, d_mu, warps_per_sm); break;
+    case 3: err = occupancy<3>(d_eta, d_mu, warps_per_sm); break;
+    case 4: err = occupancy<4>(d_eta, d_mu, warps_per_sm); break;
+    case 5: err = occupancy<5>(d_eta, d_mu, warps_per_sm); break;
+    case 6: err = occupancy<6>(d_eta, d_mu, warps_per_sm); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

@@ -8,8 +8,10 @@ continuous adjoint integrated backward on the flow's grid:
 
 Kernels: ``csrc/reinforce.cu`` (replaces the TPU kernel
 ``fermiflow_tpu/ops/pallas_reinforce.py:reinforce_flow_grad_pallas``), an
-adjoint pass writing per-block partial sums and a reduce pass summing them
-in a fixed order; ``reinforce_cm`` launches both from one host call.
+adjoint pass writing per-block partial sums (a group of ``LANES`` lanes per
+walker, 16 walkers per block; ``lane_plan`` says which lane owns what) and a
+reduce pass summing them in a fixed order; ``reinforce_cm`` launches both
+from one host call.
 Plain version: the same closed form batched in PyTorch
 (``reinforce_cm_plain``); the reduce pass's plain version is
 ``partials.sum(0)``.  The plain versions run only for CPU tensors; a CUDA
@@ -30,7 +32,33 @@ from fermiflow_tpu_torch.ops.metropolis import SUPPORTED_N
 
 __all__ = ["reinforce_cm", "reinforce_cm_plain", "reinforce_partials",
            "block_sum", "reinforce_flow_grad", "grads_from_rows",
-           "reinforce_occupancy"]
+           "reinforce_occupancy", "lane_plan", "LANES"]
+
+LANES = 8  # kLanes in csrc/reinforce.cu: lanes of a warp per walker
+
+
+def lane_plan(n: int, d_eta: int, d_mu: int | None,
+              lanes: int = LANES) -> dict:
+    """Which lane of a walker's group owns what in ``csrc/reinforce.cu``.
+
+    State entries (x then a) and hidden units (eta, mu) are dealt round
+    robin: item i to lane i % lanes, register slot i // lanes.  The pair
+    (``np.triu_indices`` order) and one-body MLP inputs whose field
+    coefficients a lane totals are contiguous: item i to lane i // q, slot
+    i % q, q = ceil(count / lanes).  Returns ``{kind: (per-lane lists of
+    (item, slot), slots per lane)}``; the slot counts of the entries, pairs
+    and one-body inputs are the kernel's ``E``, ``QP`` and ``QN``.
+    """
+    dealt = {"entries": 4 * n, "eta_units": d_eta, "mu_units": d_mu or 0}
+    blocked = {"pairs": n * (n - 1) // 2, "one_body": n}
+    plan = {kind: ([[(i, i // lanes) for i in range(c) if i % lanes == lane]
+                    for lane in range(lanes)], -(-c // lanes))
+            for kind, c in dealt.items()}
+    for kind, c in blocked.items():
+        q = -(-c // lanes)
+        plan[kind] = ([[(i, i % q) for i in range(c) if i // q == lane]
+                       for lane in range(lanes)], q)
+    return plan
 
 
 def _mlp_sources(r, sp, w, mlp, div_pair, div_one):
@@ -239,14 +267,13 @@ def reinforce_cm(params: dict, x_cm: torch.Tensor, g_cm: torch.Tensor,
     return _reinforce_cuda(params, x_cm, g_cm, w, t0, t1, steps, method)
 
 
-def reinforce_occupancy(n: int, d_eta: int, d_mu: int | None,
-                        method: str = "dopri5") -> int:
+def reinforce_occupancy(n: int, d_eta: int, d_mu: int | None) -> int:
     """Resident warps per SM of the adjoint kernel at these widths (needs
     the card)."""
     warps = ctypes.c_int(0)
     rc = _build.library("reinforce").ff_reinforce_occupancy(
         ctypes.c_int(n), ctypes.c_int(d_eta), ctypes.c_int(d_mu or 0),
-        ctypes.c_int(TABLEAUS[method].stages), ctypes.byref(warps))
+        ctypes.byref(warps))
     _build.check_rc(rc, "reinforce_adjoint occupancy")
     return warps.value
 

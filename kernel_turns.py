@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
-"""Time the Hessian-flow kernel and the REINFORCE reduce pass of two trees
-of the port on one GPU, in turns (A, B, B, A), on the same inputs.
+"""Time the Hessian-flow kernel and the REINFORCE adjoint and reduce passes
+of two trees of the port on one GPU, in turns (A, B, B, A), on the same
+inputs.
 
     python3 kernel_turns.py PARENT_ROOT CHANGE_ROOT [--out FILE]
 
 Each turn is a fresh process that imports ``fermiflow_tpu_torch`` from its
 tree (building that tree's kernels at first use) and times, at the paths'
-shapes (N=6, B=8192, d_eta=d_mu=50, dopri5 with 4 steps; (256, 300)
+shapes (N=6, B=8192, d_eta=d_mu=50, dopri5 with 4 steps; (512, 300)
 partials):
 - ``hessian_flow_cm``: CUDA events over 20 launches, three times;
+- ``reinforce_partials`` (the adjoint pass) on the Hessian flow's x and g
+  with seeded weights: CUDA events over 20 launches, three times;
 - ``block_sum`` and ``Tensor.sum`` on the partials: CUDA-graph replay of
   50 launches (device only) and 50 back-to-back calls (dispatch-inclusive).
-It also saves its outputs, so that the summary can hold the trees'
-results against each other (relative to each output's largest entry: the
+It also saves its outputs (the Hessian flow's, the reduce's, and the
+gradient and z_back of ``reinforce_cm``), so that the summary can hold the
+trees' results against each other (relative to each output's largest entry: the
 inputs are Gaussian walkers, not equilibrated ones, so H runs large) and
 each tree's two turns bitwise.  The
 summary goes to standard output and, as JSON, to ``--out``.
@@ -29,13 +33,13 @@ import sys
 import tempfile
 
 N, BATCH, D_ETA, D_MU, ODE_STEPS = 6, 8192, 50, 50, 4
-NBLOCKS, NQ = 256, 300
+NBLOCKS, NQ = 512, 300  # the adjoint's partials at B=8192
 SEED = 1234
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 def measure(root: str, save: str) -> dict:
-    """One turn: time the two kernels of the tree at ``root``."""
+    """One turn: time the three kernels of the tree at ``root``."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
@@ -43,7 +47,11 @@ def measure(root: str, save: str) -> dict:
     from fermiflow_tpu_torch.nn.backflow import backflow_init_gaussian
     from fermiflow_tpu_torch.ops import _build
     from fermiflow_tpu_torch.ops.hessian_flow import hessian_flow_cm
-    from fermiflow_tpu_torch.ops.reinforce import block_sum
+    from fermiflow_tpu_torch.ops.reinforce import (
+        block_sum,
+        reinforce_cm,
+        reinforce_partials,
+    )
     from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_cm_plain
 
     # The timing helpers of this tree's chip_smoke.py, whichever tree runs.
@@ -72,14 +80,22 @@ def measure(root: str, save: str) -> dict:
     hf = lambda: hessian_flow_cm(params, x, y, g, H, *ts)
     out = hf()
     hf_ms = [cuda_ms(hf, 20) for _ in range(3)]
+    x1, g1 = out[0], out[2]
+    w = (torch.randn((BATCH,), generator=gen) / BATCH).to(dev)
+    rf_ms = [cuda_ms(lambda: reinforce_partials(params, x1, g1, w, *ts), 20)
+             for _ in range(3)]
+    grads, z_back = reinforce_cm(params, x1, g1, w, *ts)
+    flat = torch.cat([grads[m][k].reshape(-1) for m in ("eta", "mu")
+                      for k in ("w2", "w1", "b1")])
     red_graph, rows = graph_ms(lambda: block_sum(parts))
     sum_graph, _ = graph_ms(lambda: parts.sum(0))
     res = dict(
-        root=root, hessian_flow_ms=hf_ms,
+        root=root, hessian_flow_ms=hf_ms, reinforce_adjoint_ms=rf_ms,
         reduce_graph_ms=red_graph, sum_graph_ms=sum_graph,
         reduce_dispatch_ms=cuda_ms(lambda: block_sum(parts), 50),
         sum_dispatch_ms=cuda_ms(lambda: parts.sum(0), 50))
-    torch.save({"hflow": [t.cpu() for t in out], "rows": rows.cpu()}, save)
+    torch.save({"hflow": [t.cpu() for t in out], "rows": rows.cpu(),
+                "reinforce": [flat.cpu(), z_back.cpu()]}, save)
     return res
 
 
@@ -122,20 +138,24 @@ def main() -> int:
             res["outputs"] = torch.load(save)
             turns.append(res)
             print(f"turn {i} {label}: hessian_flow ms "
-                  f"{res['hessian_flow_ms']}, reduce graph {res['reduce_graph_ms']:.6f} ms (Tensor.sum "
+                  f"{res['hessian_flow_ms']}, reinforce_adjoint ms "
+                  f"{res['reinforce_adjoint_ms']}, reduce graph {res['reduce_graph_ms']:.6f} ms (Tensor.sum "
                   f"{res['sum_graph_ms']:.6f}), dispatch-inclusive "
                   f"{res['reduce_dispatch_ms']:.6f} ms (Tensor.sum "
                   f"{res['sum_dispatch_ms']:.6f})", flush=True)
     outs = [t.pop("outputs") for t in turns]
     same_tree = all(
         all(torch.equal(u, v)
-            for u, v in zip(outs[i]["hflow"], outs[j]["hflow"]))
+            for key in ("hflow", "reinforce")
+            for u, v in zip(outs[i][key], outs[j][key]))
         and torch.equal(outs[i]["rows"], outs[j]["rows"])
         for i, j in ((0, 3), (1, 2)))
     # Parent against change, max |difference| / max |parent| per output.
     pairs = dict(zip(("x", "logp", "g", "H"),
                      zip(outs[0]["hflow"], outs[1]["hflow"])))
     pairs["reduce"] = (outs[0]["rows"], outs[1]["rows"])
+    pairs.update(zip(("reinforce_grads", "z_back"),
+                     zip(outs[0]["reinforce"], outs[1]["reinforce"])))
     rel = {k: float((p.double() - c.double()).abs().max()
                     / p.double().abs().max()) for k, (p, c) in pairs.items()}
     summary = dict(card=smi, turns=turns, same_tree_bitwise=same_tree,

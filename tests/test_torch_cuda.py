@@ -73,9 +73,9 @@ def equilibrated(device, nup, ndown, B, seed=0):
     return xs[-1].contiguous()
 
 
-def params(device, d_mu, dtype=torch.float32):
+def params(device, d_mu, dtype=torch.float32, std=0.3):
     gen = torch.Generator(device=device).manual_seed(1)
-    return backflow_init_gaussian(gen, 8, d_mu, std=0.3, dtype=dtype,
+    return backflow_init_gaussian(gen, 8, d_mu, std=std, dtype=dtype,
                                   device=device)
 
 
@@ -152,29 +152,38 @@ def test_hessian_flow_kernel_matches_plain(cuda, nup, d_mu, B):
 
 def test_hessian_flow_occupancy(cuda):
     # The paths' widths (N=6, d_eta = d_mu = 50): at least 8 warps per SM,
-    # against one warp per SM for the one-thread-per-walker design.
+    # against one (Hessian flow) and two (adjoint) warps per SM for the
+    # one-thread-per-walker designs.
     assert hessian_flow_occupancy(6, 50, 50) >= 8
-    assert reinforce_occupancy(6, 50, 50) >= 1
+    assert reinforce_occupancy(6, 50, 50) >= 8
 
 
-@pytest.mark.parametrize("d_mu,B", [(8, 100), (None, 37)])
-def test_reinforce_kernels_match_plain(cuda, d_mu, B):
-    z = equilibrated(cuda, 3, 0, B)
+# 16 walkers per adjoint block, 4 per warp: 37 and 8191 end mid-warp, 100
+# mid-block.
+@pytest.mark.parametrize("nup,d_mu,B", [(3, 8, 100), (3, None, 37),
+                                        (6, 8, 8191), (6, None, 37)])
+def test_reinforce_kernels_match_plain(cuda, nup, d_mu, B):
+    z = equilibrated(cuda, nup, 0, B)
     gen = torch.Generator(device=cuda).manual_seed(3)
-    g = torch.randn((6, B), generator=gen, device=cuda)
+    g = torch.randn((2 * nup, B), generator=gen, device=cuda)
     w = torch.randn((B,), generator=gen, device=cuda) / B
-    p = params(cuda, d_mu)
+    # At N=6 a std of 0.3 stretches the walkers past what f32 holds to
+    # 1e-5 (tests/test_torch_cuda_emu.py); 0.1 is chip_smoke's std.
+    p = params(cuda, d_mu, std=0.3 if nup < 6 else 0.1)
     before = dict(_build.LAUNCHES)
     grads, zb = reinforce_cm(p, z, g, w, *TS)
+    again, zb2 = reinforce_cm(p, z, g, w, *TS)
     ref, zr = reinforce_cm_plain(f64(p), z.double(), g.double(), w.double(),
                                  *TS)
     torch.cuda.synchronize()
     # One host call, both kernels counted.
     for k in ("reinforce_adjoint", "reinforce_reduce"):
-        assert _build.LAUNCHES[k] == before[k] + 1
+        assert _build.LAUNCHES[k] == before[k] + 2
     flat = lambda gr: torch.cat([gr[m][k].reshape(-1).double()
                                  for m in ("eta", "mu") if gr[m] is not None
                                  for k in ("w2", "w1", "b1")])
+    # No atomics: the same inputs give the same bits.
+    assert torch.equal(flat(grads), flat(again)) and torch.equal(zb, zb2)
     a, b = flat(grads), flat(ref)
     # tests/test_pallas_reinforce.py: atol 3e-6 * max|grad|, rtol 2e-5.
     torch.testing.assert_close(a, b, rtol=2e-5,

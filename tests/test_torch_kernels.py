@@ -59,6 +59,7 @@ from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_multistate_cm,
 )
 from fermiflow_tpu_torch.ops.reinforce import block_sum, reinforce_flow_grad
+from fermiflow_tpu_torch.ops.reinforce import lane_plan as reinforce_lane_plan
 from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, slater_vgh, slater_vgh_ms
 from fermiflow_tpu_torch.physics import (
     HO2D,
@@ -271,6 +272,34 @@ def test_hessian_flow_lane_plan_owns_everything_once(n, lanes):
             assert len(items) <= slots
             assert all(item % lanes == lane for item, _ in items)
         assert slots == -(-count // lanes)
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 6])
+def test_reinforce_lane_plan_owns_everything_once(n, lanes):
+    # csrc/reinforce.cu deals state entries and hidden units round robin
+    # and gives each lane a contiguous block of MLP inputs to total; every
+    # item must have exactly one owner, in a register slot the kernel
+    # compiles.
+    counts = {"entries": 4 * n, "eta_units": 50, "mu_units": 0,
+              "pairs": n * (n - 1) // 2, "one_body": n}
+    plan = reinforce_lane_plan(n, 50, None, lanes)
+    assert set(plan) == set(counts)
+    for kind, count in counts.items():
+        per_lane, slots = plan[kind]
+        assert len(per_lane) == lanes
+        owned = [item for items in per_lane for item, _ in items]
+        assert sorted(owned) == list(range(count))
+        for lane, items in enumerate(per_lane):
+            assert [slot for _, slot in items] == list(range(len(items)))
+            assert len(items) <= slots
+            owner = (lambda i: i // slots) if kind in ("pairs", "one_body") \
+                else (lambda i: i % lanes)
+            assert all(owner(item) == lane for item, _ in items)
+        assert slots == -(-count // lanes)
+    # The production widths: 50 units on 8 lanes, lanes 0-1 take 7.
+    if lanes == 8:
+        assert [len(u) for u in plan["eta_units"][0]] == [7, 7] + [6] * 6
 
 
 @pytest.mark.parametrize("d_mu", [8, None])
