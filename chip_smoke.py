@@ -10,7 +10,9 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      the build seconds and ptxas' register/spill report per kernel; the
      ``occupancy:`` line, resident warps per SM of the Hessian flow and the
      REINFORCE adjoint at the paths' widths (each must reach 8) and their
-     lane plans;
+     lane plans, and of the three sampler entries with their lanes per chain
+     and the warps per SM that the batch-8192 grid places (each must reach
+     7);
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes (N=6, batch 8192, d_eta=d_mu=50, dopri5 with 4 steps,
      30 Metropolis steps per iteration, 10 sampler segments) on equilibrated
@@ -243,13 +245,29 @@ def phase_build():
                       f"B, spill stores {st} B, spill loads {ld} B")
 
 
-def phase_occupancy():
-    """Resident warps per SM of the two long kernels at the paths' widths."""
+def phase_occupancy(device):
+    """Resident warps per SM of the lane-group kernels at the paths' widths,
+    and the warps per SM that the samplers' batch-8192 grids place."""
+    import torch
+
     from fermiflow_tpu_torch.ops import hessian_flow as hf
+    from fermiflow_tpu_torch.ops import metropolis as mp
     from fermiflow_tpu_torch.ops import reinforce as rf
 
+    _, _, kms = make_beta_model(0.0, device)[0]._qnum_tables()
+    chains = mp.metropolis_occupancy(N, BATCH)
+    launches = {"metropolis_chains": chains, "metropolis_single": chains,
+                "metropolis_multistate": mp.metropolis_ms_occupancy(N, kms,
+                                                                    BATCH)}
     warps = {"hessian_flow": hf.hessian_flow_occupancy(N, D_ETA, D_MU),
-             "reinforce_adjoint": rf.reinforce_occupancy(N, D_ETA, D_MU)}
+             "reinforce_adjoint": rf.reinforce_occupancy(N, D_ETA, D_MU),
+             **{k: v["warps_per_sm"] for k, v in launches.items()}}
+    # The samplers' grids as their launchers make them, over the SMs, and
+    # no more than can be resident at once.
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    placed = {k: min(v["grid_warps"], v["warps_per_sm"] * sms) / sms
+              for k, v in launches.items()}
+    lanes = {k: v["lanes"] for k, v in launches.items()}
     plan = hf.lane_plan(N)
     rplan = rf.lane_plan(N, D_ETA, D_MU)
     units = [len(items) for items in rplan["eta_units"][0]]
@@ -260,10 +278,17 @@ def phase_occupancy():
           f"{rf.LANES} lanes per walker, per lane {rplan['entries'][1]} state "
           f"entries, eta/mu hidden units {units} by lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
-          "inputs", flush=True)
-    for name, w in warps.items():
-        check(w >= 8, f"{name}: >= 8 resident warps per SM")
-    return warps
+          f"inputs; samplers: lanes per chain {json.dumps(lanes)}, the "
+          f"batch-{BATCH} grid places {json.dumps(placed)} warps per SM on "
+          f"{sms} SMs", flush=True)
+    for name in ("hessian_flow", "reinforce_adjoint"):
+        check(warps[name] >= 8, f"{name}: >= 8 resident warps per SM")
+    for name, w in placed.items():
+        check(lanes[name] == mp.LANES, f"{name}: built for {mp.LANES} lanes "
+              "per chain")
+        check(w >= 7, f"{name}: the batch-{BATCH} grid places >= 7 warps per "
+              "SM on average")
+    return warps, placed, lanes
 
 
 def make_model(Z: float, device):
@@ -377,7 +402,7 @@ def phase_kernels(device, rows):
     check(lp_bad <= 1e-3, "sampler: logp = log_prob (f64) within 1e-3 "
           "relative on >= 99.9% of walkers")
 
-    k_ms = cuda_ms(lambda: metropolis_chains(z_eq, tau_eq, 5, **chain), 5)
+    k_ms = cuda_ms(lambda: metropolis_chains(z_eq, tau_eq, 5, **chain), 20)
     p_ms = cuda_ms(lambda: metropolis_chains_plain(z_eq, tau_eq, 5, **chain), 1)
     flops, nbytes = roofline.metropolis_work(BATCH, N, ks, MCMC_STEPS, SEGMENTS)
     rows["metropolis_chains"] = dict(
@@ -882,7 +907,7 @@ def main() -> int:
     try:
         print("== phase 1: build", flush=True)
         phase_build()
-        warps = phase_occupancy()
+        warps, placed, lanes = phase_occupancy(device)
         print("== phase 2: kernels against their plain versions", flush=True)
         z_eq, params = phase_kernels(device, rows)
         z_ms, idx = phase_kernels_ms(device, rows, z_eq)
@@ -917,6 +942,9 @@ def main() -> int:
             library_ms=r.pop("library_ms", None), **r))
         if name in warps:
             kernels[-1]["warps_per_sm"] = warps[name]
+        if name in placed:
+            kernels[-1].update(warps_placed_per_sm=placed[name],
+                               lanes_per_chain=lanes[name])
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

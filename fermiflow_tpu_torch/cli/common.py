@@ -3,15 +3,16 @@
 chunked training loop.
 
 Flags whose machinery is not ported yet (sharding, checkpoints and restarts,
-the adaptive/adjoint solvers, the nested-jvp engine, density movies,
-profiling) are still parsed so that a command written for the JAX driver
-fails loudly here: ``config_from_args`` raises ``NotImplementedError`` for
-them instead of ignoring them.
+the adaptive/adjoint solvers, the nested-jvp engine, density movies) are
+still parsed so that a command written for the JAX CLI fails loudly here:
+``config_from_args`` raises ``NotImplementedError`` for them instead of
+ignoring them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import math
 import time
 
@@ -32,6 +33,7 @@ from fermiflow_tpu_torch.physics import (
     FreeFermion,
     HOPotential,
 )
+from fermiflow_tpu_torch.utils.profiling import trace
 from fermiflow_tpu_torch.vmc import BetaVMC, GSVMC
 
 __all__ = ["add_flags", "config_from_args", "make_cnf", "build_gs",
@@ -77,6 +79,11 @@ def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
     parser.add_argument("--device", type=str, default=d.device,
                         help="cuda (default; the kernels) or cpu (the plain "
                              "PyTorch versions)")
+    parser.add_argument("--profile-dir", type=str, default=None,
+                        help="capture a torch.profiler trace of iterations "
+                             "2-4 (of the second chunk when --steps-per-call "
+                             "> 1) into this directory: trace.json and "
+                             "summary.json")
     # Parsed but not ported: config_from_args refuses them.
     parser.add_argument("--shard", action="store_true")
     parser.add_argument("--checkpoint-dir", type=str, default=None)
@@ -86,7 +93,6 @@ def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
     parser.add_argument("--local-energy", type=str, default=d.local_energy,
                         choices=["auto", "hessian_flow", "nested_jvp"])
     parser.add_argument("--movie", type=str, default=None)
-    parser.add_argument("--profile-dir", type=str, default=None)
 
 
 def _refuse_unported(args):
@@ -97,7 +103,6 @@ def _refuse_unported(args):
         f"--ode-solver {args.ode_solver}": args.ode_solver != "fixed",
         "--local-energy nested_jvp": args.local_energy == "nested_jvp",
         "--movie": args.movie is not None,
-        "--profile-dir": args.profile_dir is not None,
     }
     asked = [flag for flag, on in unported.items() if on]
     if asked:
@@ -191,32 +196,42 @@ def build_beta(cfg: Config):
     return model, params
 
 
-def run_training_loop(state, cfg: Config, make_chunk, logger, print_row):
+def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
+                      profile_dir: str | None = None):
     """Drive ``cfg.iternum`` iterations in chunks of ``cfg.steps_per_call``.
 
     ``make_chunk(K)`` returns the K-iteration function.  The metrics fetch
     at the end of a chunk waits for the device, so its wall time over K is
     the per-iteration speed.  A non-finite primary metric (F when the
     records have one, else E) stops the run (no checkpoint restore is
-    ported).
+    ported).  With ``profile_dir`` it traces chunks 2-4 at K = 1 (the JAX
+    CLI's iterations 2-4), else chunk 2.
     """
     K = max(1, int(cfg.steps_per_call))
+    last_traced = 4 if K == 1 else 2
     chunk_fns = {}
-    i = 0
-    while i < cfg.iternum:
-        chunk = min(K, cfg.iternum - i)
-        fn = chunk_fns.get(chunk)
-        if fn is None:
-            fn = chunk_fns[chunk] = make_chunk(chunk)
-        t0 = time.time()
-        state, stacked = fn(state)
-        rows = logger.log_many(i + 1, stacked, t0)
-        for rec in rows:
-            key = "F" if "F" in rec else "E"
-            if not math.isfinite(rec[key]):
-                raise FloatingPointError(
-                    f"non-finite energy ({key}={rec[key]}) at iteration "
-                    f"{rec['step']}")
-            print_row(rec)
-        i += chunk
+    i = n_chunk = 0
+    with contextlib.ExitStack() as profiling:
+        while i < cfg.iternum:
+            n_chunk += 1
+            if profile_dir and n_chunk == 2:
+                profiling.enter_context(
+                    trace(profile_dir, cuda=cfg.device != "cpu"))
+            chunk = min(K, cfg.iternum - i)
+            fn = chunk_fns.get(chunk)
+            if fn is None:
+                fn = chunk_fns[chunk] = make_chunk(chunk)
+            t0 = time.time()
+            state, stacked = fn(state)
+            rows = logger.log_many(i + 1, stacked, t0)
+            if n_chunk == last_traced:
+                profiling.close()
+            for rec in rows:
+                key = "F" if "F" in rec else "E"
+                if not math.isfinite(rec[key]):
+                    raise FloatingPointError(
+                        f"non-finite energy ({key}={rec[key]}) at iteration "
+                        f"{rec['step']}")
+                print_row(rec)
+            i += chunk
     return state

@@ -58,7 +58,7 @@ def main(argv=None):
             state, cfg,
             lambda chunk: make_multi_step(make_beta_train_step(model, cfg),
                                           chunk),
-            logger, print_row,
+            logger, print_row, args.profile_dir,
         )
     finally:
         logger.close()

@@ -54,7 +54,7 @@ def main(argv=None):
             make_gs_train_step(model, cfg), chunk)
     try:
         state = common.run_training_loop(state, cfg, make_chunk, logger,
-                                         print_row)
+                                         print_row, args.profile_dir)
     finally:
         logger.close()
     return state

@@ -15,6 +15,10 @@ raises.
   occupations, one spin sector.  Kernel ``csrc/metropolis_ms.cu`` (replaces
   ``metropolis_free_fermion_multistate``).
 
+Each kernel walks a chain with a group of ``LANES`` lanes of a warp
+(``csrc/sampler.cuh``: lane l owns particles l, l + LANES, ...), on the
+Philox stream that one thread per chain would draw.
+
 Each takes an optional ``noise = (normals, uniforms)`` so that a kernel and
 its plain version can be compared on one random stream: for the chains
 normals (segments, steps + 1, d, B) (slot ``steps`` feeds the ``reinit``
@@ -42,11 +46,14 @@ __all__ = ["metropolis_chains", "metropolis_chains_plain",
            "metropolis_single_cm_plain", "metropolis_free_fermion",
            "metropolis_multistate_cm", "metropolis_multistate_cm_plain",
            "metropolis_free_fermion_multistate", "slater_logp_qn",
-           "slater_logp_ms", "ms_depth", "SUPPORTED_N", "KMAX", "MS_DEPTHS"]
+           "slater_logp_ms", "ms_depth", "metropolis_occupancy",
+           "metropolis_ms_occupancy", "SUPPORTED_N", "KMAX", "MS_DEPTHS",
+           "LANES"]
 
 SUPPORTED_N = (2, 3, 4, 5, 6)  # instantiations in csrc/*.cu
 KMAX = 3  # Hermite orders the ground-state kernels tabulate (FF_KMAX)
 MS_DEPTHS = (4, 5, 6, 8)  # Hermite depths the mixed-state kernels are built for
+LANES = 8  # kSamplerLanes in csrc/sampler.cuh: lanes of a warp per chain
 
 
 def ms_depth(num_shells: int) -> int:
@@ -56,6 +63,28 @@ def ms_depth(num_shells: int) -> int:
             return k
     raise ValueError(f"mixed-state CUDA kernels are built for Hermite depths "
                      f"up to {MS_DEPTHS[-1]}; got num_shells={num_shells}")
+
+
+def _occupancy(entry: str, *args) -> dict:
+    out = [ctypes.c_int(0) for _ in range(3)]
+    rc = getattr(_build.library(entry), f"ff_{entry}_occupancy")(
+        *[ctypes.c_int(a) for a in args], *[ctypes.byref(o) for o in out])
+    _build.check_rc(rc, f"{entry} occupancy")
+    return dict(zip(("warps_per_sm", "grid_warps", "lanes"),
+                    (o.value for o in out)))
+
+
+def metropolis_occupancy(n: int, batch: int) -> dict:
+    """The chains kernel's launch (``metropolis_chains`` and
+    ``metropolis_single_cm``) for n particles over ``batch`` walkers, as the
+    library reports it: resident warps per SM, the warps of the grid its
+    launcher makes, and lanes per chain (needs the card)."""
+    return _occupancy("metropolis", n, batch)
+
+
+def metropolis_ms_occupancy(n: int, num_shells: int, batch: int) -> dict:
+    """``metropolis_occupancy`` of the mixed-state kernel (needs the card)."""
+    return _occupancy("metropolis_ms", n, ms_depth(num_shells), batch)
 
 
 def slater_logp_qn(x: torch.Tensor, nx: tuple, ny: tuple, nup: int,

@@ -3,9 +3,9 @@
 // compiler.  Every CUDA thread of a block runs as one std::thread; blocks
 // run one after another.  __syncthreads and __syncwarp are std::barriers
 // over the block and over the warp (32 consecutive threads), warp shuffles
-// go through an exchange buffer, and dynamic shared memory is one buffer,
-// filled with NaN before each block so that a read of a value that no
-// thread wrote shows up in the result.
+// and ballots go through an exchange buffer, and dynamic shared memory is
+// one buffer, filled with NaN before each block so that a read of a value
+// that no thread wrote shows up in the result.
 //
 // The test rewrites two CUDA-only constructs in the source before it
 // compiles it: `extern __shared__ T name[];` becomes a pointer to that
@@ -22,6 +22,7 @@
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <cstring>
 #include <limits>
 #include <memory>
 #include <thread>
@@ -47,8 +48,33 @@ struct alignas(8) float2 {
 struct alignas(16) float4 {
   float x, y, z, w;
 };
+struct alignas(8) uint2 {
+  unsigned x, y;
+};
+struct alignas(16) uint4 {
+  unsigned x, y, z, w;
+};
 inline float2 make_float2(float a, float b) { return {a, b}; }
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
+inline uint2 make_uint2(unsigned a, unsigned b) { return {a, b}; }
+inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
+  return {a, b, c, d};
+}
+
+// Arithmetic intrinsics.  x86-64 without -mfma has no fused multiply-add,
+// so each operation rounds once, as the _rn intrinsics ask.  sincosf is
+// glibc's.
+inline unsigned __umulhi(unsigned a, unsigned b) {
+  return (unsigned)(((unsigned long long)a * b) >> 32);
+}
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __int_as_float(int v) {
+  float f;
+  std::memcpy(&f, &v, sizeof f);
+  return f;
+}
+inline int __ffs(int v) { return v == 0 ? 0 : __builtin_ctz((unsigned)v) + 1; }
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -85,7 +111,7 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, T, int,
 struct EmuBlock {
   std::barrier<>* block;
   std::vector<std::unique_ptr<std::barrier<>>>* warps;
-  std::vector<float>* exchange;
+  std::vector<uint32_t>* exchange;
 };
 inline thread_local dim3 threadIdx, blockIdx, blockDim;
 inline thread_local EmuBlock emu_block;
@@ -98,13 +124,44 @@ inline void __syncthreads() { emu_block.block->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) {
   (*emu_block.warps)[emu_linear_tid() / 32]->arrive_and_wait();
 }
-inline float __shfl_xor_sync(unsigned, float v, int lane_mask) {
+// The value that this thread's warp-mate `src` (0..31) offered; every
+// thread of the warp must call it, as the full-mask intrinsics require.
+template <class T>
+T emu_exchange(T v, int src) {
+  static_assert(sizeof(T) == 4, "32-bit shuffles only");
   const int t = emu_linear_tid();
-  (*emu_block.exchange)[t] = v;
+  uint32_t bits;
+  std::memcpy(&bits, &v, 4);
+  (*emu_block.exchange)[t] = bits;
   __syncwarp();
-  const float r = (*emu_block.exchange)[(t / 32) * 32 + ((t % 32) ^ lane_mask)];
+  bits = (*emu_block.exchange)[(t / 32) * 32 + src];
   __syncwarp();
-  return r;
+  std::memcpy(&v, &bits, 4);
+  return v;
+}
+// Lane src of this thread's segment of `width` lanes.
+template <class T>
+T __shfl_sync(unsigned, T v, int src, int width = 32) {
+  const int lane = emu_linear_tid() % 32;
+  return emu_exchange(v, (lane / width) * width + ((src % width) + width) % width);
+}
+// Lane (this lane ^ lane_mask), or this lane if that leaves the segment.
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int lane_mask, int width = 32) {
+  const int lane = emu_linear_tid() % 32;
+  const int other = lane ^ lane_mask;
+  return emu_exchange(v, other / width == lane / width ? other : lane);
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int t = emu_linear_tid();
+  (*emu_block.exchange)[t] = pred ? 1u : 0u;
+  __syncwarp();
+  unsigned bits = 0;
+  const int w0 = (t / 32) * 32;
+  for (int l = 0; l < 32 && w0 + l < (int)emu_block.exchange->size(); ++l)
+    bits |= (*emu_block.exchange)[w0 + l] << l;
+  __syncwarp();
+  return bits;
 }
 
 template <class... K, class... A>
@@ -122,7 +179,7 @@ void ff_emu_launch(dim3 grid, dim3 block, size_t smem, cudaStream_t,
         std::vector<std::unique_ptr<std::barrier<>>> warps;
         for (int w = 0; w < (nt + 31) / 32; ++w)
           warps.emplace_back(new std::barrier<>(std::min(32, nt - 32 * w)));
-        std::vector<float> exchange(nt);
+        std::vector<uint32_t> exchange(nt);
         std::vector<std::thread> threads;
         for (int t = 0; t < nt; ++t)
           threads.emplace_back([&, t] {

@@ -282,6 +282,18 @@ def test_multistate_kernel_matches_plain_on_shared_stream(cuda, nup, B):
     assert torch.isnan(lb[0]) and torch.isfinite(lb[1:]).all()
 
 
+def test_sampler_grids_fill_the_card(cuda):
+    # The paths' batch: 8 lanes per chain place >= 7 warps per SM on
+    # average, against 1.9 for one thread per chain.
+    from fermiflow_tpu_torch.ops import metropolis as mp
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for got in (mp.metropolis_occupancy(6, 8192),
+                mp.metropolis_ms_occupancy(6, 5, 8192)):
+        assert got["lanes"] == mp.LANES
+        assert min(got["grid_warps"], got["warps_per_sm"] * sms) / sms >= 7
+
+
 @pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37)])
 def test_slater_vgh_ms_kernel_matches_plain(cuda, nup, B):
     z, nx, ny, ks, _ = ms_inputs(cuda, nup, B)

@@ -1,7 +1,8 @@
-"""The CUDA sources of the Hessian flow and the REINFORCE passes, built with
-the host C++ compiler under a thread-per-CUDA-thread stand-in for the
-runtime (``tests/cuda_emu/cuda_runtime.h``), against the plain PyTorch
-versions in float64.
+"""The CUDA sources of the Hessian flow, the REINFORCE passes and the
+Metropolis samplers, built with the host C++ compiler under a
+thread-per-CUDA-thread stand-in for the runtime
+(``tests/cuda_emu/cuda_runtime.h``), against the plain PyTorch versions
+(in float64; the samplers in float32 on one injected random stream).
 
 This runs the kernels' own indexing, lane ownership, barriers and
 arithmetic on the CPU, through the port's wrappers (the library lookup and
@@ -11,6 +12,7 @@ the kernels as ``nvcc`` builds them, and time them, on an H100.
 """
 
 import ctypes
+import multiprocessing
 import re
 import shutil
 import subprocess
@@ -48,16 +50,26 @@ def emu(tmp_path_factory):
     if cxx is None:
         pytest.skip("needs a host C++20 compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu")
-    libs = {}
-    for name in ("hessian_flow", "reinforce"):
+    builds = {}
+    # The samplers also at 4 lanes per chain (FF_SAMPLER_LANES, 8 when
+    # unset): "metropolis@4" and "metropolis_ms@4".
+    for key in ("hessian_flow", "reinforce", "metropolis", "metropolis_ms",
+                "metropolis@4", "metropolis_ms@4"):
+        name, _, lanes = key.partition("@")
         src = out / f"{name}.cpp"
         src.write_text(emulated_source(
             (_build.CSRC_DIR / f"{name}.cu").read_text()))
-        lib = out / f"lib{name}.so"
-        subprocess.run([cxx, "-std=c++20", "-O1", "-shared", "-fPIC", "-I",
-                        str(EMU_DIR), "-I", str(_build.CSRC_DIR), "-o",
-                        str(lib), str(src), "-lpthread"], check=True,
-                       capture_output=True)
+        lib = out / f"lib{name}{lanes}.so"
+        defs = [f"-DFF_SAMPLER_LANES={lanes}"] if lanes else []
+        builds[key] = (lib, subprocess.Popen(
+            [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", *defs, "-I",
+             str(EMU_DIR), "-I", str(_build.CSRC_DIR), "-o", str(lib),
+             str(src), "-lpthread"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    libs = {}
+    for name, (lib, proc) in builds.items():
+        log, _ = proc.communicate()
+        assert proc.returncode == 0, f"{name}:\n{log.decode()}"
         libs[name] = ctypes.CDLL(str(lib))
     return libs
 
@@ -166,3 +178,224 @@ def test_occupancy_entries_count_warps(on_emu):
     # the card registers cap both at 4 blocks (16 warps).
     assert hf.hessian_flow_occupancy(6, 50, 50) == 16
     assert rf.reinforce_occupancy(6, 50, 50) == 24
+
+
+# ---- the Metropolis samplers: a group of lanes per chain ----
+
+
+def sampler_libs(libs, lanes):
+    """The two sampler libraries built for ``lanes`` lanes per chain."""
+    suffix = "" if lanes == 8 else f"@{lanes}"
+    return {n: libs[n + suffix] for n in ("metropolis", "metropolis_ms")}
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_sampler_occupancy_entries_report_the_launch(on_emu, monkeypatch,
+                                                     lanes):
+    # The entries report the lanes they were built for and the grid their
+    # launchers make: 128 / lanes walkers per 4-warp block.
+    from fermiflow_tpu_torch.ops import metropolis as mp
+
+    libs = sampler_libs(on_emu, lanes)
+    monkeypatch.setattr(_build, "library", libs.__getitem__)
+    for B in (8192, 37):
+        for got in (mp.metropolis_occupancy(6, B),
+                    mp.metropolis_ms_occupancy(6, 5, B)):
+            assert got["lanes"] == lanes
+            assert got["grid_warps"] == -(-B // (128 // lanes)) * 4
+            assert got["warps_per_sm"] > 0 and got["warps_per_sm"] % 4 == 0
+
+
+def _sampler_launch(lib_paths, entry, args):
+    """One emulated launch of a sampler wrapper's CUDA path (``entry`` of
+    ``ops.metropolis``, through the libraries at ``lib_paths``) on CPU
+    tensors, in a worker process: (outputs, {kernel: launches it made})."""
+    from fermiflow_tpu_torch.ops import metropolis as mp
+
+    libs = {name: ctypes.CDLL(path) for name, path in lib_paths.items()}
+    _build.library = libs.__getitem__
+    _build.check_cuda_f32 = _build.check_cuda_i32 = lambda **kw: None
+    _build.stream_ptr = lambda dev: ctypes.c_void_p(0)
+    tensors = lambda a: (torch.from_numpy(a) if isinstance(a, np.ndarray)
+                         else a if not isinstance(a, tuple)
+                         else tuple(tensors(v) for v in a))
+    before = dict(_build.LAUNCHES)
+    out = getattr(mp, entry)(*tensors(tuple(args)))
+    return ([t.numpy() for t in out],
+            {k: v - before[k] for k, v in _build.LAUNCHES.items()
+             if v != before[k]})
+
+
+class EmuWorker:
+    """Runs emulated sampler launches one at a time in a spawned process.
+    A lane that leaves before its group's last shuffle leaves the others
+    waiting for ever: a launch still running after ``timeout`` seconds
+    kills the worker and fails the test instead of hanging the run."""
+
+    def __init__(self, libs, timeout=60.0):
+        self.paths = {lanes: {n: lib._name for n, lib in
+                              sampler_libs(libs, lanes).items()}
+                      for lanes in (4, 8)}
+        self.timeout = timeout
+        self.pool = None
+
+    def launch(self, entry, lanes, *args):
+        if self.pool is None:
+            self.pool = multiprocessing.get_context("spawn").Pool(1)
+        arrays = lambda a: (a.numpy() if isinstance(a, torch.Tensor)
+                            else a if not isinstance(a, tuple)
+                            else tuple(arrays(v) for v in a))
+        job = self.pool.apply_async(
+            _sampler_launch, (self.paths[lanes], entry, arrays(args)))
+        try:
+            out, counts = job.get(self.timeout)
+        except multiprocessing.TimeoutError:
+            self.close()
+            pytest.fail(f"emulated {entry} still running after "
+                        f"{self.timeout} s: a lane waits on a shuffle that "
+                        "no lane answers")
+        return [torch.from_numpy(o) for o in out], counts
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+
+@pytest.fixture(scope="module")
+def sampler_emu(emu):
+    worker = EmuWorker(emu)
+    yield worker
+    worker.close()
+
+
+def gs_occ(nup, ndown):
+    up, dn = np.arange(nup), np.arange(ndown)
+    q = [tuple(int(v) for v in a) for a in
+         (ORB.nx[up], ORB.ny[up], ORB.nx[dn], ORB.ny[dn])]
+    return dict(nx_occ=q[0], ny_occ=q[1], nx_dn=q[2], ny_dn=q[3],
+                num_shells=max(q[0] + q[1] + q[2] + q[3]) + 1)
+
+
+def walkers(n, B, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((2 * n, B), generator=gen), gen
+
+
+def same_chains(k, p, walker_axes):
+    """chip_smoke.py's shared-stream test: positions equal on the walkers
+    that agree (an accept may flip on the last bit of exp() between two
+    implementations; none does at these sizes), logp within 1e-3, rates and
+    tau within 1e-6."""
+    err = (k[0] - p[0]).abs().amax(dim=walker_axes)
+    agree = err == 0
+    assert bool(agree.all()), f"diverged walkers {(~agree).nonzero()}"
+    assert float((k[1] - p[1]).abs().max()) <= 1e-3
+    for a, b in zip(k[2:], p[2:]):
+        assert float((a - b).abs().max()) <= 1e-6
+
+
+# Ragged batches: 16 (lanes 8) or 32 (lanes 4) walkers per block.
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("nup,ndown,B,reinit", [
+    (2, 0, 5, False), (2, 1, 19, True), (6, 0, 37, False), (6, 0, 37, True)])
+def test_metropolis_chains_source_matches_plain(sampler_emu, lanes, nup,
+                                                ndown, B, reinit):
+    from fermiflow_tpu_torch.ops.metropolis import metropolis_chains_plain
+
+    n = nup + ndown
+    x0, gen = walkers(n, B, nup + B)
+    S, steps = 2, 4
+    noise = (torch.randn((S, steps + 1, 2 * n, B), generator=gen),
+             torch.rand((S, steps, B), generator=gen).clamp_min(1e-12))
+    tau = torch.full((B,), 0.3)
+    occ = gs_occ(nup, ndown)
+    k, counts = sampler_emu.launch(
+        "_chains_cuda", lanes, x0, tau, 0, steps, S,
+        occ["nx_occ"] + occ["nx_dn"], occ["ny_occ"] + occ["ny_dn"], nup,
+        0.5, 0.1, reinit, noise)
+    p = metropolis_chains_plain(x0, tau, 0, steps=steps, segments=S,
+                                reinit=reinit, noise=noise, **occ)
+    assert counts == {"metropolis_chains": 1}
+    same_chains(k, p, (0, 1))
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("nup,ndown,B", [(3, 0, 19), (6, 0, 5)])
+def test_metropolis_single_source_matches_plain(sampler_emu, lanes, nup,
+                                                ndown, B):
+    from fermiflow_tpu_torch.ops.metropolis import metropolis_single_cm_plain
+
+    n = nup + ndown
+    x0, gen = walkers(n, B, 2 * B)
+    steps = 6
+    noise = (torch.randn((steps, 2 * n, B), generator=gen),
+             torch.rand((steps, B), generator=gen).clamp_min(1e-12))
+    tau = torch.full((B,), 0.3)
+    occ = gs_occ(nup, ndown)
+    k, counts = sampler_emu.launch(
+        "_single_cuda", lanes, x0, tau, 0, steps,
+        occ["nx_occ"] + occ["nx_dn"], occ["ny_occ"] + occ["ny_dn"], nup,
+        noise)
+    p = metropolis_single_cm_plain(x0, tau, 0, steps=steps, noise=noise,
+                                   **occ)
+    assert counts == {"metropolis_single": 1}
+    same_chains(k, p, 0)
+
+
+def ms_states(nup, B, gen):
+    """(nx, ny) (n, B) int32 of states drawn from the deltaE = 2 table."""
+    table, _ = ORB.fermion_states(nup, 0, 2.0)
+    idx = torch.randint(0, table.shape[0], (B,), generator=gen)
+    occ = torch.as_tensor(table).long()[idx]
+    return tuple(torch.as_tensor(q)[occ].T.to(torch.int32).contiguous()
+                 for q in (ORB.nx, ORB.ny))
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("n,B", [(3, 19), (6, 37)])
+def test_metropolis_ms_source_matches_plain(sampler_emu, lanes, n, B):
+    from fermiflow_tpu_torch.ops.metropolis import (
+        metropolis_multistate_cm_plain,
+    )
+
+    x0, gen = walkers(n, B, 3 * B)
+    nx, ny = ms_states(n, B, gen)
+    steps, K = 6, 5
+    noise = (torch.randn((steps, 2 * n, B), generator=gen),
+             torch.rand((steps, B), generator=gen).clamp_min(1e-12))
+    tau = torch.full((B,), 0.3)
+    bad = nx.clone()
+    bad[n - 1, B // 2] = K  # outside the compiled depth: NaN outputs
+    k, counts = sampler_emu.launch("_multistate_cuda", lanes, x0, tau, 0,
+                                   steps, bad, ny, K, noise)
+    p = metropolis_multistate_cm_plain(x0, tau, 0, steps=steps, nx_cm=nx,
+                                       ny_cm=ny, num_shells=K, noise=noise)
+    assert counts == {"metropolis_multistate": 1}
+    good = torch.arange(B) != B // 2
+    assert all(bool(t[..., ~good].isnan().all()) for t in k)
+    same_chains([t[..., good] for t in k], [t[..., good] for t in p], 0)
+
+
+@pytest.mark.parametrize("entry", ["chains", "single", "multistate"])
+def test_lane_groups_walk_the_same_philox_chains(sampler_emu, entry):
+    """On the kernels' own stream, 4 and 8 lanes per chain draw the same
+    numbers and take the same steps: every output is bitwise equal."""
+    n, B = 6, 21
+    x0, gen = walkers(n, B, 7)
+    tau = torch.full((B,), 0.2)
+    occ = gs_occ(n, 0)
+    q = (occ["nx_occ"], occ["ny_occ"])
+    nx, ny = ms_states(n, B, gen)
+    args = {"chains": ("_chains_cuda", x0, tau, 11, 3, 2, *q, n, 0.5, 0.1,
+                       False, None),
+            "single": ("_single_cuda", x0, tau, 12, 4, *q, n, None),
+            "multistate": ("_multistate_cuda", x0, tau, 13, 4, nx, ny, 5,
+                           None)}[entry]
+    outs = [sampler_emu.launch(args[0], lanes, *args[1:])[0]
+            for lanes in (4, 8)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+    assert 0.2 < float(outs[0][2].mean()) < 1.0

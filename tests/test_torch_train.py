@@ -237,11 +237,52 @@ def test_cli_runs_two_iterations_on_cpu(tmp_path, capsys, persistent):
     ["--shard"], ["--checkpoint-dir", "ck"], ["--max-restarts", "1"],
     ["--ode-solver", "adaptive"], ["--ode-solver", "adjoint"],
     ["--local-energy", "nested_jvp"], ["--movie", "m.npz"],
-    ["--profile-dir", "prof"],
+    ["--shard", "--movie", "m.npz"],
 ])
 def test_cli_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
         ground_state.main(CLI_SMALL + ["--device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("steps_per_call", [1, 2])
+def test_cli_profile_dir_writes_a_trace(tmp_path, steps_per_call):
+    prof = tmp_path / "prof"
+    argv = CLI_SMALL[:]
+    argv[argv.index("--iternum") + 1] = "4"
+    state = ground_state.main(argv + [
+        "--device", "cpu", "--steps-per-call", str(steps_per_call),
+        "--profile-dir", str(prof)])
+    assert state.step == 4
+    events = json.loads((prof / "trace.json").read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    summary = json.loads((prof / "summary.json").read_text())
+    assert summary["window_ms"] > 0 and summary["host_self"]
+    assert "device_busy_ms" not in summary  # no device on --device cpu
+
+
+def test_profile_summary_splits_device_idle():
+    from fermiflow_tpu_torch.utils.profiling import summarize
+
+    x = lambda cat, name, ts, dur, tid=1: dict(ph="X", cat=cat, name=name,
+                                              ts=ts, dur=dur, pid=1, tid=tid)
+    trace = {"traceEvents": [
+        x("cpu_op", "step", 0, 100), x("cpu_op", "aten::add", 10, 20),
+        x("cuda_runtime", "cudaLaunchKernel", 12, 5),
+        x("kernel", "k1", 20, 30, tid=7), x("kernel", "k2", 55, 10, tid=7),
+        x("kernel", "k1", 90, 5, tid=7)]}
+    s = summarize(trace)
+    assert s["window_ms"] == pytest.approx(0.1)
+    assert s["device_busy_ms"] == pytest.approx(0.045)
+    assert s["device_idle_ms"] == pytest.approx(0.055)
+    assert s["launch_gaps"] == {"count": 1, "ms": pytest.approx(0.005)}
+    assert s["long_gaps"]["count"] == 1
+    assert s["long_gaps"]["ms"] == pytest.approx(0.025)
+    assert s["device_lead_tail_idle_ms"] == pytest.approx(0.025)
+    self_ms = {r["name"]: r["ms"] for r in s["host_self"]}
+    assert self_ms == pytest.approx({"step": 0.08, "aten::add": 0.015,
+                                     "cudaLaunchKernel": 0.005})
+    assert {r["name"]: r["count"] for r in s["device_work"]} == {"k1": 2,
+                                                                 "k2": 1}
 
 
 # ---- no silent CPU ----
