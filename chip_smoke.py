@@ -7,12 +7,14 @@ Phases; any failure ends the run with a non-zero exit code and no result:
 
   1. the card's name and power limit; every CUDA kernel built from
      ``fermiflow_tpu_torch/csrc`` (one nvcc per source, in parallel), with
-     the build seconds and ptxas' register/spill report per kernel; the
-     ``occupancy:`` line, resident warps per SM of the Hessian flow and the
-     REINFORCE adjoint at the paths' widths (each must reach 8) and their
-     lane plans, and of the three sampler entries with their lanes per chain
-     and the warps per SM that the batch-8192 grid places (each must reach
-     7);
+     the build seconds and ptxas' register/spill report per kernel (the
+     two Slater VGH kernels must not spill at N=6); the ``occupancy:``
+     line, resident warps per SM of the Hessian flow and the REINFORCE
+     adjoint at the paths' widths (each must reach 8) and their lane plans,
+     of the three sampler entries with their lanes per chain and the warps
+     per SM that the batch-8192 grid places (each must reach 7), and of
+     the two VGH kernels with their lanes per walker and placed warps per
+     SM (each must reach 8);
   2. each kernel against its plain PyTorch version on the card, at the
      paths' shapes (N=6, batch 8192, d_eta=d_mu=50, dopri5 with 4 steps,
      30 Metropolis steps per iteration, 10 sampler segments) on equilibrated
@@ -21,10 +23,11 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      against log_prob).  The finite-T kernels (mixed-state sampler and
      VGH) run on states drawn from the Boltzmann probabilities at beta=2,
      deltaE=2 (54 states).  Kernels are timed with CUDA events over a run
-     of launches; the reduce pass and its yardstick ``Tensor.sum`` also by
-     replaying a CUDA graph of 50 launches each (device time only), printed
-     on the ``reinforce_reduce timing:`` line beside the dispatch-inclusive
-     pair;
+     of launches; the reduce pass and its yardstick ``Tensor.sum``, and the
+     two Slater VGH kernels, by replaying a CUDA graph of 50 launches each
+     (device time only), printed beside the dispatch-inclusive times on the
+     ``reinforce_reduce timing:`` and ``... timing:`` lines of each VGH
+     kernel;
   3. the oracles through the kernels: the identity flow at N=6, Z=0 gives
      Eloc = 14; at finite T (beta=2, deltaE=2, Boltzmann logits) every
      walker's Floc is the exact free energy 13.391808;
@@ -193,6 +196,17 @@ def vgh_against_plain(what, out_k, out_p, out_r):
     return err_r, err_p
 
 
+def vgh_times(what, fn):
+    """A VGH kernel's device time by CUDA-graph replay (``ms``; the replay
+    must recompute the captured H) and its dispatch-inclusive time over 50
+    back-to-back calls (``ms_dispatch``)."""
+    ms, _ = graph_ms(lambda: fn()[2])
+    disp = cuda_ms(fn, 50)
+    print(f"{what} timing: graph replay (device only) {ms:.6f} ms; "
+          f"dispatch-inclusive {disp:.6f} ms")
+    return dict(ms=ms, ms_dispatch=disp)
+
+
 def flow_grads_close(g_k, g_p):
     """(max |difference|, all within rtol 1e-4, atol 1e-6) over the flow
     gradient leaves."""
@@ -236,6 +250,7 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
           + json.dumps({k: round(v, 1) for k, v in per_source.items()}),
           flush=True)
+    spills = {}
     for name in _build.SOURCES:
         _build.library(name)
         report = _build.BUILD_DIR / f"{name}.ptxas.txt"
@@ -243,6 +258,12 @@ def phase_build():
             for kern, regs, stack, st, ld in ptxas_kernels(report.read_text()):
                 print(f"ptxas {name}: {kern}: {regs} registers, stack {stack} "
                       f"B, spill stores {st} B, spill loads {ld} B")
+                if kern.startswith((f"slater_vgh_kernel<{N}>",
+                                    f"slater_vgh_ms_kernel<{N},")):
+                    spills[kern] = st + ld
+    # Every build leaves its report beside the library.
+    check(bool(spills) and not any(spills.values()), "slater_vgh, "
+          f"slater_vgh_ms: no spills at N={N} ({len(spills)} instantiations)")
 
 
 def phase_occupancy(device):
@@ -253,16 +274,19 @@ def phase_occupancy(device):
     from fermiflow_tpu_torch.ops import hessian_flow as hf
     from fermiflow_tpu_torch.ops import metropolis as mp
     from fermiflow_tpu_torch.ops import reinforce as rf
+    from fermiflow_tpu_torch.ops import slater_vgh as sv
 
     _, _, kms = make_beta_model(0.0, device)[0]._qnum_tables()
     chains = mp.metropolis_occupancy(N, BATCH)
     launches = {"metropolis_chains": chains, "metropolis_single": chains,
                 "metropolis_multistate": mp.metropolis_ms_occupancy(N, kms,
-                                                                    BATCH)}
+                                                                    BATCH),
+                "slater_vgh": sv.slater_vgh_occupancy(N, BATCH),
+                "slater_vgh_ms": sv.slater_vgh_ms_occupancy(N, kms, BATCH)}
     warps = {"hessian_flow": hf.hessian_flow_occupancy(N, D_ETA, D_MU),
              "reinforce_adjoint": rf.reinforce_occupancy(N, D_ETA, D_MU),
              **{k: v["warps_per_sm"] for k, v in launches.items()}}
-    # The samplers' grids as their launchers make them, over the SMs, and
+    # The lane-group grids as their launchers make them, over the SMs, and
     # no more than can be resident at once.
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     placed = {k: min(v["grid_warps"], v["warps_per_sm"] * sms) / sms
@@ -278,16 +302,18 @@ def phase_occupancy(device):
           f"{rf.LANES} lanes per walker, per lane {rplan['entries'][1]} state "
           f"entries, eta/mu hidden units {units} by lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
-          f"inputs; samplers: lanes per chain {json.dumps(lanes)}, the "
-          f"batch-{BATCH} grid places {json.dumps(placed)} warps per SM on "
-          f"{sms} SMs", flush=True)
+          f"inputs; samplers and VGH kernels: lanes per chain or walker "
+          f"{json.dumps(lanes)}, the batch-{BATCH} grid places "
+          f"{json.dumps(placed)} warps per SM on {sms} SMs", flush=True)
     for name in ("hessian_flow", "reinforce_adjoint"):
         check(warps[name] >= 8, f"{name}: >= 8 resident warps per SM")
     for name, w in placed.items():
-        check(lanes[name] == mp.LANES, f"{name}: built for {mp.LANES} lanes "
-              "per chain")
-        check(w >= 7, f"{name}: the batch-{BATCH} grid places >= 7 warps per "
-              "SM on average")
+        vgh = name.startswith("slater_vgh")
+        built, least = (sv.LANES, 8) if vgh else (mp.LANES, 7)
+        check(lanes[name] == built, f"{name}: built for {built} lanes per "
+              + ("walker" if vgh else "chain"))
+        check(w >= least, f"{name}: the batch-{BATCH} grid places >= {least} "
+              "warps per SM on average")
     return warps, placed, lanes
 
 
@@ -420,7 +446,7 @@ def phase_kernels(device, rows):
     err_vgh64, err_vgh = vgh_against_plain("slater_vgh", out_vgh, out_p, out_r)
     rows["slater_vgh"] = dict(
         max_abs_err=err_vgh64, max_abs_err_vs_plain_f32=err_vgh,
-        ms=cuda_ms(lambda: slater_vgh_cm(z_eq, **occ), 20),
+        **vgh_times("slater_vgh", lambda: slater_vgh_cm(z_eq, **occ)),
         plain_ms=cuda_ms(lambda: slater_vgh_cm_plain(z_eq, **occ), 3),
         work=roofline.vgh_work(BATCH, N, ks), tolerance=VGH_TOLERANCE)
 
@@ -660,7 +686,7 @@ def phase_kernels_ms(device, rows, z_eq):
     err_r, err_p = vgh_against_plain("slater_vgh_ms", out_k, out_p, out_r)
     rows["slater_vgh_ms"] = dict(
         max_abs_err=err_r, max_abs_err_vs_plain_f32=err_p,
-        ms=cuda_ms(lambda: slater_vgh_ms_cm(z_ms, *vgh), 50),
+        **vgh_times("slater_vgh_ms", lambda: slater_vgh_ms_cm(z_ms, *vgh)),
         plain_ms=cuda_ms(lambda: slater_vgh_ms_cm_plain(z_ms, *vgh), 3),
         work=roofline.vgh_ms_work(BATCH, N, kms), tolerance=VGH_TOLERANCE)
     return z_ms, idx
@@ -943,8 +969,9 @@ def main() -> int:
         if name in warps:
             kernels[-1]["warps_per_sm"] = warps[name]
         if name in placed:
-            kernels[-1].update(warps_placed_per_sm=placed[name],
-                               lanes_per_chain=lanes[name])
+            per = "walker" if name.startswith("slater_vgh") else "chain"
+            kernels[-1].update({"warps_placed_per_sm": placed[name],
+                                f"lanes_per_{per}": lanes[name]})
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

@@ -84,6 +84,15 @@ def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
                              "2-4 (of the second chunk when --steps-per-call "
                              "> 1) into this directory: trace.json and "
                              "summary.json")
+    parser.add_argument("--divergence-window", type=int,
+                        default=d.divergence_window,
+                        help="trailing healthy-iteration window for the "
+                             "divergence watchdog (0 disables)")
+    parser.add_argument("--divergence-nsigma", type=float,
+                        default=d.divergence_nsigma,
+                        help="stop when the energy exceeds the window "
+                             "mean by this many window standard deviations "
+                             "(finite-divergence watchdog; <=0 disables)")
     # Parsed but not ported: config_from_args refuses them.
     parser.add_argument("--shard", action="store_true")
     parser.add_argument("--checkpoint-dir", type=str, default=None)
@@ -135,6 +144,8 @@ def config_from_args(args, finite_t: bool = False) -> Config:
         metrics_path=args.metrics,
         local_energy=args.local_energy,
         steps_per_call=args.steps_per_call,
+        divergence_window=args.divergence_window,
+        divergence_nsigma=args.divergence_nsigma,
         device=args.device,
     )
     if finite_t:
@@ -196,20 +207,73 @@ def build_beta(cfg: Config):
     return model, params
 
 
+def _diverged(cfg: Config, window: list, key: str, recs: list):
+    """Finite-divergence check of ``recs`` against the trailing healthy
+    ``window`` of (metric, metric_std): the reason, or None."""
+    if (cfg.divergence_nsigma <= 0 or cfg.divergence_window <= 0
+            or len(window) < cfg.divergence_window):
+        return None
+    vals = [w[0] for w in window]
+    stds = sorted(w[1] for w in window)
+    m = sum(vals) / len(vals)
+    var = sum((v - m) ** 2 for v in vals) / len(vals)
+    # Sigma floor: a fully converged window can have ~zero scatter; a
+    # relative floor keeps the threshold meaningful there.
+    s = max(var ** 0.5, 1e-3 * max(abs(m), 1.0))
+    smed = stds[len(stds) // 2]
+    for r in recs:
+        v = float(r[key])
+        if v > m + cfg.divergence_nsigma * s:
+            return (f"divergence ({key}={v:.6g} > window mean {m:.6g} + "
+                    f"{cfg.divergence_nsigma:g} x sigma {s:.3g})")
+        vs = float(r.get(key + "_std", 0.0))
+        if smed > 0 and math.isfinite(vs) and vs > 10.0 * smed:
+            return (f"divergence ({key}_std={vs:.6g} > 10 x window "
+                    f"median {smed:.6g})")
+    return None
+
+
+def _bad(cfg: Config, window: list, recs: list):
+    """Why ``recs`` stop the run (a non-finite primary metric, F when the
+    records have one, else E; or a finite divergence), or None."""
+    key = "F" if "F" in recs[0] else "E"
+    for r in recs:
+        if not math.isfinite(float(r[key])):
+            return f"non-finite energy ({key}={float(r[key])})"
+    return _diverged(cfg, window, key, recs)
+
+
+def _note_healthy(cfg: Config, window: list, recs: list) -> None:
+    """Append healthy records to the trailing window, kept at
+    ``divergence_window`` entries; a disabled check keeps it empty."""
+    if cfg.divergence_window <= 0:
+        return
+    key = "F" if "F" in recs[0] else "E"
+    window.extend((float(r[key]), float(r.get(key + "_std", 0.0)))
+                  for r in recs)
+    del window[:-cfg.divergence_window]
+
+
 def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
                       profile_dir: str | None = None):
     """Drive ``cfg.iternum`` iterations in chunks of ``cfg.steps_per_call``.
 
     ``make_chunk(K)`` returns the K-iteration function.  The metrics fetch
     at the end of a chunk waits for the device, so its wall time over K is
-    the per-iteration speed.  A non-finite primary metric (F when the
-    records have one, else E) stops the run (no checkpoint restore is
-    ported).  With ``profile_dir`` it traces chunks 2-4 at K = 1 (the JAX
-    CLI's iterations 2-4), else chunk 2.
+    the per-iteration speed.  Each chunk is checked whole before its rows
+    are printed: a non-finite primary metric (F when the records have one,
+    else E), or a finite divergence (the metric ``divergence_nsigma``
+    window-sigmas above the mean of the trailing ``divergence_window``
+    healthy iterations, or its per-walker std 10x over the window median)
+    raises ``FloatingPointError`` with the JAX CLI's message at
+    ``max_restarts`` = 0 (no checkpoint restore is ported).  With
+    ``profile_dir`` it traces chunks 2-4 at K = 1 (the JAX CLI's iterations
+    2-4), else chunk 2.
     """
     K = max(1, int(cfg.steps_per_call))
     last_traced = 4 if K == 1 else 2
     chunk_fns = {}
+    window = []  # (metric, metric_std) of the trailing healthy iterations
     i = n_chunk = 0
     with contextlib.ExitStack() as profiling:
         while i < cfg.iternum:
@@ -226,12 +290,13 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
             rows = logger.log_many(i + 1, stacked, t0)
             if n_chunk == last_traced:
                 profiling.close()
+            reason = _bad(cfg, window, rows)
+            if reason:
+                raise FloatingPointError(
+                    f"{reason} at iteration {i + chunk} (no --checkpoint-dir)"
+                    f"; 0/{cfg.max_restarts} restarts used")
+            _note_healthy(cfg, window, rows)
             for rec in rows:
-                key = "F" if "F" in rec else "E"
-                if not math.isfinite(rec[key]):
-                    raise FloatingPointError(
-                        f"non-finite energy ({key}={rec[key]}) at iteration "
-                        f"{rec['step']}")
                 print_row(rec)
             i += chunk
     return state

@@ -5,29 +5,25 @@
 //
 // Computes per walker y = 2 sum_sectors log|det D|, g = grad y and
 // H = grad^2 y (upper triangle in np.triu_indices order) by determinant
-// calculus: with A = D^{-1}, B[a][i][k] = sum_j D1a[i][j] A[j][k] and
-// C[i][a][b] = sum_j A[j][i] D2ab[i][j],
-//   g_(i,a) = 2 B[a][i][i],
-//   H_(i,a),(k,b) = 2 (delta_ik C[i][a][b] - B[b][k][i] B[a][i][k]).
-// Orbital derivatives come from the Hermite ladder identities
-// psi_m' = sqrt(m/2) psi_{m-1} - sqrt((m+1)/2) psi_{m+1} and
+// calculus (vgh.cuh).  Orbital derivatives come from the Hermite ladder
+// identities psi_m' = sqrt(m/2) psi_{m-1} - sqrt((m+1)/2) psi_{m+1} and
 // psi_m'' = (u^2 - 2m - 1) psi_m.
 //
 // What bounds it on the H100: at N=6 it writes 91 floats per walker and
-// reads 12 (~3.4 MB at B=8192, ~1 us at 3.35 TB/s) against ~10 kflop of
-// arithmetic per walker (~1.3 us at 67 TFLOP/s FP32): arithmetic and
-// latency, close to balanced.
+// reads 12 (~3.4 MB at B=8192, ~1 us at 3.35 TB/s) against ~4 kflop of
+// arithmetic per walker (~0.5 us at 67 TFLOP/s FP32): bytes, but a walker's
+// work is a chain of dependent steps (the elimination's columns, its
+// shuffles), so latency sets the time unless many walkers interleave.
 //
-// Design: one thread per walker.  The per-walker factor tables (psi, psi',
-// psi'' per particle and axis; the determinant calculus is vgh.cuh's, shared
-// with the mixed-state kernel) and the inverse A and contractions B live in
-// shared memory as [entry][walker] columns private to each thread, so no
-// barrier is needed and a warp's accesses hit 32 distinct banks; the
-// Gauss-Jordan inverse itself runs in registers (N x 2N, fully unrolled,
-// swap-free pivoting resolved by selects, as the TPU kernel's _gj_inverse).
-// Sectors: one N x N matrix with zero cross-sector entries, whose inverse
-// and contractions are block-diagonal, so the cross-sector H blocks come
-// out exactly zero.
+// Design: a group of kVghLanes = 8 lanes per walker, 32 walkers per
+// 256-thread block, so B = 8192 walkers make 2048 warps (vgh.cuh: lane l
+// owns rows l, l + 8, ...).  Each lane builds its particles' 1D factor
+// tables in registers and picks its rows' entries by unrolled selects (the
+// occupation is the same for every walker); the group eliminates its rows
+// together, then each lane forms its rows of B and C, and the lanes deal
+// out the packed H entries.  Sectors: one N x N matrix with zero
+// cross-sector entries, whose inverse and contractions are block-diagonal,
+// so the cross-sector H blocks come out exactly zero.
 #include "vgh.cuh"
 
 namespace {
@@ -35,78 +31,53 @@ namespace {
 constexpr int KO = FF_KMAX;  // orders with derivatives
 
 template <int N>
-struct Smem {
-  float psi[N][2][KO + 1][BW];
-  float dpsi[N][2][KO][BW];
-  float d2psi[N][2][KO][BW];
-  float A[N][N][BW];
-  float Bm[2][N][N][BW];
-};
-
-// 1D factors of entry (i, j) from the per-particle tables; the occupation is
-// the same for every walker, so the table index is uniform across a warp.
-template <int N>
-struct StaticFactors {
-  const Smem<N>& sm;
-  Occ occ;
-  int t;
-  __device__ __forceinline__ int q(int a, int j) const {
-    return a == 0 ? occ.nx[j] : occ.ny[j];
-  }
-  __device__ __forceinline__ float v(int i, int a, int j) const {
-    return sm.psi[i][a][q(a, j)][t];
-  }
-  __device__ __forceinline__ float d1(int i, int a, int j) const {
-    return sm.dpsi[i][a][q(a, j)][t];
-  }
-  __device__ __forceinline__ float d2(int i, int a, int j) const {
-    return sm.d2psi[i][a][q(a, j)][t];
-  }
-  __device__ __forceinline__ bool same(int i, int j) const {
-    return (i < occ.nup) == (j < occ.nup);
-  }
-};
-
-template <int N>
-__global__ void __launch_bounds__(BW) slater_vgh_kernel(
+__global__ void __launch_bounds__(kVghThreads, kVghMinBlocks) slater_vgh_kernel(
     const float* __restrict__ x, float* __restrict__ y_out,
     float* __restrict__ g_out, float* __restrict__ h_out, int B, Occ occ) {
-  __shared__ Smem<N> sm;
-  const int t = threadIdx.x;
-  const int w = blockIdx.x * BW + t;
-  if (w >= B) return;  // no barrier below: every column is thread-private
+  constexpr int G = kVghLanes;
+  using P = VghPlan<N, G>;
+  extern __shared__ float smem[];
+  const int lane = threadIdx.x % G, wb = threadIdx.x / G;
+  const int w = min((int)blockIdx.x * kVghWalkers + wb, B - 1);
   const size_t Bs = (size_t)B;
 
-  // 1D factor tables, one order higher for the ladder derivative.
+  float fv[P::S][N][2], f1[P::S][N][2], f2[P::S][N][2];
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
+  for (int s = 0; s < P::S; ++s) {
+    const int i = vgh_row<N, G>(lane, s);
 #pragma unroll
     for (int a = 0; a < 2; ++a) {
-      const float c = x[(2 * i + a) * Bs + w];
-      float h[KO + 1];
-      hermite<KO + 1>(c, h);
-      const float g = kPref4 * expf(-0.5f * c * c);
+      float psi[KO], dpsi[KO], d2psi[KO];
+      ho_factors<KO>(x[(2 * i + a) * Bs + w], psi, dpsi, d2psi);
 #pragma unroll
-      for (int m = 0; m <= KO; ++m) sm.psi[i][a][m][t] = g * h[m];
-#pragma unroll
-      for (int m = 0; m < KO; ++m) {
-        float dm = -sqrtf((m + 1) / 2.f) * g * h[m + 1];
-        if (m > 0) dm += sqrtf(m / 2.f) * g * h[m - 1];
-        sm.dpsi[i][a][m][t] = dm;
-        sm.d2psi[i][a][m][t] = (c * c - (float)(2 * m + 1)) * g * h[m];
+      for (int j = 0; j < N; ++j) {
+        const int q = a == 0 ? occ.nx[j] : occ.ny[j];
+        fv[s][j][a] = select_order<KO>(psi, q);
+        f1[s][j][a] = select_order<KO>(dpsi, q);
+        f2[s][j][a] = select_order<KO>(d2psi, q);
       }
     }
   }
-  vgh_from_factors<N>(StaticFactors<N>{sm, occ, t}, sm.A, sm.Bm, t, w, Bs,
-                      2.f, y_out, g_out, h_out);
+  float* stage = smem + kVghWalkers * P::WS;
+  vgh_group<N, G>(fv, f1, f2, occ.nup, lane, smem + wb * P::WS, stage + wb, 2.f);
+  vgh_store_block<N, G>(stage, B, y_out, g_out, h_out);
 }
 
 template <int N>
 cudaError_t launch(const float* x, float* y, float* g, float* h, int B, Occ occ,
                    cudaStream_t stream) {
-  const int blocks = (B + BW - 1) / BW;
-  slater_vgh_kernel<N><<<blocks, BW, 0, stream>>>(x, y, g, h, B, occ);
+  slater_vgh_kernel<N><<<vgh_blocks(B), kVghThreads, VghPlan<N, kVghLanes>::smem_bytes,
+                         stream>>>(x, y, g, h, B, occ);
   return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t occupancy(int* warps) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, slater_vgh_kernel<N>, kVghThreads, VghPlan<N, kVghLanes>::smem_bytes);
+  *warps = blocks * (kVghThreads / 32);
+  return err;
 }
 
 }  // namespace
@@ -126,4 +97,20 @@ extern "C" int ff_slater_vgh(const float* x, float* y, float* g, float* h, int B
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
+}
+
+// The kernel's launch for n particles over B walkers: resident warps per
+// SM, the warps of the grid the launcher makes, and lanes per walker.
+extern "C" int ff_slater_vgh_occupancy(int n, int B, int* warps_per_sm,
+                                       int* grid_warps, int* lanes) {
+  *grid_warps = vgh_grid_warps(B);
+  *lanes = kVghLanes;
+  switch (n) {
+    case 2: return (int)occupancy<2>(warps_per_sm);
+    case 3: return (int)occupancy<3>(warps_per_sm);
+    case 4: return (int)occupancy<4>(warps_per_sm);
+    case 5: return (int)occupancy<5>(warps_per_sm);
+    case 6: return (int)occupancy<6>(warps_per_sm);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

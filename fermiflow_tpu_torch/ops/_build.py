@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["LAUNCHES", "reset_launch_counts", "build_all", "library",
            "BUILD_DIR", "SOURCES", "ptr", "stream_ptr", "check_rc",
-           "check_cuda_f32", "check_cuda_i32"]
+           "check_cuda_f32", "check_cuda_i32", "occupancy"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -156,3 +156,16 @@ def check_cuda_f32(**tensors) -> None:
 def check_cuda_i32(**tensors) -> None:
     """Every tensor lies on one CUDA device, is int32 and contiguous."""
     _check_cuda(torch.int32, tensors)
+
+
+def occupancy(entry: str, *args) -> dict:
+    """A lane-group kernel's launch as its library reports it
+    (``ff_<entry>_occupancy(*args, ...)`` of ``csrc/<entry>.cu``): resident
+    warps per SM, the warps of the grid its launcher makes, and the lanes
+    that share one walker (needs the card)."""
+    out = [ctypes.c_int(0) for _ in range(3)]
+    rc = getattr(library(entry), f"ff_{entry}_occupancy")(
+        *[ctypes.c_int(a) for a in args], *[ctypes.byref(o) for o in out])
+    check_rc(rc, f"{entry} occupancy")
+    return dict(zip(("warps_per_sm", "grid_warps", "lanes"),
+                    (o.value for o in out)))

@@ -65,26 +65,17 @@ def ms_depth(num_shells: int) -> int:
                      f"up to {MS_DEPTHS[-1]}; got num_shells={num_shells}")
 
 
-def _occupancy(entry: str, *args) -> dict:
-    out = [ctypes.c_int(0) for _ in range(3)]
-    rc = getattr(_build.library(entry), f"ff_{entry}_occupancy")(
-        *[ctypes.c_int(a) for a in args], *[ctypes.byref(o) for o in out])
-    _build.check_rc(rc, f"{entry} occupancy")
-    return dict(zip(("warps_per_sm", "grid_warps", "lanes"),
-                    (o.value for o in out)))
-
-
 def metropolis_occupancy(n: int, batch: int) -> dict:
     """The chains kernel's launch (``metropolis_chains`` and
     ``metropolis_single_cm``) for n particles over ``batch`` walkers, as the
     library reports it: resident warps per SM, the warps of the grid its
     launcher makes, and lanes per chain (needs the card)."""
-    return _occupancy("metropolis", n, batch)
+    return _build.occupancy("metropolis", n, batch)
 
 
 def metropolis_ms_occupancy(n: int, num_shells: int, batch: int) -> dict:
     """``metropolis_occupancy`` of the mixed-state kernel (needs the card)."""
-    return _occupancy("metropolis_ms", n, ms_depth(num_shells), batch)
+    return _build.occupancy("metropolis_ms", n, ms_depth(num_shells), batch)
 
 
 def slater_logp_qn(x: torch.Tensor, nx: tuple, ny: tuple, nup: int,

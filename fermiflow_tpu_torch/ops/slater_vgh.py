@@ -9,6 +9,10 @@ raises.
   (replaces ``fermiflow_tpu/ops/pallas_slater_vgh.py:slater_vgh_pallas``).
 * ``slater_vgh_ms_cm``: per-walker occupations, one spin sector (finite T).
   Kernel ``csrc/slater_vgh_ms.cu`` (replaces ``slater_vgh_ms_pallas``).
+
+Each kernel works on a walker with a group of ``LANES`` lanes of a warp
+(``csrc/vgh.cuh``: lane l owns Slater rows l, l + LANES, ...), with the
+arithmetic of one thread per walker.
 """
 
 from __future__ import annotations
@@ -29,7 +33,22 @@ from fermiflow_tpu_torch.physics.slater import (
 
 __all__ = ["slater_vgh_cm", "slater_vgh_cm_plain", "slater_vgh",
            "slater_vgh_ms_cm", "slater_vgh_ms_cm_plain", "slater_vgh_ms",
-           "pack_triu", "unpack_triu"]
+           "pack_triu", "unpack_triu", "slater_vgh_occupancy",
+           "slater_vgh_ms_occupancy", "LANES"]
+
+LANES = 8  # kVghLanes in csrc/vgh.cuh: lanes of a warp per walker
+
+
+def slater_vgh_occupancy(n: int, batch: int) -> dict:
+    """The static kernel's launch for n particles over ``batch`` walkers, as
+    the library reports it: resident warps per SM, the warps of the grid its
+    launcher makes, and lanes per walker (needs the card)."""
+    return _build.occupancy("slater_vgh", n, batch)
+
+
+def slater_vgh_ms_occupancy(n: int, num_shells: int, batch: int) -> dict:
+    """``slater_vgh_occupancy`` of the mixed-state kernel (needs the card)."""
+    return _build.occupancy("slater_vgh_ms", n, ms_depth(num_shells), batch)
 
 
 def pack_triu(H: torch.Tensor) -> torch.Tensor:

@@ -18,14 +18,20 @@ partials; 30 Metropolis steps):
   every turn): ``metropolis_chains`` (10 segments, tau adapted between
   them), ``metropolis_single_cm`` and ``metropolis_multistate_cm`` (54
   states of the deltaE = 2 table, Hermite depth 5): CUDA events over 20
-  launches, three times.
+  launches, three times;
+- the two Slater VGH kernels on the same equilibrated walkers:
+  ``slater_vgh_cm`` on the ground-state walkers and ``slater_vgh_ms_cm`` on
+  the mixed-state walkers in their states: CUDA-graph replay of 50 launches
+  (device only), three times.
 It also saves its outputs (the Hessian flow's, the reduce's, the gradient
-and z_back of ``reinforce_cm``, and each sampler's), so that the summary
-can hold the trees' results against each other (relative to each output's
-largest entry: the flow's inputs are Gaussian walkers, not equilibrated
-ones, so H runs large; for the samplers, the share of walkers whose chain
-diverged and the largest |dx| on the rest) and each tree's two turns
-bitwise.  The summary goes to standard output and, as JSON, to ``--out``.
+and z_back of ``reinforce_cm``, each sampler's and each VGH kernel's), so
+that the summary can hold the trees' results against each other (relative
+to each output's largest entry: the flow's inputs are Gaussian walkers, not
+equilibrated ones, so H runs large; for the samplers, the share of walkers
+whose chain diverged and the largest |dx| on the rest; for the VGH kernels,
+y, g and H each, and whether all three are bitwise equal) and each tree's
+two turns bitwise.  The summary goes to standard output and, as JSON, to
+``--out``.
 """
 
 from __future__ import annotations
@@ -77,11 +83,11 @@ def sampler_inputs(torch, dev):
     return xs[-1].contiguous(), tau.contiguous(), z.contiguous(), ms
 
 
-def time_samplers(torch, dev, cuda_ms):
+def time_samplers(torch, dev, cuda_ms, inputs):
     """{entry: [ms x 3]}, {entry: outputs}."""
     from fermiflow_tpu_torch.ops import metropolis as mp
 
-    z_gs, tau_gs, z_ms, ms = sampler_inputs(torch, dev)
+    z_gs, tau_gs, z_ms, ms = inputs
     tau01 = torch.full((BATCH,), 0.1, device=dev)
     calls = {
         "metropolis_chains": lambda: mp.metropolis_chains(
@@ -93,6 +99,24 @@ def time_samplers(torch, dev, cuda_ms):
             z_ms, tau01, SEED, steps=MCMC_STEPS, **ms),
     }
     times = {k: [cuda_ms(fn, 20) for _ in range(3)] for k, fn in calls.items()}
+    outs = {k: [t.cpu() for t in fn()] for k, fn in calls.items()}
+    return times, outs
+
+
+def time_vgh(graph_ms, inputs):
+    """{entry: [graph-replay ms x 3]}, {entry: [y, g, H]} of the two Slater
+    VGH kernels on the equilibrated walkers of ``sampler_inputs``."""
+    from fermiflow_tpu_torch.ops import slater_vgh as sv
+
+    z_gs, _, z_ms, ms = inputs
+    calls = {
+        "slater_vgh": lambda: sv.slater_vgh_cm(z_gs, **GS_OCC),
+        "slater_vgh_ms": lambda: sv.slater_vgh_ms_cm(
+            z_ms, ms["nx_cm"], ms["ny_cm"], ms["num_shells"]),
+    }
+    # graph_ms replays the captured launches and checks their last H.
+    times = {k: [graph_ms(lambda: fn()[2])[0] for _ in range(3)]
+             for k, fn in calls.items()}
     outs = {k: [t.cpu() for t in fn()] for k, fn in calls.items()}
     return times, outs
 
@@ -146,16 +170,18 @@ def measure(root: str, save: str) -> dict:
                       for k in ("w2", "w1", "b1")])
     red_graph, rows = graph_ms(lambda: block_sum(parts))
     sum_graph, _ = graph_ms(lambda: parts.sum(0))
-    sampler_ms, sampler_out = time_samplers(torch, dev, cuda_ms)
+    inputs = sampler_inputs(torch, dev)
+    sampler_ms, sampler_out = time_samplers(torch, dev, cuda_ms, inputs)
+    vgh_ms, vgh_out = time_vgh(graph_ms, inputs)
     res = dict(
         root=root, hessian_flow_ms=hf_ms, reinforce_adjoint_ms=rf_ms,
         reduce_graph_ms=red_graph, sum_graph_ms=sum_graph,
         reduce_dispatch_ms=cuda_ms(lambda: block_sum(parts), 50),
         sum_dispatch_ms=cuda_ms(lambda: parts.sum(0), 50),
-        sampler_ms=sampler_ms)
+        sampler_ms=sampler_ms, vgh_graph_ms=vgh_ms)
     torch.save({"hflow": [t.cpu() for t in out], "rows": rows.cpu(),
                 "reinforce": [flat.cpu(), z_back.cpu()],
-                "samplers": sampler_out}, save)
+                "samplers": sampler_out, "vgh": vgh_out}, save)
     return res
 
 
@@ -220,11 +246,13 @@ def main() -> int:
                   f"{res['sum_graph_ms']:.6f}), dispatch-inclusive "
                   f"{res['reduce_dispatch_ms']:.6f} ms (Tensor.sum "
                   f"{res['sum_dispatch_ms']:.6f}); samplers ms "
-                  f"{json.dumps(res['sampler_ms'])}", flush=True)
+                  f"{json.dumps(res['sampler_ms'])}; VGH graph ms "
+                  f"{json.dumps(res['vgh_graph_ms'])}", flush=True)
     outs = [t.pop("outputs") for t in turns]
 
     def sampler_lists(o):
-        return [t for entry in o["samplers"].values() for t in entry]
+        return [t for key in ("samplers", "vgh")
+                for entry in o[key].values() for t in entry]
 
     same_tree = all(
         all(torch.equal(u, v)
@@ -245,9 +273,18 @@ def main() -> int:
     # Each sampler entry of the parent against the change's.
     chains = {entry: chains_agreement(outs[0]["samplers"][entry], got)
               for entry, got in outs[1]["samplers"].items()}
+    # Each VGH kernel's y, g and H, parent against change.
+    vgh = {entry: dict(
+        rel={k: float((p.double() - c.double()).abs().max()
+                      / p.double().abs().max())
+             for k, p, c in zip(("y", "g", "H"), outs[0]["vgh"][entry], got)},
+        bitwise=all(torch.equal(p, c)
+                    for p, c in zip(outs[0]["vgh"][entry], got)))
+        for entry, got in outs[1]["vgh"].items()}
     summary = dict(card=smi, turns=turns, same_tree_bitwise=same_tree,
                    parent_vs_change_rel=rel,
-                   sampler_parent_vs_change=chains)
+                   sampler_parent_vs_change=chains,
+                   vgh_parent_vs_change=vgh)
     print(f"card: {smi}")
     print(f"each tree's two turns bitwise equal: {same_tree}; parent vs "
           f"change, max|d| / max|parent|: {json.dumps(rel)}")
@@ -256,6 +293,9 @@ def main() -> int:
               f"{v['diverged']:.3e}, max|dx| on the rest "
               f"{v['max_dx_agreeing']:.3e}, other outputs max|d| "
               f"{v['max_d_other_outputs']}, bitwise {v['bitwise']}")
+    for key, v in vgh.items():
+        print(f"VGH parent vs change {key}: max|d| / max|parent| "
+              f"{json.dumps(v['rel'])}, bitwise {v['bitwise']}")
     if a.out:
         os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
         with open(a.out, "w") as fh:

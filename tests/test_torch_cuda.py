@@ -294,6 +294,18 @@ def test_sampler_grids_fill_the_card(cuda):
         assert min(got["grid_warps"], got["warps_per_sm"] * sms) / sms >= 7
 
 
+def test_vgh_grids_fill_the_card(cuda):
+    # The paths' batch: 8 lanes per walker place >= 8 warps per SM on
+    # average, against 1.9 for one thread per walker.
+    from fermiflow_tpu_torch.ops import slater_vgh as sv
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for got in (sv.slater_vgh_occupancy(6, 8192),
+                sv.slater_vgh_ms_occupancy(6, 5, 8192)):
+        assert got["lanes"] == sv.LANES
+        assert min(got["grid_warps"], got["warps_per_sm"] * sms) / sms >= 8
+
+
 @pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37)])
 def test_slater_vgh_ms_kernel_matches_plain(cuda, nup, B):
     z, nx, ny, ks, _ = ms_inputs(cuda, nup, B)

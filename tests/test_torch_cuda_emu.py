@@ -1,6 +1,6 @@
-"""The CUDA sources of the Hessian flow, the REINFORCE passes and the
-Metropolis samplers, built with the host C++ compiler under a
-thread-per-CUDA-thread stand-in for the runtime
+"""The CUDA sources of the Hessian flow, the REINFORCE passes, the
+Metropolis samplers and the Slater VGH kernels, built with the host C++
+compiler under a thread-per-CUDA-thread stand-in for the runtime
 (``tests/cuda_emu/cuda_runtime.h``), against the plain PyTorch versions
 (in float64; the samplers in float32 on one injected random stream).
 
@@ -12,6 +12,7 @@ the kernels as ``nvcc`` builds them, and time them, on an H100.
 """
 
 import ctypes
+import importlib
 import multiprocessing
 import re
 import shutil
@@ -30,6 +31,9 @@ from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_cm_plain
 from fermiflow_tpu_torch.physics import HO2D
 
 EMU_DIR = Path(__file__).resolve().parent / "cuda_emu"
+# Sources whose kernels share a chain or walker among a group of lanes.
+LANE_GROUP_SOURCES = ("metropolis", "metropolis_ms", "slater_vgh",
+                      "slater_vgh_ms")
 TS = (0.0, 1.0, 2, "dopri5")
 ORB = HO2D()
 
@@ -51,16 +55,17 @@ def emu(tmp_path_factory):
         pytest.skip("needs a host C++20 compiler (g++)")
     out = tmp_path_factory.mktemp("cuda_emu")
     builds = {}
-    # The samplers also at 4 lanes per chain (FF_SAMPLER_LANES, 8 when
-    # unset): "metropolis@4" and "metropolis_ms@4".
-    for key in ("hessian_flow", "reinforce", "metropolis", "metropolis_ms",
-                "metropolis@4", "metropolis_ms@4"):
+    # The samplers and the VGH kernels also at 4 lanes per chain or walker
+    # (FF_SAMPLER_LANES, FF_VGH_LANES, 8 when unset): "metropolis@4" etc.
+    for key in ("hessian_flow", "reinforce", *LANE_GROUP_SOURCES,
+                *(f"{n}@4" for n in LANE_GROUP_SOURCES)):
         name, _, lanes = key.partition("@")
         src = out / f"{name}.cpp"
         src.write_text(emulated_source(
             (_build.CSRC_DIR / f"{name}.cu").read_text()))
         lib = out / f"lib{name}{lanes}.so"
-        defs = [f"-DFF_SAMPLER_LANES={lanes}"] if lanes else []
+        defs = ([f"-DFF_SAMPLER_LANES={lanes}", f"-DFF_VGH_LANES={lanes}"]
+                if lanes else [])
         builds[key] = (lib, subprocess.Popen(
             [cxx, "-std=c++20", "-O1", "-shared", "-fPIC", *defs, "-I",
              str(EMU_DIR), "-I", str(_build.CSRC_DIR), "-o", str(lib),
@@ -184,9 +189,10 @@ def test_occupancy_entries_count_warps(on_emu):
 
 
 def sampler_libs(libs, lanes):
-    """The two sampler libraries built for ``lanes`` lanes per chain."""
+    """The lane-group libraries (the samplers and the VGH kernels) built
+    for ``lanes`` lanes per chain or walker."""
     suffix = "" if lanes == 8 else f"@{lanes}"
-    return {n: libs[n + suffix] for n in ("metropolis", "metropolis_ms")}
+    return {n: libs[n + suffix] for n in LANE_GROUP_SOURCES}
 
 
 @pytest.mark.parametrize("lanes", [4, 8])
@@ -207,10 +213,13 @@ def test_sampler_occupancy_entries_report_the_launch(on_emu, monkeypatch,
 
 
 def _sampler_launch(lib_paths, entry, args):
-    """One emulated launch of a sampler wrapper's CUDA path (``entry`` of
-    ``ops.metropolis``, through the libraries at ``lib_paths``) on CPU
-    tensors, in a worker process: (outputs, {kernel: launches it made})."""
-    from fermiflow_tpu_torch.ops import metropolis as mp
+    """One emulated launch of a lane-group wrapper's CUDA path (``entry`` of
+    ``ops.metropolis``, or ``"module.entry"`` of another ``ops`` module,
+    through the libraries at ``lib_paths``) on CPU tensors, in a worker
+    process: (outputs, {kernel: launches it made})."""
+    module, _, entry = entry.rpartition(".")
+    mp = importlib.import_module(
+        f"fermiflow_tpu_torch.ops.{module or 'metropolis'}")
 
     libs = {name: ctypes.CDLL(path) for name, path in lib_paths.items()}
     _build.library = libs.__getitem__
@@ -227,7 +236,7 @@ def _sampler_launch(lib_paths, entry, args):
 
 
 class EmuWorker:
-    """Runs emulated sampler launches one at a time in a spawned process.
+    """Runs emulated lane-group launches one at a time in a spawned process.
     A lane that leaves before its group's last shuffle leaves the others
     waiting for ever: a launch still running after ``timeout`` seconds
     kills the worker and fails the test instead of hanging the run."""
@@ -399,3 +408,113 @@ def test_lane_groups_walk_the_same_philox_chains(sampler_emu, entry):
         assert torch.equal(a, b)
         assert bool(torch.isfinite(a).all())
     assert 0.2 < float(outs[0][2].mean()) < 1.0
+
+
+# ---- the Slater VGH kernels: a group of lanes per walker ----
+
+# chip_smoke.py's VGH_TOLERANCE against the f64 plain version (rtol = atol).
+VGH_TOL = (2e-4, 3e-3, 5e-3)
+
+
+def vgh_close(k, r, good=None):
+    """(y, g, H) of a kernel within VGH_TOL of the f64 plain version on
+    every entry of the walkers ``good`` (all by default)."""
+    for name, a, b, tol in zip("ygH", k, r, VGH_TOL):
+        if good is not None:
+            a, b = a[..., good], b[..., good]
+        assert bool(torch.isfinite(a).all()), name
+        assert bool(torch.isclose(a.double(), b, rtol=tol, atol=tol).all()), (
+            name, float((a.double() - b).abs().max()))
+
+
+def gs_walkers(nup, ndown, B):
+    """Walkers equilibrated on the ground state's |det|^2 by the plain
+    sampler (the numerics rule: not raw Gaussian points)."""
+    from fermiflow_tpu_torch.ops.metropolis import metropolis_chains_plain
+
+    x0, _ = walkers(nup + ndown, B, 5 * B + nup)
+    xs, _, _, _ = metropolis_chains_plain(
+        x0, torch.full((B,), 0.3), 1, steps=30, segments=2, gain=0.0,
+        **gs_occ(nup, ndown))
+    return xs[-1].contiguous()
+
+
+def ms_walkers(n, B):
+    """Walkers in deltaE = 2 states, equilibrated by the plain mixed-state
+    sampler, and the states' (nx, ny)."""
+    from fermiflow_tpu_torch.ops.metropolis import (
+        metropolis_multistate_cm_plain,
+    )
+
+    x0, gen = walkers(n, B, 7 * B + n)
+    nx, ny = ms_states(n, B, gen)
+    x, _, _ = metropolis_multistate_cm_plain(
+        x0, torch.full((B,), 0.3), 2, steps=60, nx_cm=nx, ny_cm=ny,
+        num_shells=5)
+    return x.contiguous(), nx, ny
+
+
+# Ragged batches: 32 walkers per block.
+@pytest.mark.parametrize("nup,ndown,B", [(2, 0, 5), (2, 1, 37), (3, 0, 37),
+                                         (4, 2, 21), (6, 0, 37)])
+def test_slater_vgh_source_matches_plain(sampler_emu, nup, ndown, B):
+    occ = gs_occ(nup, ndown)
+    z = gs_walkers(nup, ndown, B)
+    k, counts = sampler_emu.launch(
+        "slater_vgh._vgh_cuda", 8, z, occ["nx_occ"] + occ["nx_dn"],
+        occ["ny_occ"] + occ["ny_dn"], nup)
+    assert counts == {"slater_vgh": 1}
+    vgh_close(k, slater_vgh_cm_plain(z.double(), **occ))
+
+
+@pytest.mark.parametrize("n,B", [(2, 5), (3, 37), (6, 37)])
+def test_slater_vgh_ms_source_matches_plain(sampler_emu, n, B):
+    from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_ms_cm_plain
+
+    z, nx, ny = ms_walkers(n, B)
+    K = 5
+    bad = nx.clone()
+    bad[n - 1, B // 2] = K  # outside the compiled depth: NaN outputs
+    k, counts = sampler_emu.launch("slater_vgh._vgh_ms_cuda", 8, z, bad, ny,
+                                   K)
+    assert counts == {"slater_vgh_ms": 1}
+    good = torch.arange(B) != B // 2
+    assert all(bool(t[..., ~good].isnan().all()) for t in k)
+    vgh_close(k, slater_vgh_ms_cm_plain(z.double(), nx, ny, K), good)
+
+
+@pytest.mark.parametrize("entry", ["static", "sectors", "multistate"])
+def test_vgh_lane_groups_give_the_same_bits(sampler_emu, entry):
+    """4 lanes per walker (two row slots on some lanes) and 8 (one) run
+    the same arithmetic: every output is bitwise equal."""
+    n, B = 6, 35
+    if entry == "multistate":
+        z, nx, ny = ms_walkers(n, B)
+        args = ("slater_vgh._vgh_ms_cuda", z, nx, ny, 5)
+    else:
+        nup = n if entry == "static" else 4
+        occ = gs_occ(nup, n - nup)
+        args = ("slater_vgh._vgh_cuda", gs_walkers(nup, n - nup, B),
+                occ["nx_occ"] + occ["nx_dn"], occ["ny_occ"] + occ["ny_dn"],
+                nup)
+    outs = [sampler_emu.launch(args[0], lanes, *args[1:])[0]
+            for lanes in (4, 8)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+def test_vgh_occupancy_entries_report_the_launch(on_emu, monkeypatch, lanes):
+    # 32 walkers per block of 32 x lanes threads.
+    from fermiflow_tpu_torch.ops import slater_vgh as sv
+
+    libs = sampler_libs(on_emu, lanes)
+    monkeypatch.setattr(_build, "library", libs.__getitem__)
+    for B in (8192, 37):
+        for got in (sv.slater_vgh_occupancy(6, B),
+                    sv.slater_vgh_ms_occupancy(6, 5, B)):
+            assert got["lanes"] == lanes
+            assert got["grid_warps"] == -(-B // 32) * lanes
+            assert got["warps_per_sm"] > 0
+            assert got["warps_per_sm"] % lanes == 0
