@@ -39,8 +39,22 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      --boltzmann, otherwise alike); the ground-state per-iteration path
      (--steps-per-call 1, 3 iterations);
   5. one ground-state and one finite-T update against the plain-PyTorch
-     updates on the card.
+     updates on the card;
+  6. the ground state at N=10 (docs/VALIDATION.md:19): each ground-state
+     kernel (chains, VGH, Hessian flow, adjoint and its block sum, single
+     chain) against its plain version at N=10, batch 4096, with the same
+     widths and steps (acceptance 0.633 at tau=0.1, the JAX sampler's);
+     the identity-flow oracle (Z=0: Eloc = 30); the path through
+     ``cli.ground_state.main`` with --nup 10 --Z 0.5 --batch 4096 --lr 3e-3
+     --dtype float32 --persistent --steps-per-call 10 (20 iterations, every
+     E finite and >= 41.0) and at --steps-per-call 1 (3 iterations); one
+     update against the plain update.  Phase 1 also fails if an N=10
+     instantiation of the ground-state kernels spills, and prints an
+     ``occupancy: N=10`` line (lane plans, resident warps, the warps the
+     batch-4096 grids place) held to the floors the designs set.
 
+The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
+at N=10 (with ptxas' registers, stack and spill bytes).
 The last lines of standard output are the kernels JSON line, the card line
 and ``{"ok": true, "device": {...}}``.  With no CUDA device, or without the
 repository beside it, the script exits non-zero before printing any of them.
@@ -59,6 +73,11 @@ SEED = 1234
 N, BATCH, D_ETA, D_MU = 6, 8192, 50, 50
 ODE_STEPS, SEGMENTS, MCMC_STEPS = 4, 10, 30
 PARAM_STD = 0.1  # Gaussian flow weights: a field well away from the identity
+# At N=10 each particle has 9 partners and the field grows with them: at
+# 0.1 a draw of the weights took the walkers up to ~1e5 apart (E ~ 2e10),
+# where f32 itself cannot hold the update to 1e-4 of an f32 plain chain;
+# at 0.03 E is about twice the identity flow's.
+PARAM_STD_N10 = 0.03
 MAIN_ITERS = 20
 SINGLE_ITERS = 3  # the ground-state per-iteration path
 ACCEPT_TAU01 = 0.72  # the JAX sampler's acceptance at tau=0.1, N=6
@@ -67,6 +86,17 @@ ACCEPT_TAU01 = 0.72  # the JAX sampler's acceptance at tau=0.1, N=6
 ACCEPT_MS_TAU01 = 0.732
 BETA, DELTA_E = 2.0, 2.0
 F_EXACT_N6 = 13.391808  # E0 - log sum_s exp(-beta (E_s - E0)) / beta, E0 = 14
+# The ground state at N = 10 (docs/VALIDATION.md:19): Z = 0.5, batch 4096,
+# lr 3e-3, the same widths, ODE and sampler settings as the N = 6 cell.
+N10, BATCH10, LR10 = 10, 4096, "3e-3"
+# The JAX sampler's acceptance at tau=0.1, N=10 (BENCH_r05.json
+# "n10_sampler_accept").
+ACCEPT_TAU01_N10 = 0.633
+# The JAX package's converged N=10 energy is 41.5519 (docs/VALIDATION.md:19):
+# every variational energy lies above it less Monte Carlo error.  No top:
+# the first Adam steps at lr 3e-3 from the identity flow move the energy
+# far up and back (the plain versions on the CPU take the same path).
+E_RANGE_N10 = (41.0, math.inf)
 
 REPLACES = {
     "metropolis_chains": "fermiflow_tpu/ops/pallas_metropolis.py:461",
@@ -90,12 +120,16 @@ SOURCES = {
     "slater_vgh_ms": "fermiflow_tpu_torch/csrc/slater_vgh_ms.cu",
     "metropolis_multistate": "fermiflow_tpu_torch/csrc/metropolis_ms.cu",
 }
-# The path whose launch counts each kernel's row reports.
+# The path whose launch counts each kernel's row reports; the N=10 rows
+# (name + "_n10") report the N=10 paths'.
 PATH_OF = {
     "metropolis_chains": "gs", "slater_vgh": "gs", "hessian_flow": "gs",
     "reinforce_adjoint": "gs", "reinforce_reduce": "gs",
     "metropolis_single": "gs_single", "slater_vgh_ms": "beta",
     "metropolis_multistate": "beta",
+    "metropolis_chains_n10": "gs_n10", "slater_vgh_n10": "gs_n10",
+    "hessian_flow_n10": "gs_n10", "reinforce_adjoint_n10": "gs_n10",
+    "reinforce_reduce_n10": "gs_n10", "metropolis_single_n10": "gs_single_n10",
 }
 
 
@@ -242,7 +276,19 @@ def ptxas_kernels(report: str):
     return out
 
 
+# The ground-state kernels' N=10 instantiations (lanes per walker in the
+# Hessian flow's and the adjoint's template arguments): none may spill.
+N10_PTXAS = {"metropolis_chains": "metropolis_chains_kernel<10>",
+             "metropolis_single": "metropolis_chains_kernel<10>",
+             "slater_vgh": "slater_vgh_kernel<10>",
+             "hessian_flow": "hessian_flow_kernel<10,32>",
+             "reinforce_adjoint": "reinforce_kernel<10,16>"}
+N10_KERNELS = tuple(sorted(set(N10_PTXAS.values())))
+
+
 def phase_build():
+    """Build every source; returns {kernel<args>: (registers, stack, spill
+    stores, spill loads)} from ptxas."""
     from fermiflow_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
@@ -250,7 +296,7 @@ def phase_build():
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
           + json.dumps({k: round(v, 1) for k, v in per_source.items()}),
           flush=True)
-    spills = {}
+    spills, ptxas = {}, {}
     for name in _build.SOURCES:
         _build.library(name)
         report = _build.BUILD_DIR / f"{name}.ptxas.txt"
@@ -258,12 +304,18 @@ def phase_build():
             for kern, regs, stack, st, ld in ptxas_kernels(report.read_text()):
                 print(f"ptxas {name}: {kern}: {regs} registers, stack {stack} "
                       f"B, spill stores {st} B, spill loads {ld} B")
+                ptxas[kern] = (regs, stack, st, ld)
                 if kern.startswith((f"slater_vgh_kernel<{N}>",
                                     f"slater_vgh_ms_kernel<{N},")):
                     spills[kern] = st + ld
     # Every build leaves its report beside the library.
     check(bool(spills) and not any(spills.values()), "slater_vgh, "
           f"slater_vgh_ms: no spills at N={N} ({len(spills)} instantiations)")
+    check(all(k in ptxas and ptxas[k][2] + ptxas[k][3] == 0
+              for k in N10_KERNELS),
+          "ground-state kernels: no spills at N=10 (" + ", ".join(N10_KERNELS)
+          + ")")
+    return ptxas
 
 
 def phase_occupancy(device):
@@ -296,10 +348,10 @@ def phase_occupancy(device):
     rplan = rf.lane_plan(N, D_ETA, D_MU)
     units = [len(items) for items in rplan["eta_units"][0]]
     print(f"occupancy: {json.dumps(warps)} resident warps per SM; "
-          f"hessian_flow: {hf.LANES} lanes per walker, per lane "
+          f"hessian_flow: {hf.lanes_for(N)} lanes per walker, per lane "
           f"{plan['entries'][1]} state entries, {plan['pairs'][1]} pair and "
           f"{plan['one_body'][1]} one-body MLP inputs; reinforce_adjoint: "
-          f"{rf.LANES} lanes per walker, per lane {rplan['entries'][1]} state "
+          f"{rf.lanes_for(N)} lanes per walker, per lane {rplan['entries'][1]} state "
           f"entries, eta/mu hidden units {units} by lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
           f"inputs; samplers and VGH kernels: lanes per chain or walker "
@@ -317,21 +369,81 @@ def phase_occupancy(device):
     return warps, placed, lanes
 
 
-def make_model(Z: float, device):
+def phase_occupancy_n10(device):
+    """The N=10 lane plans, resident warps per SM and the warps per SM that
+    the batch-4096 grids place, each against the floor its design sets."""
+    import ctypes
+
+    import torch
+
+    from fermiflow_tpu_torch.ops import _build
+    from fermiflow_tpu_torch.ops import hessian_flow as hf
+    from fermiflow_tpu_torch.ops import metropolis as mp
+    from fermiflow_tpu_torch.ops import reinforce as rf
+    from fermiflow_tpu_torch.ops import slater_vgh as sv
+
+    n, B = N10, BATCH10
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    launches = {"metropolis_chains": mp.metropolis_occupancy(n, B),
+                "slater_vgh": sv.slater_vgh_occupancy(n, B)}
+    launches["metropolis_single"] = launches["metropolis_chains"]
+    for name, src, mod, occupancy in (
+            ("hessian_flow", "hessian_flow", hf, hf.hessian_flow_occupancy),
+            ("reinforce_adjoint", "reinforce", rf, rf.reinforce_occupancy)):
+        built = getattr(_build.library(src), f"ff_{src}_lanes")(ctypes.c_int(n))
+        check(built == mod.lanes_for(n), f"{name}: the library's lanes per "
+              f"walker at N={n} ({built}) are the wrapper's lane plan's")
+        resident = occupancy(n, D_ETA, D_MU)
+        per_block = 128 // built  # walkers per 128-thread block
+        launches[name] = dict(warps_per_sm=resident, lanes=built,
+                              grid_warps=-(-B // per_block) * 4)
+    placed = {k: min(v["grid_warps"], v["warps_per_sm"] * sms) / sms
+              for k, v in launches.items()}
+    plan = hf.lane_plan(n)
+    rplan = rf.lane_plan(n, D_ETA, D_MU)
+    units = [len(items) for items in rplan["eta_units"][0]]
+    print(f"occupancy: N={n}: resident warps per SM "
+          f"{json.dumps({k: v['warps_per_sm'] for k, v in launches.items()})}; "
+          f"lanes per walker or chain "
+          f"{json.dumps({k: v['lanes'] for k, v in launches.items()})}; the "
+          f"batch-{B} grid places {json.dumps(placed)} warps per SM on {sms} "
+          f"SMs; hessian_flow per lane {plan['entries'][1]} state entries, "
+          f"{plan['pairs'][1]} pair and {plan['one_body'][1]} one-body MLP "
+          f"inputs; reinforce_adjoint per lane {rplan['entries'][1]} state "
+          f"entries, eta/mu hidden units {units} by lane, coefficient totals "
+          f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
+          f"inputs", flush=True)
+    # The floors the N=10 designs set: 4 resident 4-warp blocks at <= 128
+    # registers (Hessian flow, samplers; the VGH kernel 2 of 8 warps), 3 of
+    # the adjoint at <= 168; the batch-4096 grids place 7.76 warps per SM
+    # (samplers, VGH), min(31, 16) (Hessian flow) and min(15.5, 12) (adjoint).
+    floors = {"metropolis_chains": (16, 7), "metropolis_single": (16, 7),
+              "slater_vgh": (16, 7), "hessian_flow": (16, 15),
+              "reinforce_adjoint": (12, 11)}
+    for name, (resident, least) in floors.items():
+        check(launches[name]["warps_per_sm"] >= resident
+              and placed[name] >= least,
+              f"{name} N={n}: >= {resident} resident warps per SM, the "
+              f"batch-{B} grid places >= {least}")
+    return ({k: v["warps_per_sm"] for k, v in launches.items()}, placed,
+            {k: v["lanes"] for k, v in launches.items()})
+
+
+def make_model(Z: float, device, n=N, batch=BATCH):
     from fermiflow_tpu_torch.cli import common
     from fermiflow_tpu_torch.config import Config
 
-    cfg = Config(nup=N, ndown=0, Z=Z, d_eta=D_ETA, d_mu=D_MU, batch=BATCH,
+    cfg = Config(nup=n, ndown=0, Z=Z, d_eta=D_ETA, d_mu=D_MU, batch=batch,
                  ode_steps=ODE_STEPS, ode_method="dopri5", dtype="float32",
                  device=str(device))
     return common.build_gs(cfg)
 
 
-def gaussian_params(gen, device, dtype):
+def gaussian_params(gen, device, dtype, std=PARAM_STD):
     from fermiflow_tpu_torch.nn.backflow import backflow_init_gaussian
 
-    return backflow_init_gaussian(gen, D_ETA, D_MU, std=PARAM_STD,
-                                  dtype=dtype, device=device)
+    return backflow_init_gaussian(gen, D_ETA, D_MU, std=std, dtype=dtype,
+                                  device=device)
 
 
 def to_f64(params):
@@ -339,9 +451,11 @@ def to_f64(params):
             for k, v in params.items()}
 
 
-def phase_kernels(device, rows):
-    """Each kernel against its plain version; returns equilibrated walkers
-    and Gaussian parameters for the later phases."""
+def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
+                  tag="", std=PARAM_STD):
+    """Each ground-state kernel against its plain version at n particles
+    over ``batch`` walkers, rows keyed ``name + tag``; returns equilibrated
+    walkers and Gaussian parameters for the later phases."""
     import torch
 
     from fermiflow_tpu_torch.ops import _build
@@ -364,17 +478,17 @@ def phase_kernels(device, rows):
     )
     from fermiflow_tpu_torch.utils import roofline
 
-    model, _ = make_model(0.5, device)
+    model, _ = make_model(0.5, device, n, batch)
     nx_up, ny_up, nx_dn, ny_dn, ks = model.occ_qnums()
-    d = 2 * N
-    gen = torch.Generator(device=device).manual_seed(SEED)
+    d = 2 * n
+    gen = torch.Generator(device=device).manual_seed(SEED + n - N)
     f32 = dict(device=device, dtype=torch.float32)
     occ = dict(nx_occ=nx_up, ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn,
                num_shells=ks)
 
     # ---- 1. Metropolis sampler ----
-    x0 = torch.randn((d, BATCH), generator=gen, **f32)
-    tau0 = torch.full((BATCH,), 0.1, **f32)
+    x0 = torch.randn((d, batch), generator=gen, **f32)
+    tau0 = torch.full((batch,), 0.1, **f32)
     chain = dict(steps=MCMC_STEPS, segments=SEGMENTS, target=0.5, gain=0.1,
                  **occ)
     # Equilibrate: 10 x 30 steps from Gaussians, then 10 x 30 more.
@@ -385,9 +499,9 @@ def phase_kernels(device, rows):
 
     # (a) one shared random stream: exact agreement but for the rare walker
     # whose accept/reject flips on the last bit of exp(dlogp).
-    normals = torch.randn((SEGMENTS, MCMC_STEPS + 1, d, BATCH), generator=gen,
+    normals = torch.randn((SEGMENTS, MCMC_STEPS + 1, d, batch), generator=gen,
                           **f32)
-    uniforms = torch.rand((SEGMENTS, MCMC_STEPS, BATCH), generator=gen,
+    uniforms = torch.rand((SEGMENTS, MCMC_STEPS, batch), generator=gen,
                           **f32).clamp_min(1e-12)
     noise = (normals, uniforms)
     k_out = metropolis_chains(z_eq, tau_eq, 0, noise=noise, **chain)
@@ -400,7 +514,7 @@ def phase_kernels(device, rows):
     err_lp = float((k_out[1] - p_out[1]).abs()[:, agree].max())
     err_rate = float((k_out[2] - p_out[2]).abs()[:, agree].max())
     err_tau = float((k_out[3] - p_out[3]).abs()[agree].max())
-    print(f"metropolis shared stream: diverged walkers {frac_flip:.2e}, "
+    print(f"metropolis{tag} shared stream: diverged walkers {frac_flip:.2e}, "
           f"max|dx| {err_x:.3e}, max|dlogp| {err_lp:.3e}, "
           f"max|drate| {err_rate:.3e}, max|dtau| {err_tau:.3e}")
     check(frac_flip <= 1e-3, "sampler: <= 0.1% of walkers diverge on the "
@@ -417,21 +531,21 @@ def phase_kernels(device, rows):
     fixed = dict(chain, gain=0.0)
     xs_f, lp_f, rate_f, _ = metropolis_chains(z_eq, tau0, 21, **fixed)
     acc = float(rate_f.mean())
-    x_w = xs_f[-1].T.reshape(BATCH, N, 2).double()
+    x_w = xs_f[-1].T.reshape(batch, n, 2).double()
     lp_ref = model.basedist.log_prob(model.occ_up, model.occ_down, x_w)
     lp_bad = logp_violations(lp_f[-1], lp_ref)
-    print(f"metropolis distribution: accept {acc:.4f} at tau=0.1; logp vs "
+    print(f"metropolis{tag} distribution: accept {acc:.4f} at tau=0.1; logp vs "
           f"log_prob max|d| {maxabs(lp_f[-1], lp_ref):.3e}, "
           f"violations {lp_bad:.2e}")
-    check(abs(acc - ACCEPT_TAU01) < 0.03, f"sampler: acceptance "
-          f"{ACCEPT_TAU01} +- 0.03 at tau=0.1 (the JAX sampler's figure)")
+    check(abs(acc - accept) < 0.03, f"sampler: acceptance "
+          f"{accept} +- 0.03 at tau=0.1 (the JAX sampler's figure)")
     check(lp_bad <= 1e-3, "sampler: logp = log_prob (f64) within 1e-3 "
           "relative on >= 99.9% of walkers")
 
     k_ms = cuda_ms(lambda: metropolis_chains(z_eq, tau_eq, 5, **chain), 20)
     p_ms = cuda_ms(lambda: metropolis_chains_plain(z_eq, tau_eq, 5, **chain), 1)
-    flops, nbytes = roofline.metropolis_work(BATCH, N, ks, MCMC_STEPS, SEGMENTS)
-    rows["metropolis_chains"] = dict(
+    flops, nbytes = roofline.metropolis_work(batch, n, ks, MCMC_STEPS, SEGMENTS)
+    rows["metropolis_chains" + tag] = dict(
         max_abs_err=max(err_x, err_lp, err_rate, err_tau), ms=k_ms,
         plain_ms=p_ms, work=(flops, nbytes),
         tolerance="x exact; rate, tau 1e-6; logp 1e-3; <=0.1% walkers "
@@ -443,15 +557,15 @@ def phase_kernels(device, rows):
     out_p = slater_vgh_cm_plain(z_eq, **occ)
     out_r = slater_vgh_cm_plain(z_eq.double(), **occ)
     torch.cuda.synchronize()
-    err_vgh64, err_vgh = vgh_against_plain("slater_vgh", out_vgh, out_p, out_r)
-    rows["slater_vgh"] = dict(
+    err_vgh64, err_vgh = vgh_against_plain("slater_vgh" + tag, out_vgh, out_p, out_r)
+    rows["slater_vgh" + tag] = dict(
         max_abs_err=err_vgh64, max_abs_err_vs_plain_f32=err_vgh,
-        **vgh_times("slater_vgh", lambda: slater_vgh_cm(z_eq, **occ)),
+        **vgh_times("slater_vgh" + tag, lambda: slater_vgh_cm(z_eq, **occ)),
         plain_ms=cuda_ms(lambda: slater_vgh_cm_plain(z_eq, **occ), 3),
-        work=roofline.vgh_work(BATCH, N, ks), tolerance=VGH_TOLERANCE)
+        work=roofline.vgh_work(batch, n, ks), tolerance=VGH_TOLERANCE)
 
     # ---- 3. Hessian flow ----
-    params = gaussian_params(gen, device, torch.float32)
+    params = gaussian_params(gen, device, torch.float32, std)
     p64 = to_f64(params)
     ts = (0.0, 1.0, ODE_STEPS, "dopri5")
     out_k = hessian_flow_cm(params, z_eq, y_k, g_k, H_k, *ts)
@@ -464,17 +578,17 @@ def phase_kernels(device, rows):
         e_k, e_p = maxabs(k, r), maxabs(p, r)
         scale = float(r.abs().max())
         err_hf, err_hf32 = max(err_hf, e_k), max(err_hf32, e_p)
-        print(f"hessian_flow {name}: |kernel - f64| {e_k:.3e}, "
+        print(f"hessian_flow{tag} {name}: |kernel - f64| {e_k:.3e}, "
               f"|plain f32 - f64| {e_p:.3e}, scale {scale:.3e}")
         check(math.isfinite(e_k) and e_k <= max(3.0 * e_p, 1e-5 * scale + 1e-6),
               f"hessian_flow {name}: kernel error <= 3x the plain f32 error")
-    rows["hessian_flow"] = dict(
+    rows["hessian_flow" + tag] = dict(
         max_abs_err=err_hf, plain_f32_max_abs_err=err_hf32,
         ms=cuda_ms(lambda: hessian_flow_cm(params, z_eq, y_k, g_k, H_k, *ts),
                    20),
         plain_ms=cuda_ms(lambda: hessian_flow_cm_plain(
             params, z_eq, y_k, g_k, H_k, *ts), 1),
-        work=roofline.hflow_work(BATCH, N, D_ETA, D_MU, ODE_STEPS, 6),
+        work=roofline.hflow_work(batch, n, D_ETA, D_MU, ODE_STEPS, 6),
         tolerance="per output, error vs f64 plain <= max(3 x plain f32 "
                   "error, 1e-5 max|ref| + 1e-6)")
 
@@ -484,7 +598,7 @@ def phase_kernels(device, rows):
     diag = [p * d_ - p * (p - 1) // 2 for p in range(d_)]
     eloc = (-0.25 * H1[diag].sum(0) - 0.125 * (g1 * g1).sum(0)
             + model.potential_rows(x1))
-    w = ((eloc - eloc.mean()) / BATCH).contiguous()
+    w = ((eloc - eloc.mean()) / batch).contiguous()
     partials, zb_k = reinforce_partials(params, x1, g1, w, *ts)
     rows_k = block_sum(partials)
     gr_p, zb_p = reinforce_cm_plain(params, x1, g1, w, *ts)
@@ -497,7 +611,7 @@ def phase_kernels(device, rows):
     rk, rp, rr = rows_k.double(), flat(gr_p), flat(gr_r)
     e_k, e_p = float((rk - rr).abs().max()), float((rp - rr).abs().max())
     scale = float(rr.abs().max())
-    print(f"reinforce grads: |kernel - f64| {e_k:.3e}, |plain f32 - f64| "
+    print(f"reinforce{tag} grads: |kernel - f64| {e_k:.3e}, |plain f32 - f64| "
           f"{e_p:.3e}, scale {scale:.3e}; z_back max|k - p| "
           f"{maxabs(zb_k, zb_p):.3e}")
     check(e_k <= max(3.0 * e_p, 1e-5 * scale + 1e-7),
@@ -510,12 +624,12 @@ def phase_kernels(device, rows):
     check(torch.equal(block_sum(partials), rows_k),
           "reinforce_reduce: two sums of the same partials are bitwise equal")
     nblocks, nq = partials.shape
-    rows["reinforce_adjoint"] = dict(
+    rows["reinforce_adjoint" + tag] = dict(
         max_abs_err=e_k, plain_f32_max_abs_err=e_p,
         ms=cuda_ms(lambda: reinforce_partials(params, x1, g1, w, *ts), 20),
         plain_ms=cuda_ms(lambda: reinforce_cm_plain(params, x1, g1, w, *ts),
                          1),
-        work=roofline.reinforce_work(BATCH, N, D_ETA, D_MU, ODE_STEPS, 6,
+        work=roofline.reinforce_work(batch, n, D_ETA, D_MU, ODE_STEPS, 6,
                                      nblocks),
         tolerance="gradient error vs f64 plain <= max(3 x plain f32 error, "
                   "1e-5 max|ref| + 1e-7)")
@@ -527,10 +641,10 @@ def phase_kernels(device, rows):
     sum_ms, _ = graph_ms(lambda: partials.sum(0))
     red_disp = cuda_ms(lambda: block_sum(partials), 50)
     sum_disp = cuda_ms(lambda: partials.sum(0), 50)
-    print(f"reinforce_reduce timing: graph replay (device only) kernel "
+    print(f"reinforce_reduce{tag} timing: graph replay (device only) kernel "
           f"{red_ms:.6f} ms, Tensor.sum {sum_ms:.6f} ms; dispatch-inclusive "
           f"kernel {red_disp:.6f} ms, Tensor.sum {sum_disp:.6f} ms")
-    rows["reinforce_reduce"] = dict(
+    rows["reinforce_reduce" + tag] = dict(
         max_abs_err=float(red_err.max()),
         ms=red_ms, plain_ms=sum_ms, library_ms=sum_ms,
         ms_dispatch=red_disp, library_ms_dispatch=sum_disp,
@@ -572,6 +686,54 @@ def shared_stream_agreement(k_out, p_out, what):
     return frac_flip, max(err_x, err_lp, err_rate)
 
 
+def phase_single_chain(device, rows, z_eq, gen, n=N, batch=BATCH,
+                       accept=ACCEPT_TAU01, tag=""):
+    """The per-iteration sampler (kernel 5) against its plain version at n
+    particles, on walkers z_eq that the chains equilibrated."""
+    import torch
+
+    from fermiflow_tpu_torch.ops.metropolis import (
+        metropolis_single_cm,
+        metropolis_single_cm_plain,
+    )
+    from fermiflow_tpu_torch.utils import roofline
+
+    d = 2 * n
+    f32 = dict(device=device, dtype=torch.float32)
+    tau01 = torch.full((batch,), 0.1, **f32)
+    gs_model, _ = make_model(0.5, device, n, batch)
+    nx_up, ny_up, nx_dn, ny_dn, ks = gs_model.occ_qnums()
+    occ = dict(nx_occ=nx_up, ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn,
+               num_shells=ks)
+    noise = (torch.randn((MCMC_STEPS, d, batch), generator=gen, **f32),
+             torch.rand((MCMC_STEPS, batch), generator=gen,
+                        **f32).clamp_min(1e-12))
+    k_out = metropolis_single_cm(z_eq, tau01, 0, steps=MCMC_STEPS,
+                                 noise=noise, **occ)
+    p_out = metropolis_single_cm_plain(z_eq, tau01, 0, steps=MCMC_STEPS,
+                                       noise=noise, **occ)
+    torch.cuda.synchronize()
+    what = "metropolis_single" + tag
+    frac, err = shared_stream_agreement(k_out, p_out, what)
+    x1, lp1, acc1 = metropolis_single_cm(z_eq, tau01, 41, steps=MCMC_STEPS,
+                                         **occ)
+    lp_bad = logp_violations(lp1, gs_model.basedist.log_prob(
+        gs_model.occ_up, gs_model.occ_down, x1.T.reshape(batch, n, 2).double()))
+    print(f"{what} distribution: accept {float(acc1.mean()):.4f} "
+          f"at tau=0.1; logp vs log_prob violations {lp_bad:.2e}")
+    check(abs(float(acc1.mean()) - accept) < 0.03 and lp_bad <= 1e-3,
+          f"{what}: acceptance {accept} +- 0.03 at tau=0.1; "
+          "logp = log_prob (f64) within 1e-3 relative on >= 99.9% of walkers")
+    rows[what] = dict(
+        max_abs_err=err, diverged_frac=frac,
+        ms=cuda_ms(lambda: metropolis_single_cm(z_eq, tau01, 5,
+                                                steps=MCMC_STEPS, **occ), 20),
+        plain_ms=cuda_ms(lambda: metropolis_single_cm_plain(
+            z_eq, tau01, 5, steps=MCMC_STEPS, **occ), 1),
+        work=roofline.metropolis_single_work(batch, n, ks, MCMC_STEPS),
+        tolerance=SINGLE_CHAIN_TOLERANCE)
+
+
 def phase_kernels_ms(device, rows, z_eq):
     """The per-iteration sampler (kernel 5) and the finite-T kernels
     (mixed-state sampler 7 and VGH 6) against their plain versions.
@@ -581,8 +743,6 @@ def phase_kernels_ms(device, rows, z_eq):
     from fermiflow_tpu_torch.ops.metropolis import (
         metropolis_multistate_cm,
         metropolis_multistate_cm_plain,
-        metropolis_single_cm,
-        metropolis_single_cm_plain,
     )
     from fermiflow_tpu_torch.ops.slater_vgh import (
         slater_vgh_ms_cm,
@@ -602,34 +762,7 @@ def phase_kernels_ms(device, rows, z_eq):
                            **f32).clamp_min(1e-12))
 
     # ---- 5. single fixed-tau chain (ground state) ----
-    gs_model, _ = make_model(0.5, device)
-    nx_up, ny_up, nx_dn, ny_dn, ks = gs_model.occ_qnums()
-    occ = dict(nx_occ=nx_up, ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn,
-               num_shells=ks)
-    noise = shared_noise()
-    k_out = metropolis_single_cm(z_eq, tau01, 0, steps=MCMC_STEPS,
-                                 noise=noise, **occ)
-    p_out = metropolis_single_cm_plain(z_eq, tau01, 0, steps=MCMC_STEPS,
-                                       noise=noise, **occ)
-    torch.cuda.synchronize()
-    frac, err = shared_stream_agreement(k_out, p_out, "metropolis_single")
-    x1, lp1, acc1 = metropolis_single_cm(z_eq, tau01, 41, steps=MCMC_STEPS,
-                                         **occ)
-    lp_bad = logp_violations(lp1, gs_model.basedist.log_prob(
-        gs_model.occ_up, gs_model.occ_down, x1.T.reshape(BATCH, N, 2).double()))
-    print(f"metropolis_single distribution: accept {float(acc1.mean()):.4f} "
-          f"at tau=0.1; logp vs log_prob violations {lp_bad:.2e}")
-    check(abs(float(acc1.mean()) - ACCEPT_TAU01) < 0.03 and lp_bad <= 1e-3,
-          f"metropolis_single: acceptance {ACCEPT_TAU01} +- 0.03 at tau=0.1; "
-          "logp = log_prob (f64) within 1e-3 relative on >= 99.9% of walkers")
-    rows["metropolis_single"] = dict(
-        max_abs_err=err, diverged_frac=frac,
-        ms=cuda_ms(lambda: metropolis_single_cm(z_eq, tau01, 5,
-                                                steps=MCMC_STEPS, **occ), 20),
-        plain_ms=cuda_ms(lambda: metropolis_single_cm_plain(
-            z_eq, tau01, 5, steps=MCMC_STEPS, **occ), 1),
-        work=roofline.metropolis_single_work(BATCH, N, ks, MCMC_STEPS),
-        tolerance=SINGLE_CHAIN_TOLERANCE)
+    phase_single_chain(device, rows, z_eq, gen)
 
     # ---- 7. mixed-state sampler, Boltzmann-drawn states ----
     model, params = make_beta_model(0.0, device)
@@ -718,17 +851,18 @@ def phase_beta_oracle(device, z_ms, idx):
           "finite-T oracle: S within 3 standard errors of S_analytical")
 
 
-def phase_identity_oracle(device, z_eq):
+def phase_identity_oracle(device, z_eq, n=N):
     import torch
 
-    model, params0 = make_model(0.0, device)
-    # Non-interacting ground state: the N lowest orbital energies (14 at N=6).
-    e0 = float(model.basedist.orbitals.Es[:N].sum())
+    model, params0 = make_model(0.0, device, n, z_eq.shape[1])
+    # Non-interacting ground state: the n lowest orbital energies (14 at
+    # N=6, 30 at N=10).
+    e0 = float(model.basedist.orbitals.Es[:n].sum())
     _, eloc, _, _ = model.local_energy_cm(params0, z_eq)
     torch.cuda.synchronize()
     err = (eloc.double() - e0).abs()
     frac = float((err > 1e-3).double().mean())
-    print(f"identity oracle N={N} Z=0: Eloc median {float(eloc.median()):.6f}, "
+    print(f"identity oracle N={n} Z=0: Eloc median {float(eloc.median()):.6f}, "
           f"max|Eloc - {e0:g}| {float(err.max()):.3e}, outside 1e-3: "
           f"{frac:.2e}")
     check(bool(torch.isfinite(eloc).all()) and frac <= 1e-3,
@@ -758,12 +892,16 @@ def drive_path(main, argv):
     return state, recs, counts, wall
 
 
-def path_argv(device, iters, steps_per_call):
-    return ["--nup", str(N), "--Z", "0.5", "--batch", str(BATCH), "--dtype",
+def path_argv(device, iters, steps_per_call, n=N, batch=BATCH, lr="1e-3"):
+    return ["--nup", str(n), "--Z", "0.5", "--batch", str(batch), "--dtype",
             "float32", "--persistent", "--steps-per-call", str(steps_per_call),
-            "--iternum", str(iters), "--lr", "1e-3", "--Deta", str(D_ETA),
+            "--iternum", str(iters), "--lr", lr, "--Deta", str(D_ETA),
             "--Dmu", str(D_MU), "--ode-steps", str(ODE_STEPS), "--mcmc-steps",
             str(MCMC_STEPS), "--device", device.type]
+
+
+GS_KERNELS = ("metropolis_chains", "slater_vgh", "hessian_flow",
+              "reinforce_adjoint", "reinforce_reduce")
 
 
 def phase_main_path(device):
@@ -784,10 +922,35 @@ def phase_main_path(device):
     # near the identity flow's 14 + <V> (~19) this early in training.
     check(all(math.isfinite(e) and 17.0 < e < 21.0 for e in energies),
           "main path: every energy is finite and in (17, 21)")
-    gs_kernels = ("metropolis_chains", "slater_vgh", "hessian_flow",
-                  "reinforce_adjoint", "reinforce_reduce")
-    check(all(counts[k] > 0 for k in gs_kernels),
+    check(all(counts[k] > 0 for k in GS_KERNELS),
           "main path: every kernel of the path was launched")
+    return counts
+
+
+def phase_n10_path(device):
+    """The ground-state path at N=10 (docs/VALIDATION.md:19), through the
+    CLI as a user runs it: --nup 10 --Z 0.5 --batch 4096 --lr 3e-3 --dtype
+    float32 --persistent --steps-per-call 10, 20 iterations."""
+    from fermiflow_tpu_torch.cli import ground_state
+
+    state, recs, counts, wall = drive_path(
+        ground_state.main, path_argv(device, MAIN_ITERS, SEGMENTS, N10,
+                                     BATCH10, LR10))
+    chunk_ms = [1e3 * r["iter_seconds"] for r in recs[::SEGMENTS]]
+    energies = [r["E"] for r in recs]
+    lo = E_RANGE_N10[0]
+    print(f"N=10 path: {MAIN_ITERS} iterations in {wall:.3f} s wall (setup "
+          f"included); ms per iteration by chunk {chunk_ms} (steady: "
+          f"{chunk_ms[1]:.3f}); E first/last {energies[0]:.5f}/"
+          f"{energies[-1]:.5f}, E_std last {recs[-1]['E_std']:.4f}, accept "
+          f"{recs[-1]['accept_rate']:.4f}; launches {json.dumps(counts)}")
+    check(state.step == MAIN_ITERS and len(recs) == MAIN_ITERS,
+          "N=10 path: all iterations ran")
+    check(all(math.isfinite(e) and e >= lo for e in energies),
+          f"N=10 path: every energy is finite and >= {lo} (the JAX package "
+          "converged to 41.5519)")
+    check(all(counts[k] > 0 for k in GS_KERNELS),
+          "N=10 path: every kernel of the path was launched")
     return counts
 
 
@@ -823,42 +986,45 @@ def phase_beta_path(device):
     return counts
 
 
-def phase_gs_single_path(device):
+def phase_gs_single_path(device, n=N, batch=BATCH, lr="1e-3",
+                         e_range=(17.0, 21.0)):
     """The ground-state per-iteration path (--steps-per-call 1)."""
     from fermiflow_tpu_torch.cli import ground_state
 
     state, recs, counts, wall = drive_path(
-        ground_state.main, path_argv(device, SINGLE_ITERS, 1))
+        ground_state.main, path_argv(device, SINGLE_ITERS, 1, n, batch, lr))
     energies = [r["E"] for r in recs]
-    print(f"per-iteration path: {SINGLE_ITERS} iterations in {wall:.3f} s "
+    lo, hi = e_range
+    print(f"per-iteration path N={n}: {SINGLE_ITERS} iterations in {wall:.3f} s "
           f"wall; ms per iteration {[1e3 * r['iter_seconds'] for r in recs]}; "
           f"E {energies}; launches {json.dumps(counts)}")
-    check(all(math.isfinite(e) and 17.0 < e < 21.0 for e in energies),
-          "per-iteration path: every energy is finite and in (17, 21)")
+    check(all(math.isfinite(e) and lo < e < hi for e in energies),
+          f"per-iteration path N={n}: every energy is finite and in "
+          f"({lo}, {hi})")
     check(counts["metropolis_single"] == SINGLE_ITERS
           and counts["metropolis_chains"] == 0
           and all(counts[k] == SINGLE_ITERS for k in (
               "slater_vgh", "hessian_flow", "reinforce_adjoint")),
-          f"per-iteration path: {SINGLE_ITERS} launches of the single-chain "
+          f"per-iteration path N={n}: {SINGLE_ITERS} launches of the single-chain "
           "sampler and of each update kernel, none of the multi-segment one")
     return counts
 
 
-def phase_update_vs_plain(device, z_eq, params):
+def phase_update_vs_plain(device, z_eq, params, n=N):
     import copy
 
     import torch
 
     from fermiflow_tpu_torch.vmc.gs import PLAIN_OPS
 
-    model, _ = make_model(0.5, device)
+    model, _ = make_model(0.5, device, n, z_eq.shape[1])
     plain = copy.copy(model)
     plain.ops = PLAIN_OPS
     loss_k, m_k, g_k = model.loss_metrics_grads_cm(params, z_eq)
     loss_p, m_p, g_p = plain.loss_metrics_grads_cm(params, z_eq)
     torch.cuda.synchronize()
     worst, ok_g = flow_grads_close(g_k, g_p)
-    print(f"fused update vs plain: E {float(m_k['E']):.7f} / "
+    print(f"fused update vs plain N={n}: E {float(m_k['E']):.7f} / "
           f"{float(m_p['E']):.7f}, E_std {float(m_k['E_std']):.6f} / "
           f"{float(m_p['E_std']):.6f}, loss {float(loss_k):.4e} / "
           f"{float(loss_p):.4e}, grads max|d| {worst:.3e}")
@@ -932,8 +1098,12 @@ def main() -> int:
     t_all = time.perf_counter()
     try:
         print("== phase 1: build", flush=True)
-        phase_build()
+        ptxas = phase_build()
         warps, placed, lanes = phase_occupancy(device)
+        occ10 = phase_occupancy_n10(device)
+        for name, d in zip(("warps", "placed", "lanes"), occ10):
+            {"warps": warps, "placed": placed, "lanes": lanes}[name].update(
+                {k + "_n10": v for k, v in d.items()})
         print("== phase 2: kernels against their plain versions", flush=True)
         z_eq, params = phase_kernels(device, rows)
         z_ms, idx = phase_kernels_ms(device, rows, z_eq)
@@ -947,6 +1117,18 @@ def main() -> int:
         print("== phase 5: updates against the plain updates", flush=True)
         phase_update_vs_plain(device, z_eq, params)
         phase_beta_update_vs_plain(device, z_ms, idx, params)
+        print(f"== phase 6: the ground state at N={N10}, batch {BATCH10}",
+              flush=True)
+        z10, params10 = phase_kernels(device, rows, N10, BATCH10,
+                                      ACCEPT_TAU01_N10, "_n10", PARAM_STD_N10)
+        phase_single_chain(device, rows, z10, torch.Generator(
+            device=device).manual_seed(SEED + 11), N10, BATCH10,
+            ACCEPT_TAU01_N10, "_n10")
+        phase_identity_oracle(device, z10, N10)
+        counts["gs_n10"] = phase_n10_path(device)
+        counts["gs_single_n10"] = phase_gs_single_path(
+            device, N10, BATCH10, LR10, E_RANGE_N10)
+        phase_update_vs_plain(device, z10, params10, N10)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -956,12 +1138,14 @@ def main() -> int:
     kernels = []
     for name in ("metropolis_chains", "slater_vgh", "hessian_flow",
                  "reinforce_adjoint", "reinforce_reduce", "metropolis_single",
-                 "slater_vgh_ms", "metropolis_multistate"):
+                 "slater_vgh_ms", "metropolis_multistate",
+                 *(k + "_n10" for k in GS_KERNELS + ("metropolis_single",))):
         r = rows[name]
+        base = name.removesuffix("_n10")
         b_ms, b_by = roofline.bound_ms(*r.pop("work"))
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCES[name],
-            replaces=REPLACES[name], launches=counts[PATH_OF[name]][name],
+            name=name, route="cuda", source=SOURCES[base],
+            replaces=REPLACES[base], launches=counts[PATH_OF[name]][base],
             launches_path=PATH_OF[name],
             max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
             plain_ms=r.pop("plain_ms"), bound_ms=b_ms, bound_by=b_by,
@@ -969,9 +1153,14 @@ def main() -> int:
         if name in warps:
             kernels[-1]["warps_per_sm"] = warps[name]
         if name in placed:
-            per = "walker" if name.startswith("slater_vgh") else "chain"
+            per = "walker" if name.startswith(("slater_vgh", "hessian",
+                                               "reinforce")) else "chain"
             kernels[-1].update({"warps_placed_per_sm": placed[name],
                                 f"lanes_per_{per}": lanes[name]})
+        if name.endswith("_n10") and base in N10_PTXAS:
+            regs, stack, st, ld = ptxas[N10_PTXAS[base]]
+            kernels[-1].update(registers=regs, stack_bytes=stack,
+                               spill_bytes=st + ld)
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

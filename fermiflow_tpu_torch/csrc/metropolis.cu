@@ -32,6 +32,10 @@
 // tau *= exp(gain * (rate - target)); with reinit each segment restarts from
 // fresh Gaussians at fixed tau.  Walkers past B walk a copy of walker B - 1
 // and store nothing.
+//
+// From N = 7 the orbitals reach order 3, so the Hermite tables hold
+// K = gs_orders(N) = 4 orders; lanes 0..N-9 own two particles, and a step
+// draws 2N + 1 = 21 uniforms at N = 10, Philox calls 0..5 on lanes 0..5.
 #include "sampler.cuh"
 
 namespace {
@@ -41,20 +45,21 @@ namespace {
 template <int N, int G>
 __device__ __forceinline__ float slater_logp(const float (&x)[Group<N, G>::S][2],
                                              const Occ& occ, int lane) {
+  constexpr int K = gs_orders(N);
   float D[Group<N, G>::S][N];
 #pragma unroll
   for (int s = 0; s < Group<N, G>::S; ++s) {
     const float xi = x[s][0], yi = x[s][1];
     const float g = kPref * expf(-0.5f * (xi * xi + yi * yi));
-    float hx[FF_KMAX], hy[FF_KMAX];
-    hermite<FF_KMAX>(xi, hx);
-    hermite<FF_KMAX>(yi, hy);
+    float hx[K], hy[K];
+    hermite<K>(xi, hx);
+    hermite<K>(yi, hy);
     const bool up_i = slot_particle<N, G>(lane, s) < occ.nup;
 #pragma unroll
     for (int j = 0; j < N; ++j) {
       const bool same = up_i == (j < occ.nup);
-      D[s][j] = same ? g * select_order<FF_KMAX>(hx, occ.nx[j]) *
-                           select_order<FF_KMAX>(hy, occ.ny[j])
+      D[s][j] = same ? g * select_order<K>(hx, occ.nx[j]) *
+                           select_order<K>(hy, occ.ny[j])
                      : 0.f;
     }
   }
@@ -188,6 +193,10 @@ extern "C" int ff_metropolis_chains(
     case 4: err = launch<4>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
     case 5: err = launch<5>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
     case 6: err = launch<6>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
+    case 7: err = launch<7>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
+    case 8: err = launch<8>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
+    case 9: err = launch<9>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
+    case 10: err = launch<10>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
@@ -218,6 +227,10 @@ extern "C" int ff_metropolis_occupancy(int n, int B, int* warps_per_sm,
     case 4: return (int)occupancy<4>(warps_per_sm);
     case 5: return (int)occupancy<5>(warps_per_sm);
     case 6: return (int)occupancy<6>(warps_per_sm);
+    case 7: return (int)occupancy<7>(warps_per_sm);
+    case 8: return (int)occupancy<8>(warps_per_sm);
+    case 9: return (int)occupancy<9>(warps_per_sm);
+    case 10: return (int)occupancy<10>(warps_per_sm);
     default: return (int)cudaErrorInvalidValue;
   }
 }

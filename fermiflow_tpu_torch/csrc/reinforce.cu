@@ -49,7 +49,14 @@
 //   the occupancy.  Four __syncwarp per stage; no block-wide barrier after
 //   the set-up.  A region's stride is 8 (mod 32) floats, so the four walkers
 //   of a warp fall on distinct banks.
-// Hopper blocks run in no order, so each block sums its 16 walkers' theta
+// - From N = 7 (lanes_for, min_blocks): 16 lanes per walker, 8 walkers per
+//   128-thread block, 3 resident blocks (<= 168 registers).  At N = 10 a
+//   lane then keeps 3 of the 40 state entries, as at N = 6, and the 45
+//   pairs' field coefficients are totalled in 3 chunks of 16 inputs
+//   (kChunkInputs): a lane holds 48 partials at a time instead of the 144
+//   (6 pairs x 8 lanes x 3) of one pass.  Each chunk adds its units' theta
+//   sums to the accumulators.  The walker's region is 808 floats (3.2 KB).
+// Hopper blocks run in no order, so each block sums its walkers' theta
 // rows in a fixed pairwise order into one row of a (num_blocks, nq)
 // partials buffer, and a second kernel sums the rows in a fixed order.
 // Walkers past B compute on a copy of walker B-1 with w = 0 and a = 0, add
@@ -64,10 +71,21 @@
 
 namespace {
 
-constexpr int kLanes = 8;      // lanes per walker
+// Lanes per walker (ops/reinforce.py: lanes_for): 8 up to N = 6, 16 from
+// N = 7 (the design note above).
+__host__ __device__ constexpr int lanes_for(int n) { return n <= 6 ? 8 : 16; }
 constexpr int THREADS = 128;
-constexpr int MIN_BLOCKS = 4;  // resident blocks per SM: <= 128 registers
+// Resident blocks per SM the adjoint is built for: 4 (<= 128 registers) up
+// to N = 6; 3 (<= 168) from N = 7, where 128 registers spilled 56 B at
+// N = 10 and 168 spill nothing.  The spilling 4-block build ran ~20 %
+// faster at N = 10 on an H100 80GB HBM3 at 700 W (PERF.md): a plan that
+// keeps 16 warps per SM without spills is the adjoint's next redesign.
+__host__ __device__ constexpr int min_blocks(int n) { return n <= 6 ? 4 : 3; }
 constexpr int TABLEAU = FF_MAXSTAGES * FF_MAXSTAGES + FF_MAXSTAGES;
+// MLP inputs whose field-coefficient partials a lane holds at once: 16
+// inputs x 3 coefficients = 48 registers, the partials of all 15 pairs at
+// N = 6 on 8 lanes.  More inputs are taken in chunks of this many.
+constexpr int kChunkInputs = 16;
 
 template <int N, int G>
 struct Layout {
@@ -78,6 +96,11 @@ struct Layout {
   static constexpr int E = (S + G - 1) / G;   // state entries per lane
   static constexpr int QP = (P + G - 1) / G;  // pair inputs per lane
   static constexpr int QN = (N + G - 1) / G;  // one-body inputs per lane
+  // Pair inputs a lane totals per chunk, and the chunks: chunk c covers
+  // pairs c G QC .. (c + 1) G QC - 1, lane l totals c G QC + l QC + k.
+  static constexpr int QC = QP < kChunkInputs / G ? QP : kChunkInputs / G;
+  static constexpr int NC = (P + G * QC - 1) / (G * QC);
+  static_assert(G * QN <= kChunkInputs, "the one-body inputs fit one chunk");
   static constexpr int NW = THREADS / G;      // walkers per block
   // A walker's shared region, in floats (float4 fields 16-byte aligned).
   static constexpr int IN = 0;                   // stage-input x (D), a (D)
@@ -195,8 +218,10 @@ __device__ __forceinline__ void geometry(float* me, const int* ptab, int lane, f
   const float* a = x + L::D;
   float4* geo = reinterpret_cast<float4*>(me + L::GEO);
 #pragma unroll
-  for (int k = 0; k < L::QP; ++k) {
-    const int p = lane * L::QP + k;
+  for (int c = 0; c < L::NC; ++c)
+#pragma unroll
+  for (int k = 0; k < L::QC; ++k) {
+    const int p = (c * G + lane) * L::QC + k;
     if (p < L::P) {
       const int ij = ptab[p], i = ij & 0xff, j = ij >> 8;
       const float u0 = x[2 * i] - x[2 * j], u1 = x[2 * i + 1] - x[2 * j + 1];
@@ -219,25 +244,26 @@ __device__ __forceinline__ void geometry(float* me, const int* ptab, int lane, f
   }
 }
 
-// The MLPs (theta rows into the walker's accumulators) and, for this lane's
-// inputs, their contributions to the slopes of their particles.
-template <int N, int G>
-__device__ __forceinline__ void mlp_cells(float* me, const int* ptab, int lane,
-                                          const float4* ew, int de, const float4* mw,
-                                          int dm, int q_off, float w, float bw,
-                                          bool acc_q) {
+// Pair chunk C of the eta MLP and the chunks after it (the Layout's QC,
+// NC): the theta rows into the walker's accumulators and, for the pairs
+// this lane totals, their contributions to the slopes of their particles.
+template <int N, int G, int C>
+__device__ __forceinline__ void pair_chunks(float* me, const int* ptab, int lane,
+                                            const float4* ew, int de, float w, float bw,
+                                            bool acc_q) {
   using L = Layout<N, G>;
-  const float* x = me + L::IN;
-  const float* a = x + L::D;
-  float* q = me + L::Q;
-  {
+  if constexpr (C < L::NC) {
+    constexpr int p0 = C * G * L::QC;
+    constexpr int M = L::P - p0 < G * L::QC ? L::P - p0 : G * L::QC;
+    const float* x = me + L::IN;
+    const float* a = x + L::D;
     const float4* geo = reinterpret_cast<const float4*>(me + L::GEO);
-    float e[G * L::QP][3];
-    mlp_coefficients<L::P, G, L::QP, 2, 4>(geo, ew, de, lane, w, bw, acc_q, q, e);
+    float e[G * L::QC][3];
+    mlp_coefficients<M, G, L::QC, 2, 4>(geo + p0, ew, de, lane, w, bw, acc_q, me + L::Q, e);
     float4* cell = reinterpret_cast<float4*>(me + L::CELL);
 #pragma unroll
-    for (int k = 0; k < L::QP; ++k) {
-      const int p = lane * L::QP + k;
+    for (int k = 0; k < L::QC; ++k) {
+      const int p = p0 + lane * L::QC + k;
       if (p < L::P) {
         const int ij = ptab[p], i = ij & 0xff, j = ij >> 8;
         const float ua = x[2 * i] - x[2 * j], ub = x[2 * i + 1] - x[2 * j + 1];
@@ -252,7 +278,22 @@ __device__ __forceinline__ void mlp_cells(float* me, const int* ptab, int lane,
         cell[p] = make_float4(e0 * ua, e0 * ub, cg * ua - m0, cg * ub - m1);
       }
     }
+    pair_chunks<N, G, C + 1>(me, ptab, lane, ew, de, w, bw, acc_q);
   }
+}
+
+// The MLPs (theta rows into the walker's accumulators) and, for this lane's
+// inputs, their contributions to the slopes of their particles.
+template <int N, int G>
+__device__ __forceinline__ void mlp_cells(float* me, const int* ptab, int lane,
+                                          const float4* ew, int de, const float4* mw,
+                                          int dm, int q_off, float w, float bw,
+                                          bool acc_q) {
+  using L = Layout<N, G>;
+  const float* x = me + L::IN;
+  const float* a = x + L::D;
+  float* q = me + L::Q;
+  pair_chunks<N, G, 0>(me, ptab, lane, ew, de, w, bw, acc_q);
   if (dm > 0) {
     const float4* geo1 = reinterpret_cast<const float4*>(me + L::GEO1);
     float m[G * L::QN][3];
@@ -297,7 +338,7 @@ __device__ __forceinline__ float slope(const float* me, int e, bool has_mu) {
 }
 
 template <int N, int G>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) reinforce_kernel(
+__global__ void __launch_bounds__(THREADS, min_blocks(N)) reinforce_kernel(
     const float* __restrict__ x1, const float* __restrict__ ghat,
     const float* __restrict__ wts_in, float* __restrict__ z_out,
     float* __restrict__ partials, int B, const float* __restrict__ eta_w1,
@@ -457,7 +498,7 @@ __global__ void __launch_bounds__(kReduceCols * kReduceRows) reinforce_reduce_ke
 template <int N>
 cudaError_t prepare() {
   static const cudaError_t err = [] {
-    auto kern = reinforce_kernel<N, kLanes>;
+    auto kern = reinforce_kernel<N, lanes_for(N)>;
     int dev = 0, optin = 0;
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess)
@@ -472,9 +513,9 @@ cudaError_t prepare() {
   return err;
 }
 
-int num_blocks(int B) {
-  constexpr int NW = THREADS / kLanes;
-  return (B + NW - 1) / NW;
+int num_blocks(int B, int n) {
+  const int nw = THREADS / lanes_for(n);  // walkers per block
+  return (B + nw - 1) / nw;
 }
 
 template <int N>
@@ -485,9 +526,9 @@ cudaError_t launch(const float* x1, const float* ghat, const float* w,
                    const Tableau& hab, cudaStream_t stream) {
   cudaError_t err = prepare<N>();
   if (err != cudaSuccess) return err;
-  reinforce_kernel<N, kLanes><<<num_blocks(B), THREADS, smem_bytes<N, kLanes>(de, dm),
-                                stream>>>(x1, ghat, w, z_out, partials, B, ew1, eb1,
-                                          ew2, de, mw1, mb1, mw2, dm, steps, hab);
+  constexpr int G = lanes_for(N);
+  reinforce_kernel<N, G><<<num_blocks(B, N), THREADS, smem_bytes<N, G>(de, dm), stream>>>(
+      x1, ghat, w, z_out, partials, B, ew1, eb1, ew2, de, mw1, mb1, mw2, dm, steps, hab);
   return cudaGetLastError();
 }
 
@@ -497,14 +538,21 @@ cudaError_t occupancy(int de, int dm, int* warps_per_sm) {
   if (err != cudaSuccess) return err;
   int blocks = 0;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, reinforce_kernel<N, kLanes>, THREADS, smem_bytes<N, kLanes>(de, dm));
+      &blocks, reinforce_kernel<N, lanes_for(N)>, THREADS,
+      smem_bytes<N, lanes_for(N)>(de, dm));
   *warps_per_sm = blocks * (THREADS / 32);
   return err;
 }
 
 }  // namespace
 
-extern "C" int ff_reinforce_blocks(int B) { return num_blocks(B); }
+// Rows of the partials buffer of a launch over B walkers of n particles.
+extern "C" int ff_reinforce_blocks(int B, int n) { return num_blocks(B, n); }
+
+// Lanes per walker of the adjoint's instantiation for n (0 if there is none).
+extern "C" int ff_reinforce_lanes(int n) {
+  return n >= 2 && n <= FF_MAXN ? lanes_for(n) : 0;
+}
 
 extern "C" int ff_reinforce_adjoint(const float* x1, const float* ghat,
                                     const float* w, float* z_out, float* partials,
@@ -528,6 +576,10 @@ extern "C" int ff_reinforce_adjoint(const float* x1, const float* ghat,
     case 4: err = FF_RF(4); break;
     case 5: err = FF_RF(5); break;
     case 6: err = FF_RF(6); break;
+    case 7: err = FF_RF(7); break;
+    case 8: err = FF_RF(8); break;
+    case 9: err = FF_RF(9); break;
+    case 10: err = FF_RF(10); break;
     default: return (int)cudaErrorInvalidValue;
   }
 #undef FF_RF
@@ -555,7 +607,7 @@ extern "C" int ff_reinforce(const float* x1, const float* ghat, const float* w,
                                        eta_b1, eta_w2, d_eta, mu_w1, mu_b1, mu_w2,
                                        d_mu, steps, stages, h_a, h_b, stream);
   if (err != 0) return err;
-  return ff_reinforce_reduce(partials, grads, ff_reinforce_blocks(B), 3 * (d_eta + d_mu),
+  return ff_reinforce_reduce(partials, grads, ff_reinforce_blocks(B, n), 3 * (d_eta + d_mu),
                              stream);
 }
 
@@ -568,6 +620,10 @@ extern "C" int ff_reinforce_occupancy(int n, int d_eta, int d_mu, int* warps_per
     case 4: err = occupancy<4>(d_eta, d_mu, warps_per_sm); break;
     case 5: err = occupancy<5>(d_eta, d_mu, warps_per_sm); break;
     case 6: err = occupancy<6>(d_eta, d_mu, warps_per_sm); break;
+    case 7: err = occupancy<7>(d_eta, d_mu, warps_per_sm); break;
+    case 8: err = occupancy<8>(d_eta, d_mu, warps_per_sm); break;
+    case 9: err = occupancy<9>(d_eta, d_mu, warps_per_sm); break;
+    case 10: err = occupancy<10>(d_eta, d_mu, warps_per_sm); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;

@@ -40,9 +40,9 @@ struct Group {
   static_assert(32 % G == 0, "a lane group divides a warp");
   static constexpr int D = 2 * N;
   static constexpr int NU = D + 1;            // d Box-Muller uniforms + 1 accept uniform
-  static constexpr int Q = (NU + 3) / 4;      // Philox calls per step, call q on lane q
+  static constexpr int Q = (NU + 3) / 4;      // Philox calls per step
+  static constexpr int QS = (Q + G - 1) / G;  // per lane: call q on lane q % G, slot q / G
   static constexpr int S = (N + G - 1) / G;   // particle slots (and Box-Muller pairs) per lane
-  static_assert(Q <= G, "one Philox call per lane");
 };
 
 // The lane's particle in slot s, clamped to a real one.
@@ -83,27 +83,53 @@ __device__ __forceinline__ float uniform_at(const uint4& r, int j) {
   return bits_to_uniform(e == 0 ? a : e == 1 ? b : e == 2 ? c : d);
 }
 
+// The same where a lane makes QS > 1 Philox calls (r[t]: call lane + t G).
+template <int G, int QS>
+__device__ __forceinline__ float uniform_at(const uint4 (&r)[QS], int j) {
+  if constexpr (QS == 1) {
+    return uniform_at<G>(r[0], j);
+  } else {
+    const int call = j >> 2, e = j & 3;
+    uint32_t word = 0u;
+#pragma unroll
+    for (int t = 0; t < QS; ++t) {
+      const uint32_t a = __shfl_sync(kFullMask, r[t].x, call % G, G);
+      const uint32_t b = __shfl_sync(kFullMask, r[t].y, call % G, G);
+      const uint32_t c = __shfl_sync(kFullMask, r[t].z, call % G, G);
+      const uint32_t d = __shfl_sync(kFullMask, r[t].w, call % G, G);
+      word = (call / G == t) ? (e == 0 ? a : e == 1 ? b : e == 2 ? c : d) : word;
+    }
+    return bits_to_uniform(word);
+  }
+}
+
 // Step `step` of segment `seg` of walker `walker`: this lane's coordinates'
 // normals z[s][a] (coordinate a of its slot-s particle) and the accept
 // uniform ua.  The stream is one thread's: uniforms u[0..d] with u[4q + e]
 // word e of Philox call q (counter (q, step, seg, 0), key (seed, walker));
 // Box-Muller pair k from u[k], u[k + N] gives coordinate k r cos and
-// coordinate k + N r sin (TPU order); ua = u[d].  Call q runs on lane q and
-// pair k on lane k % G; shuffles bring uniforms and normals to their owners.
+// coordinate k + N r sin (TPU order); ua = u[d].  Call q runs on lane q % G
+// (lane q while Q <= G, as at N <= 9 on 8 lanes) and pair k on lane k % G;
+// shuffles bring uniforms and normals to their owners.
 template <int N, int G>
 __device__ __forceinline__ void draw_step(uint32_t seed, uint32_t walker, uint32_t step,
                                           uint32_t seg, int lane,
                                           float (&z)[Group<N, G>::S][2], float& ua) {
   using L = Group<N, G>;
-  uint4 r = make_uint4(0u, 0u, 0u, 0u);
-  if (lane < L::Q)
-    r = philox4x32_10(make_uint4((uint32_t)lane, step, seg, 0u), make_uint2(seed, walker));
+  uint4 r[L::QS];
+#pragma unroll
+  for (int t = 0; t < L::QS; ++t) {
+    r[t] = make_uint4(0u, 0u, 0u, 0u);
+    if (lane + t * G < L::Q)
+      r[t] = philox4x32_10(make_uint4((uint32_t)(lane + t * G), step, seg, 0u),
+                           make_uint2(seed, walker));
+  }
   float zc[L::S], zs[L::S];
 #pragma unroll
   for (int p = 0; p < L::S; ++p) {
     const int k = min(lane + p * G, N - 1);
-    const float u1 = uniform_at<G>(r, k);
-    const float u2 = uniform_at<G>(r, k + N);
+    const float u1 = uniform_at<G, L::QS>(r, k);
+    const float u2 = uniform_at<G, L::QS>(r, k + N);
     const float rad = sqrtf(-2.f * logf(u1));
     float sn, cs;
     sincosf(kTwoPi * u2, &sn, &cs);
@@ -111,9 +137,10 @@ __device__ __forceinline__ void draw_step(uint32_t seed, uint32_t walker, uint32
     zs[p] = rad * sn;
   }
   {
-    constexpr int e = L::D & 3;
-    const uint32_t word = e == 0 ? r.x : e == 1 ? r.y : e == 2 ? r.z : r.w;
-    ua = bits_to_uniform(__shfl_sync(kFullMask, word, L::D >> 2, G));
+    constexpr int e = L::D & 3, q = L::D >> 2;
+    const uint4& rq = r[q / G];
+    const uint32_t word = e == 0 ? rq.x : e == 1 ? rq.y : e == 2 ? rq.z : rq.w;
+    ua = bits_to_uniform(__shfl_sync(kFullMask, word, q % G, G));
   }
 #pragma unroll
   for (int s = 0; s < L::S; ++s) {

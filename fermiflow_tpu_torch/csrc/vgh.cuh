@@ -87,44 +87,26 @@ __device__ __forceinline__ int vgh_row(int lane, int s) {
   return min(lane + s * G, N - 1);
 }
 
-// One walker's y, g and packed H from its rows' 1D factors.  fv, f1, f2
-// hold, for the lane's slot s, column j and axis a, psi, psi' and psi'' of
-// column j's orbital along axis a at the row's coordinate.  Rows and
-// columns [0, nup) form one spin sector, the rest the other; entries across
-// sectors are zero.  ws is the walker's scratch, st its staging column
-// (row r at st[r * kStageStride]); outputs are scaled by `two` (2, or NaN
-// to mark a walker whose inputs the kernel could not take).  The
-// Gauss-Jordan inverts [D | I] without row swaps, the pivot of column k
-// being the first unused row with the largest |entry| (floored at 1e-30),
-// as the TPU kernel's _gj_inverse.
+// The 1D factors of column j's orbital along one axis at a row's
+// coordinate: psi, psi' and psi''.
+struct Fac {
+  float v, d1, d2;
+};
+
+// Step 1 of a walker's y, g and H: the Gauss-Jordan on the group's rows of
+// [D | I] held in M (slot s: row lane + s G), without row swaps, the pivot
+// of column k being the first unused row with the largest |entry|
+// (floored at 1e-30), as the TPU kernel's _gj_inverse.  Writes A = D^{-1}
+// to ws and y = two log|det D| to st[0].
 template <int N, int G>
-__device__ __forceinline__ void vgh_group(
-    const float (&fv)[VghPlan<N, G>::S][N][2], const float (&f1)[VghPlan<N, G>::S][N][2],
-    const float (&f2)[VghPlan<N, G>::S][N][2], int nup, int lane, float* __restrict__ ws,
-    float* __restrict__ st, float two) {
+__device__ __forceinline__ void vgh_invert(float (&M)[VghPlan<N, G>::S][2 * N],
+                                           const bool (&real)[VghPlan<N, G>::S],
+                                           int lane, float* __restrict__ ws,
+                                           float* __restrict__ st, float two) {
   using P = VghPlan<N, G>;
   constexpr int S = P::S;
   constexpr unsigned group_bits = G == 32 ? kVghMask : (1u << G) - 1u;
   const int base = (int)(threadIdx.x & 31) & ~(G - 1);
-  int row[S];
-  bool real[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    real[s] = lane + s * G < N;
-    row[s] = vgh_row<N, G>(lane, s);
-  }
-  auto same = [&](int s, int j) { return (row[s] < nup) == (j < nup); };
-
-  // Gauss-Jordan on the group's rows of [D | I].
-  float M[S][2 * N];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      M[s][j] = same(s, j) ? fv[s][j][0] * fv[s][j][1] : 0.f;
-      M[s][N + j] = (row[s] == j) ? 1.f : 0.f;
-    }
-  }
   bool used[S];
   int pk[S];  // the column whose pivot the slot's row became
 #pragma unroll
@@ -192,58 +174,68 @@ __device__ __forceinline__ void vgh_group(
   }
   if (lane == 0) st[0] = two * logabs;
   __syncwarp();
+}
 
-  // The lane's rows of B, g, and C.
+// Step 2, for the row i of one slot: its rows of B, g and C.  fac(j, a) is
+// column j's Fac along axis a at the row's coordinate; sm(j) whether column
+// j lies in the row's spin sector.
+template <int N, int G, class F, class SM>
+__device__ __forceinline__ void vgh_row_terms(F fac, SM sm, int i, bool real,
+                                              float* __restrict__ ws,
+                                              float* __restrict__ st, float two) {
+  using P = VghPlan<N, G>;
+  float d1x[N], d1y[N];
 #pragma unroll
-  for (int s = 0; s < S; ++s) {
-    float d1x[N], d1y[N];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      const bool sm = same(s, j);
-      d1x[j] = sm ? f1[s][j][0] * fv[s][j][1] : 0.f;
-      d1y[j] = sm ? fv[s][j][0] * f1[s][j][1] : 0.f;
-    }
-    float gx = 0.f, gy = 0.f;
-#pragma unroll
-    for (int k = 0; k < N; ++k) {
-      float bx = 0.f, by = 0.f;
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float ajk = ws[P::A0 + j * N + k];
-        bx += d1x[j] * ajk;
-        by += d1y[j] * ajk;
-      }
-      if (real[s]) {
-        ws[P::B0 + row[s] * N + k] = bx;
-        ws[P::B0 + (N + row[s]) * N + k] = by;
-      }
-      gx = (k == row[s]) ? bx : gx;
-      gy = (k == row[s]) ? by : gy;
-    }
-    float cxx = 0.f, cxy = 0.f, cyy = 0.f;
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-      if (!same(s, j)) continue;
-      const float aji = ws[P::A0 + j * N + row[s]];
-      const float xx = f2[s][j][0] * fv[s][j][1];
-      const float yy = fv[s][j][0] * f2[s][j][1];
-      const float xy = f1[s][j][0] * f1[s][j][1];
-      cxx += aji * xx;
-      cxy += aji * xy;
-      cyy += aji * yy;
-    }
-    if (real[s]) {
-      st[(1 + 2 * row[s]) * kStageStride] = two * gx;
-      st[(2 + 2 * row[s]) * kStageStride] = two * gy;
-      ws[P::C0 + 3 * row[s]] = cxx;
-      ws[P::C0 + 3 * row[s] + 1] = cxy;
-      ws[P::C0 + 3 * row[s] + 2] = cyy;
-    }
+  for (int j = 0; j < N; ++j) {
+    const Fac fx = fac(j, 0), fy = fac(j, 1);
+    d1x[j] = sm(j) ? fx.d1 * fy.v : 0.f;
+    d1y[j] = sm(j) ? fx.v * fy.d1 : 0.f;
   }
-  __syncwarp();
+  float gx = 0.f, gy = 0.f;
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    float bx = 0.f, by = 0.f;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const float ajk = ws[P::A0 + j * N + k];
+      bx += d1x[j] * ajk;
+      by += d1y[j] * ajk;
+    }
+    if (real) {
+      ws[P::B0 + i * N + k] = bx;
+      ws[P::B0 + (N + i) * N + k] = by;
+    }
+    gx = (k == i) ? bx : gx;
+    gy = (k == i) ? by : gy;
+  }
+  float cxx = 0.f, cxy = 0.f, cyy = 0.f;
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    if (!sm(j)) continue;
+    const Fac fx = fac(j, 0), fy = fac(j, 1);
+    const float aji = ws[P::A0 + j * N + i];
+    const float xx = fx.d2 * fy.v;
+    const float yy = fx.v * fy.d2;
+    const float xy = fx.d1 * fy.d1;
+    cxx += aji * xx;
+    cxy += aji * xy;
+    cyy += aji * yy;
+  }
+  if (real) {
+    st[(1 + 2 * i) * kStageStride] = two * gx;
+    st[(2 + 2 * i) * kStageStride] = two * gy;
+    ws[P::C0 + 3 * i] = cxx;
+    ws[P::C0 + 3 * i + 1] = cxy;
+    ws[P::C0 + 3 * i + 2] = cyy;
+  }
+}
 
-  // Packed H entries e = r G + lane: row p = 2i + a <= column q = 2k + b
-  // (np.triu_indices order).
+// Step 3: the packed H entries e = r G + lane, row p = 2i + a <= column
+// q = 2k + b (np.triu_indices order), from the walker's B and C.
+template <int N, int G>
+__device__ __forceinline__ void vgh_hessian(int lane, const float* __restrict__ ws,
+                                            float* __restrict__ st, float two) {
+  using P = VghPlan<N, G>;
 #pragma unroll
   for (int r = 0; r < (P::NUT + G - 1) / G; ++r) {
     const int e = r * G + lane;
@@ -259,6 +251,103 @@ __device__ __forceinline__ void vgh_group(
       st[(1 + P::D + e) * kStageStride] = two * fmaf(-bki, bik, c);
     }
   }
+}
+
+// One walker's y, g and packed H from its rows' 1D factors.  fv, f1, f2
+// hold, for the lane's slot s, column j and axis a, psi, psi' and psi'' of
+// column j's orbital along axis a at the row's coordinate.  Rows and
+// columns [0, nup) form one spin sector, the rest the other; entries across
+// sectors are zero.  ws is the walker's scratch, st its staging column
+// (row r at st[r * kStageStride]); outputs are scaled by `two` (2, or NaN
+// to mark a walker whose inputs the kernel could not take).
+template <int N, int G>
+__device__ __forceinline__ void vgh_group(
+    const float (&fv)[VghPlan<N, G>::S][N][2], const float (&f1)[VghPlan<N, G>::S][N][2],
+    const float (&f2)[VghPlan<N, G>::S][N][2], int nup, int lane, float* __restrict__ ws,
+    float* __restrict__ st, float two) {
+  using P = VghPlan<N, G>;
+  constexpr int S = P::S;
+  int row[S];
+  bool real[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    real[s] = lane + s * G < N;
+    row[s] = vgh_row<N, G>(lane, s);
+  }
+  auto same = [&](int s, int j) { return (row[s] < nup) == (j < nup); };
+
+  float M[S][2 * N];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      M[s][j] = same(s, j) ? fv[s][j][0] * fv[s][j][1] : 0.f;
+      M[s][N + j] = (row[s] == j) ? 1.f : 0.f;
+    }
+  }
+  vgh_invert<N, G>(M, real, lane, ws, st, two);
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    vgh_row_terms<N, G>(
+        [&](int j, int a) { return Fac{fv[s][j][a], f1[s][j][a], f2[s][j][a]}; },
+        [&](int j) { return same(s, j); }, row[s], real[s], ws, st, two);
+  __syncwarp();
+  vgh_hessian<N, G>(lane, ws, st, two);
+}
+
+// vgh_group for N >= 7, where three factor tables of N x 2 entries per row
+// slot (120 floats at N = 10 with two slots) would not fit in registers
+// beside the elimination.  Each lane keeps its rows' coordinates xc[s] and
+// evaluates the K-order tables of a slot where it needs them: psi alone for
+// the rows of D, then psi, psi' and psi'' again for that slot's B and C.
+// qn(j, a) is column j's quantum number along axis a.  The arithmetic of
+// every entry is vgh_group's.
+template <int N, int G, int K, class QN>
+__device__ __forceinline__ void vgh_group_tables(const float (&xc)[VghPlan<N, G>::S][2],
+                                                 QN qn, int nup, int lane,
+                                                 float* __restrict__ ws,
+                                                 float* __restrict__ st, float two) {
+  using P = VghPlan<N, G>;
+  constexpr int S = P::S;
+  int row[S];
+  bool real[S];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    real[s] = lane + s * G < N;
+    row[s] = vgh_row<N, G>(lane, s);
+  }
+  auto same = [&](int s, int j) { return (row[s] < nup) == (j < nup); };
+
+  float M[S][2 * N];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float psi[2][K], dpsi[2][K], d2psi[2][K];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) ho_factors<K>(xc[s][a], psi[a], dpsi[a], d2psi[a]);
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      M[s][j] = same(s, j) ? select_order<K>(psi[0], qn(j, 0)) *
+                                 select_order<K>(psi[1], qn(j, 1))
+                           : 0.f;
+      M[s][N + j] = (row[s] == j) ? 1.f : 0.f;
+    }
+  }
+  vgh_invert<N, G>(M, real, lane, ws, st, two);
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    float psi[2][K], dpsi[2][K], d2psi[2][K];
+#pragma unroll
+    for (int a = 0; a < 2; ++a) ho_factors<K>(xc[s][a], psi[a], dpsi[a], d2psi[a]);
+    vgh_row_terms<N, G>(
+        [&](int j, int a) {
+          const int q = qn(j, a);
+          return Fac{select_order<K>(psi[a], q), select_order<K>(dpsi[a], q),
+                     select_order<K>(d2psi[a], q)};
+        },
+        [&](int j) { return same(s, j); }, row[s], real[s], ws, st, two);
+  }
+  __syncwarp();
+  vgh_hessian<N, G>(lane, ws, st, two);
 }
 
 // The block's staged outputs, each row written as 32 contiguous floats:

@@ -2,7 +2,8 @@
 
 Kernel: ``csrc/hessian_flow.cu`` (replaces the TPU kernel
 ``fermiflow_tpu/ops/pallas_hessian_flow.py:hessian_flow_pallas``), a group
-of ``LANES`` lanes per walker (``lane_plan`` says which lane owns what).
+of ``lanes_for(n)`` lanes per walker (``lane_plan`` says which lane owns
+what).
 Plain version: ``vmc.hessian_flow.hessian_flow`` with the closed-form field
 tensors, on the unpacked Hessian.  The plain version runs only for CPU
 tensors; a CUDA tensor launches the kernel or raises.
@@ -21,15 +22,22 @@ from fermiflow_tpu_torch.ops.metropolis import SUPPORTED_N
 from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, unpack_triu
 
 __all__ = ["hessian_flow_cm", "hessian_flow_cm_plain", "hessian_flow_packed",
-           "hessian_flow_occupancy", "lane_plan", "tableau_args", "w2k",
-           "LANES"]
+           "hessian_flow_occupancy", "lane_plan", "lanes_for",
+           "tableau_args", "w2k"]
 
 _MAXSTAGES = 6  # FF_MAXSTAGES in csrc/common.cuh
-LANES = 8  # kLanes in csrc/hessian_flow.cu: lanes of a warp per walker
 
 
-def lane_plan(n: int, lanes: int = LANES) -> dict:
-    """Which lane of a walker's group owns what in ``csrc/hessian_flow.cu``.
+def lanes_for(n: int) -> int:
+    """Lanes of a warp per walker in ``csrc/hessian_flow.cu`` (its
+    ``lanes_for``): 8 up to n = 6, the whole warp from n = 7, where 8 lanes
+    could not hold their state entries' six slopes in registers."""
+    return 8 if n <= 6 else 32
+
+
+def lane_plan(n: int, lanes: int | None = None) -> dict:
+    """Which lane of a walker's group owns what in ``csrc/hessian_flow.cu``
+    (at ``lanes_for(n)`` lanes unless ``lanes`` is given).
 
     Item i of each kind goes to lane i % lanes, register slot i // lanes:
     the state entries (x, logp, g, packed H), the pair MLP inputs (in
@@ -37,6 +45,7 @@ def lane_plan(n: int, lanes: int = LANES) -> dict:
     ``{kind: (per-lane lists of (item, slot), slots the kernel compiles)}``;
     the slot counts are the kernel's ``E``, ``QP`` and ``QN``.
     """
+    lanes = lanes or lanes_for(n)
     d = 2 * n
     counts = {"entries": 2 * d + 1 + d * (d + 1) // 2,
               "pairs": n * (n - 1) // 2, "one_body": n}
@@ -141,7 +150,8 @@ def hessian_flow_cm(params: dict, x_cm: torch.Tensor, logp: torch.Tensor,
         return hessian_flow_cm_plain(params, x_cm, logp, g_cm, Hp_cm, t0, t1,
                                      steps, method)
     if x_cm.shape[0] // 2 not in SUPPORTED_N:
-        raise ValueError(f"CUDA Hessian flow built for n in {SUPPORTED_N}")
+        raise ValueError(f"CUDA Hessian flow built for 2 ≤ N ≤ 10; got "
+                         f"N={x_cm.shape[0] // 2}")
     return _hflow_cuda(params, x_cm, logp, g_cm, Hp_cm, t0, t1, steps, method)
 
 

@@ -47,13 +47,33 @@ __all__ = ["metropolis_chains", "metropolis_chains_plain",
            "metropolis_multistate_cm", "metropolis_multistate_cm_plain",
            "metropolis_free_fermion_multistate", "slater_logp_qn",
            "slater_logp_ms", "ms_depth", "metropolis_occupancy",
-           "metropolis_ms_occupancy", "SUPPORTED_N", "KMAX", "MS_DEPTHS",
-           "LANES"]
+           "metropolis_ms_occupancy", "SUPPORTED_N", "MS_SUPPORTED_N",
+           "gs_orders", "check_gs_occupation", "MS_DEPTHS", "LANES"]
 
-SUPPORTED_N = (2, 3, 4, 5, 6)  # instantiations in csrc/*.cu
-KMAX = 3  # Hermite orders the ground-state kernels tabulate (FF_KMAX)
+# Particle counts of the ground-state kernels (metropolis.cu, slater_vgh.cu,
+# hessian_flow.cu, reinforce.cu) and of the mixed-state ones
+# (metropolis_ms.cu, slater_vgh_ms.cu).
+SUPPORTED_N = tuple(range(2, 11))
+MS_SUPPORTED_N = (2, 3, 4, 5, 6)
 MS_DEPTHS = (4, 5, 6, 8)  # Hermite depths the mixed-state kernels are built for
 LANES = 8  # kSamplerLanes in csrc/sampler.cuh: lanes of a warp per chain
+
+
+def gs_orders(n: int) -> int:
+    """Hermite orders 0..K-1 that the ground-state kernels tabulate at n
+    particles (``gs_orders`` in csrc/common.cuh): the closed shells up to
+    n = 6 use quantum numbers <= 2, those up to n = 10 <= 3."""
+    return 3 if n <= 6 else 4
+
+
+def check_gs_occupation(what: str, nx: tuple, ny: tuple) -> None:
+    """Raise unless a ground-state kernel is built for this occupation."""
+    n = len(nx)
+    if n not in SUPPORTED_N or max(nx + ny) >= gs_orders(n):
+        raise ValueError(
+            f"CUDA {what} built for 2 ≤ N ≤ 10 with quantum numbers below 3 "
+            f"(N ≤ 6) or 4 (N ≤ 10); got N={n}, largest quantum number "
+            f"{max(nx + ny)}")
 
 
 def ms_depth(num_shells: int) -> int:
@@ -231,9 +251,7 @@ def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
             ny_occ=ny_occ, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells,
             target=target, gain=gain, reinit=reinit, noise=noise,
             generator=generator)
-    if len(nx) not in SUPPORTED_N or max(nx + ny) >= KMAX:
-        raise ValueError(f"CUDA sampler built for n in {SUPPORTED_N} with "
-                         f"quantum numbers < {KMAX}; got n={len(nx)}")
+    check_gs_occupation("sampler", nx, ny)
     return _chains_cuda(x0_cm, tau, int(seed), steps, segments, nx, ny, nup,
                         target, gain, reinit, noise)
 
@@ -325,9 +343,7 @@ def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
             x0_cm, tau, seed, steps=steps, nx_occ=nx_occ, ny_occ=ny_occ,
             nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells, noise=noise,
             generator=generator)
-    if len(nx) not in SUPPORTED_N or max(nx + ny) >= KMAX:
-        raise ValueError(f"CUDA sampler built for n in {SUPPORTED_N} with "
-                         f"quantum numbers < {KMAX}; got n={len(nx)}")
+    check_gs_occupation("sampler", nx, ny)
     return _single_cuda(x0_cm, tau, int(seed), steps, nx, ny, len(nx_occ),
                         noise)
 
@@ -446,8 +462,9 @@ def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
         return metropolis_multistate_cm_plain(
             x0_cm, tau, seed, steps=steps, nx_cm=nx_cm, ny_cm=ny_cm,
             num_shells=num_shells, noise=noise, generator=generator)
-    if nx_cm.shape[0] not in SUPPORTED_N:
-        raise ValueError(f"CUDA sampler built for n in {SUPPORTED_N}; "
+    if nx_cm.shape[0] not in MS_SUPPORTED_N:
+        raise ValueError(f"CUDA mixed-state sampler built for N ≤ 6 (N ≤ 10 "
+                         f"is the ground-state kernels'); "
                          f"got n={nx_cm.shape[0]}")
     return _multistate_cuda(x0_cm, tau, int(seed), steps, nx_cm, ny_cm,
                             num_shells, noise)

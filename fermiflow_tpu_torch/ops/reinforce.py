@@ -8,8 +8,9 @@ continuous adjoint integrated backward on the flow's grid:
 
 Kernels: ``csrc/reinforce.cu`` (replaces the TPU kernel
 ``fermiflow_tpu/ops/pallas_reinforce.py:reinforce_flow_grad_pallas``), an
-adjoint pass writing per-block partial sums (a group of ``LANES`` lanes per
-walker, 16 walkers per block; ``lane_plan`` says which lane owns what) and a
+adjoint pass writing per-block partial sums (a group of ``lanes_for(n)``
+lanes per walker, 128 / lanes walkers per block; ``lane_plan`` says which
+lane owns what) and a
 reduce pass summing them in a fixed order; ``reinforce_cm`` launches both
 from one host call.
 Plain version: the same closed form batched in PyTorch
@@ -32,32 +33,46 @@ from fermiflow_tpu_torch.ops.metropolis import SUPPORTED_N
 
 __all__ = ["reinforce_cm", "reinforce_cm_plain", "reinforce_partials",
            "block_sum", "reinforce_flow_grad", "grads_from_rows",
-           "reinforce_occupancy", "lane_plan", "LANES"]
+           "reinforce_occupancy", "lane_plan", "lanes_for"]
 
-LANES = 8  # kLanes in csrc/reinforce.cu: lanes of a warp per walker
+CHUNK_INPUTS = 16  # kChunkInputs in csrc/reinforce.cu
+
+
+def lanes_for(n: int) -> int:
+    """Lanes of a warp per walker in ``csrc/reinforce.cu`` (its
+    ``lanes_for``): 8 up to n = 6, 16 from n = 7, which keeps a lane's state
+    entries and their slopes at N = 6's count."""
+    return 8 if n <= 6 else 16
 
 
 def lane_plan(n: int, d_eta: int, d_mu: int | None,
-              lanes: int = LANES) -> dict:
-    """Which lane of a walker's group owns what in ``csrc/reinforce.cu``.
+              lanes: int | None = None) -> dict:
+    """Which lane of a walker's group owns what in ``csrc/reinforce.cu``
+    (at ``lanes_for(n)`` lanes unless ``lanes`` is given).
 
     State entries (x then a) and hidden units (eta, mu) are dealt round
     robin: item i to lane i % lanes, register slot i // lanes.  The pair
     (``np.triu_indices`` order) and one-body MLP inputs whose field
-    coefficients a lane totals are contiguous: item i to lane i // q, slot
-    i % q, q = ceil(count / lanes).  Returns ``{kind: (per-lane lists of
-    (item, slot), slots per lane)}``; the slot counts of the entries, pairs
-    and one-body inputs are the kernel's ``E``, ``QP`` and ``QN``.
+    coefficients a lane totals come in chunks of ``lanes * qc`` inputs,
+    qc = min(ceil(count / lanes), CHUNK_INPUTS // lanes): in each chunk
+    item i goes to lane (i mod chunk) // qc, and its slot is its chunk
+    times qc plus i % qc.  Up to N = 6 there is one chunk, and a lane's
+    inputs are contiguous.  Returns ``{kind: (per-lane lists of (item,
+    slot), slots per lane)}``; the slot counts of the entries, pairs and
+    one-body inputs are the kernel's ``E``, ``NC * QC`` and ``QN``.
     """
+    lanes = lanes or lanes_for(n)
     dealt = {"entries": 4 * n, "eta_units": d_eta, "mu_units": d_mu or 0}
     blocked = {"pairs": n * (n - 1) // 2, "one_body": n}
     plan = {kind: ([[(i, i // lanes) for i in range(c) if i % lanes == lane]
                     for lane in range(lanes)], -(-c // lanes))
             for kind, c in dealt.items()}
     for kind, c in blocked.items():
-        q = -(-c // lanes)
-        plan[kind] = ([[(i, i % q) for i in range(c) if i // q == lane]
-                       for lane in range(lanes)], q)
+        qc = min(-(-c // lanes), CHUNK_INPUTS // lanes)
+        chunk = lanes * qc
+        plan[kind] = ([[(i, i // chunk * qc + i % qc) for i in range(c)
+                        if i % chunk // qc == lane] for lane in range(lanes)],
+                      -(-c // chunk) * qc)
     return plan
 
 
@@ -185,7 +200,7 @@ def _adjoint_call(params, x_cm, g_cm, w, t0, t1, steps, method):
     d, B = x_cm.shape
     n = d // 2
     if n not in SUPPORTED_N:
-        raise ValueError(f"CUDA REINFORCE built for n in {SUPPORTED_N}")
+        raise ValueError(f"CUDA REINFORCE built for 2 ≤ N ≤ 10; got N={n}")
     ew1, eb1, ew2, d_eta = _weights_f32(params["eta"])
     mw1, mb1, mw2, d_mu = _weights_f32(params.get("mu"))
     _build.check_cuda_f32(x=x_cm, g=g_cm, w=w, eta_w1=ew1, mu_w1=mw1)
@@ -193,7 +208,7 @@ def _adjoint_call(params, x_cm, g_cm, w, t0, t1, steps, method):
         raise ValueError("expected x, g (d, B) and w (B,)")
     nq = 3 * (d_eta + d_mu)
     lib = _build.library("reinforce")
-    nblocks = lib.ff_reinforce_blocks(ctypes.c_int(B))
+    nblocks = lib.ff_reinforce_blocks(ctypes.c_int(B), ctypes.c_int(n))
     kw = dict(device=x_cm.device, dtype=torch.float32)
     z = torch.empty((d, B), **kw)
     partials = torch.empty((nblocks, nq), **kw)

@@ -23,7 +23,11 @@ import numpy as np
 import torch
 
 from fermiflow_tpu_torch.ops import _build
-from fermiflow_tpu_torch.ops.metropolis import KMAX, SUPPORTED_N, ms_depth
+from fermiflow_tpu_torch.ops.metropolis import (
+    MS_SUPPORTED_N,
+    check_gs_occupation,
+    ms_depth,
+)
 from fermiflow_tpu_torch.physics.slater import (
     _derivs_from_1d,
     _ho1d_val_d1_d2,
@@ -132,9 +136,7 @@ def slater_vgh_cm(x_cm: torch.Tensor, nx_occ: tuple, ny_occ: tuple,
     if x_cm.device.type == "cpu":
         return slater_vgh_cm_plain(x_cm, nx_occ, ny_occ, num_shells, nx_dn,
                                    ny_dn)
-    if len(nx) not in SUPPORTED_N or max(nx + ny) >= KMAX:
-        raise ValueError(f"CUDA Slater VGH built for n in {SUPPORTED_N} with "
-                         f"quantum numbers < {KMAX}; got n={len(nx)}")
+    check_gs_occupation("Slater VGH", nx, ny)
     return _vgh_cuda(x_cm, nx, ny, len(nx_occ))
 
 
@@ -194,8 +196,9 @@ def slater_vgh_ms_cm(x_cm: torch.Tensor, nx_cm: torch.Tensor,
         raise ValueError("occupations must cover all particles (dim = 2)")
     if x_cm.device.type == "cpu":
         return slater_vgh_ms_cm_plain(x_cm, nx_cm, ny_cm, num_shells)
-    if nx_cm.shape[0] not in SUPPORTED_N:
-        raise ValueError(f"CUDA Slater VGH built for n in {SUPPORTED_N}; "
+    if nx_cm.shape[0] not in MS_SUPPORTED_N:
+        raise ValueError(f"CUDA mixed-state Slater VGH built for N ≤ 6 (N ≤ 10 "
+                         f"is the ground-state kernels'); "
                          f"got n={nx_cm.shape[0]}")
     return _vgh_ms_cuda(x_cm, nx_cm, ny_cm, num_shells)
 

@@ -5,8 +5,11 @@ A kernel's bound is the larger of (bytes it must move) / (memory rate) and
 (operations) / (FP32 rate): every input read once, every output written
 once, and the flop-equivalents the algorithm needs on this call's shapes.
 Transcendentals (exp, log, sqrt, sin, cos) count as ~8 flop-equivalents, as
-the JAX package's ``bench.py`` counts them; ``sampler_flops`` and
-``hflow_flops`` are copies of its ``_sampler_flops`` and ``_hflow_flops``.
+the JAX package's ``bench.py`` counts them; ``sampler_flops`` is a copy of
+its ``_sampler_flops``, ``hflow_flops`` its ``_hflow_flops`` with the
+Hessian term and the RK combine counted on the packed state (the kernel's
+work) instead of a full d x d product and 10d.  Every count is a function of
+n, K and the widths, and holds from N = 2 to N = 10 (K = 3 or 4).
 The mixed-state kernels do the ground-state sampler's and VGH's work at
 K = num_shells and also read each walker's 2n int32 quantum numbers; how an
 implementation picks the orbitals (selects here, one-hot FMAs on the TPU)
@@ -72,13 +75,17 @@ def hflow_flops(n: int, d_eta: int, d_mu: int, dim: int = 2) -> float:
 
     P = n(n-1)/2 pairs, d = n*dim: pair MLP with 4 derivative orders
     P*d_eta*14; one-body MLP n*d_mu*14; A, grad div, S, T assembly
-    8d^2 + 20P; dH = -S - T - (AH + HA) on the packed triangle 4d^3;
-    dg, dlogp and the RK combine 2d^2 + 10d.
+    8d^2 + 20P; dH = -S - T - (AH + HA) on the packed triangle, 2d
+    multiply-adds for each of its d(d+1)/2 entries: 2d^2(d+1); dg and
+    dlogp 2d^2; the dopri5 stage inputs and combine, ~3.5 multiply-adds
+    per state entry (2d + 1 + d(d+1)/2 of them) per stage: 7 per entry.
     """
     d = n * dim
     P = n * (n - 1) // 2
+    state = 2 * d + 1 + d * (d + 1) // 2
     mlp = P * d_eta * 14 + (n * d_mu * 14 if d_mu else 0)
-    return mlp + 8 * d * d + 20 * P + 4 * d**3 + 2 * d * d + 10 * d
+    return (mlp + 8 * d * d + 20 * P + 2 * d * d * (d + 1) + 2 * d * d
+            + 7 * state)
 
 
 def reinforce_flops(n: int, d_eta: int, d_mu: int, dim: int = 2) -> float:
@@ -87,14 +94,14 @@ def reinforce_flops(n: int, d_eta: int, d_mu: int, dim: int = 2) -> float:
     Per (pair, hidden unit): sigmoid ~11, its two derivatives 4, the three
     field coefficients 6, the eight theta reductions 16 -> 37; per hidden
     unit the three theta rows ~15; per pair the geometry and adjoint
-    dynamics ~40; the one-body term alike over n particles; the RK stage
-    input and combine 4 * 2d.
+    dynamics ~40; the one-body term alike over n particles; the dopri5
+    stage inputs and combine, 7 per state entry (2d of them).
     """
     d = n * dim
     P = n * (n - 1) // 2
     eta = P * d_eta * 37 + d_eta * 15 + P * 40
     mu = (n * d_mu * 37 + d_mu * 15 + n * 30) if d_mu else 0
-    return eta + mu + 8 * d
+    return eta + mu + 14 * d
 
 
 def metropolis_work(B, n, K, steps, segments):

@@ -2,12 +2,12 @@
 """Time the port's kernels of two trees on one GPU, in turns (A, B, B, A),
 on the same inputs.
 
-    python3 kernel_turns.py PARENT_ROOT CHANGE_ROOT [--out FILE]
+    python3 kernel_turns.py PARENT_ROOT CHANGE_ROOT [--n 6|10] [--out FILE]
 
 Each turn is a fresh process that imports ``fermiflow_tpu_torch`` from its
 tree (building that tree's kernels at first use) and times, at the paths'
-shapes (N=6, B=8192, d_eta=d_mu=50, dopri5 with 4 steps; (512, 300)
-partials; 30 Metropolis steps):
+shapes (N=6 and B=8192, or with ``--n 10`` N=10 and B=4096; d_eta=d_mu=50,
+dopri5 with 4 steps; (512, 300) partials; 30 Metropolis steps):
 - ``hessian_flow_cm``: CUDA events over 20 launches, three times;
 - ``reinforce_partials`` (the adjoint pass) on the Hessian flow's x and g
   with seeded weights: CUDA events over 20 launches, three times;
@@ -17,12 +17,16 @@ partials; 30 Metropolis steps):
   on walkers that the plain samplers equilibrated (the same walkers in
   every turn): ``metropolis_chains`` (10 segments, tau adapted between
   them), ``metropolis_single_cm`` and ``metropolis_multistate_cm`` (54
-  states of the deltaE = 2 table, Hermite depth 5): CUDA events over 20
-  launches, three times;
+  states of the deltaE = 2 table, Hermite depth 5; N=6 only, the
+  mixed-state kernels being built to N=6): CUDA events over 20 launches,
+  three times;
 - the two Slater VGH kernels on the same equilibrated walkers:
   ``slater_vgh_cm`` on the ground-state walkers and ``slater_vgh_ms_cm`` on
   the mixed-state walkers in their states: CUDA-graph replay of 50 launches
   (device only), three times.
+Each turn also reads its tree's ptxas report (registers, stack, spills of
+every kernel instantiation), and the summary sets the parent's registers of
+the N instantiations beside the change's.
 It also saves its outputs (the Hessian flow's, the reduce's, the gradient
 and z_back of ``reinforce_cm``, each sampler's and each VGH kernel's), so
 that the summary can hold the trees' results against each other (relative
@@ -30,7 +34,8 @@ to each output's largest entry: the flow's inputs are Gaussian walkers, not
 equilibrated ones, so H runs large; for the samplers, the share of walkers
 whose chain diverged and the largest |dx| on the rest; for the VGH kernels,
 y, g and H each, and whether all three are bitwise equal) and each tree's
-two turns bitwise.  The summary goes to standard output and, as JSON, to
+two turns bitwise, and says per output whether parent and change are
+bitwise equal.  The summary goes to standard output and, as JSON, to
 ``--out``.
 """
 
@@ -44,14 +49,26 @@ import subprocess
 import sys
 import tempfile
 
-N, BATCH, D_ETA, D_MU, ODE_STEPS = 6, 8192, 50, 50, 4
-NBLOCKS, NQ = 512, 300  # the adjoint's partials at B=8192
+D_ETA, D_MU, ODE_STEPS = 50, 50, 4
+BATCH_OF = {6: 8192, 10: 4096}  # the paths' batches at N=6 and N=10
+NBLOCKS, NQ = 512, 300  # the adjoint's partials at either path's batch
 MCMC_STEPS, SEGMENTS = 30, 10
 SEED = 1234
 HERE = os.path.dirname(os.path.abspath(__file__))
-# The N=6 spin-polarized ground state's orbitals (HO2D order).
-GS_OCC = dict(nx_occ=(0, 0, 1, 0, 1, 2), ny_occ=(0, 1, 0, 2, 1, 0),
-              num_shells=3)
+# Set by measure(): the particle count, batch and spin-polarized ground
+# state's orbitals (HO2D order) of the turn.
+N = BATCH = GS_OCC = None
+
+
+def setup(n: int) -> None:
+    global N, BATCH, GS_OCC
+    from fermiflow_tpu_torch.physics import HO2D
+
+    orb = HO2D()
+    nx = tuple(int(v) for v in orb.nx[:n])
+    ny = tuple(int(v) for v in orb.ny[:n])
+    N, BATCH = n, BATCH_OF[n]
+    GS_OCC = dict(nx_occ=nx, ny_occ=ny, num_shells=max(nx + ny) + 1)
 
 
 def sampler_inputs(torch, dev):
@@ -67,6 +84,8 @@ def sampler_inputs(torch, dev):
     xs, _, _, tau = mp.metropolis_chains_plain(
         x0, torch.full((BATCH,), 0.1, **f32), 0, steps=MCMC_STEPS,
         segments=SEGMENTS, generator=gen, **GS_OCC)
+    if N > 6:
+        return xs[-1].contiguous(), tau.contiguous(), None, None
     orb = HO2D()
     table, _ = orb.fermion_states(N, 0, 2.0)
     ks = int(max(orb.nx[table].max(), orb.ny[table].max())) + 1
@@ -98,6 +117,8 @@ def time_samplers(torch, dev, cuda_ms, inputs):
         "metropolis_multistate": lambda: mp.metropolis_multistate_cm(
             z_ms, tau01, SEED, steps=MCMC_STEPS, **ms),
     }
+    if ms is None:
+        del calls["metropolis_multistate"]
     times = {k: [cuda_ms(fn, 20) for _ in range(3)] for k, fn in calls.items()}
     outs = {k: [t.cpu() for t in fn()] for k, fn in calls.items()}
     return times, outs
@@ -114,6 +135,8 @@ def time_vgh(graph_ms, inputs):
         "slater_vgh_ms": lambda: sv.slater_vgh_ms_cm(
             z_ms, ms["nx_cm"], ms["ny_cm"], ms["num_shells"]),
     }
+    if ms is None:
+        del calls["slater_vgh_ms"]
     # graph_ms replays the captured launches and checks their last H.
     times = {k: [graph_ms(lambda: fn()[2])[0] for _ in range(3)]
              for k, fn in calls.items()}
@@ -121,10 +144,12 @@ def time_vgh(graph_ms, inputs):
     return times, outs
 
 
-def measure(root: str, save: str) -> dict:
-    """One turn: time the kernels of the tree at ``root``."""
+def measure(root: str, save: str, n: int) -> dict:
+    """One turn: time the kernels of the tree at ``root`` at n particles."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
+
+    setup(n)
 
     import fermiflow_tpu_torch
     from fermiflow_tpu_torch.nn.backflow import backflow_init_gaussian
@@ -148,6 +173,9 @@ def measure(root: str, save: str) -> dict:
     if not pkg.startswith(os.path.abspath(root)):
         raise RuntimeError(f"imported {pkg}, not the tree at {root}")
     _build.build_all()
+    ptxas = {k[0]: list(k[1:]) for name in _build.SOURCES
+             for k in smoke.ptxas_kernels(
+                 (_build.BUILD_DIR / f"{name}.ptxas.txt").read_text())}
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(SEED)
     x = torch.randn((2 * N, BATCH), generator=gen).to(dev)
@@ -178,7 +206,7 @@ def measure(root: str, save: str) -> dict:
         reduce_graph_ms=red_graph, sum_graph_ms=sum_graph,
         reduce_dispatch_ms=cuda_ms(lambda: block_sum(parts), 50),
         sum_dispatch_ms=cuda_ms(lambda: parts.sum(0), 50),
-        sampler_ms=sampler_ms, vgh_graph_ms=vgh_ms)
+        sampler_ms=sampler_ms, vgh_graph_ms=vgh_ms, ptxas=ptxas)
     torch.save({"hflow": [t.cpu() for t in out], "rows": rows.cpu(),
                 "reinforce": [flat.cpu(), z_back.cpu()],
                 "samplers": sampler_out, "vgh": vgh_out}, save)
@@ -206,12 +234,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("parent")
     ap.add_argument("change")
+    ap.add_argument("--n", type=int, default=6, choices=sorted(BATCH_OF))
     ap.add_argument("--out", default=None)
     ap.add_argument("--measure", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--save", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.measure:
-        print(json.dumps(measure(a.measure, a.save)), flush=True)
+        print(json.dumps(measure(a.measure, a.save, a.n)), flush=True)
         return 0
 
     import torch
@@ -231,7 +260,8 @@ def main() -> int:
             save = os.path.join(tmp, f"{i}.pt")
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), a.parent,
-                 a.change, "--measure", root, "--save", save],
+                 a.change, "--n", str(a.n), "--measure", root, "--save",
+                 save],
                 capture_output=True, text=True, cwd=HERE)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -270,6 +300,16 @@ def main() -> int:
                      zip(outs[0]["reinforce"], outs[1]["reinforce"])))
     rel = {k: float((p.double() - c.double()).abs().max()
                     / p.double().abs().max()) for k, (p, c) in pairs.items()}
+    bitwise = {k: torch.equal(p, c) for k, (p, c) in pairs.items()}
+    # ptxas of the N instantiations, parent against change: (registers,
+    # stack, spill stores, spill loads).
+    mine = f"<{a.n}>", f"<{a.n},"
+    regs = {k: dict(parent=turns[0]["ptxas"].get(k), change=v)
+            for k, v in turns[1]["ptxas"].items() if mine[0] in k
+            or mine[1] in k}
+    regs_not_higher = all(v["parent"] is None
+                          or v["change"][0] <= v["parent"][0]
+                          for v in regs.values())
     # Each sampler entry of the parent against the change's.
     chains = {entry: chains_agreement(outs[0]["samplers"][entry], got)
               for entry, got in outs[1]["samplers"].items()}
@@ -281,13 +321,22 @@ def main() -> int:
         bitwise=all(torch.equal(p, c)
                     for p, c in zip(outs[0]["vgh"][entry], got)))
         for entry, got in outs[1]["vgh"].items()}
-    summary = dict(card=smi, turns=turns, same_tree_bitwise=same_tree,
+    summary = dict(card=smi, n=a.n, batch=BATCH_OF[a.n], turns=turns,
+                   same_tree_bitwise=same_tree,
                    parent_vs_change_rel=rel,
+                   parent_vs_change_bitwise=bitwise, ptxas=regs,
+                   registers_not_higher=regs_not_higher,
                    sampler_parent_vs_change=chains,
                    vgh_parent_vs_change=vgh)
     print(f"card: {smi}")
     print(f"each tree's two turns bitwise equal: {same_tree}; parent vs "
-          f"change, max|d| / max|parent|: {json.dumps(rel)}")
+          f"change, max|d| / max|parent|: {json.dumps(rel)}; bitwise "
+          f"{json.dumps(bitwise)}")
+    for k, v in sorted(regs.items()):
+        print(f"ptxas {k}: parent {v['parent']}, change {v['change']} "
+              "(registers, stack, spill stores, spill loads)")
+    print(f"registers of the N={a.n} instantiations not higher than the "
+          f"parent's: {regs_not_higher}")
     for key, v in chains.items():
         print(f"sampler parent vs change {key}: diverged walkers "
               f"{v['diverged']:.3e}, max|dx| on the rest "

@@ -84,7 +84,8 @@ def f64(p):
             for k, v in p.items()}
 
 
-@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 100), (2, 1, 33)])
+@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 100), (2, 1, 33),
+                                         (10, 0, 100), (5, 4, 33)])
 def test_metropolis_kernel_matches_plain_on_shared_stream(cuda, nup, ndown, B):
     n = nup + ndown
     x0 = equilibrated(cuda, nup, ndown, B)
@@ -114,7 +115,8 @@ def test_metropolis_kernel_matches_plain_on_shared_stream(cuda, nup, ndown, B):
                                    atol=0)
 
 
-@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 100), (2, 1, 33)])
+@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 100), (2, 1, 33),
+                                         (10, 0, 100), (5, 4, 33)])
 def test_slater_vgh_kernel_matches_plain(cuda, nup, ndown, B):
     z = equilibrated(cuda, nup, ndown, B)
     k = slater_vgh_cm(z, **occ(nup, ndown))
@@ -127,10 +129,11 @@ def test_slater_vgh_kernel_matches_plain(cuda, nup, ndown, B):
 
 
 # Batch sizes that leave the last block ragged (16 walkers per block, 4 per
-# warp): 37 and 8191 end mid-warp, 100 mid-block.
+# warp, to N = 6; 4 walkers per block from N = 7): 37 and 8191 end mid-warp
+# (N <= 6) or mid-block, 100 mid-block (N <= 6).
 @pytest.mark.parametrize("nup,d_mu,B", [
     (3, 8, 100), (3, None, 37), (2, 8, 37), (2, None, 8191), (6, 8, 8191),
-    (6, None, 37)])
+    (6, None, 37), (10, 8, 4095), (9, None, 37)])
 def test_hessian_flow_kernel_matches_plain(cuda, nup, d_mu, B):
     z = equilibrated(cuda, nup, 0, B)
     y, g, H = slater_vgh_cm(z, **occ(nup, 0))
@@ -158,10 +161,18 @@ def test_hessian_flow_occupancy(cuda):
     assert reinforce_occupancy(6, 50, 50) >= 8
 
 
-# 16 walkers per adjoint block, 4 per warp: 37 and 8191 end mid-warp, 100
-# mid-block.
+def test_n10_occupancy(cuda):
+    # N = 10 at the paths' widths: 4 blocks of a warp per walker (Hessian
+    # flow, <= 128 registers) and 3 of the 16-lane adjoint (<= 168).
+    assert hessian_flow_occupancy(10, 50, 50) >= 16
+    assert reinforce_occupancy(10, 50, 50) >= 12
+
+
+# 16 walkers per adjoint block, 4 per warp (to N = 6), 8 and 2 (from N = 7):
+# 37 and 8191 end mid-warp, 100 mid-block.
 @pytest.mark.parametrize("nup,d_mu,B", [(3, 8, 100), (3, None, 37),
-                                        (6, 8, 8191), (6, None, 37)])
+                                        (6, 8, 8191), (6, None, 37),
+                                        (10, 8, 4093), (7, None, 100)])
 def test_reinforce_kernels_match_plain(cuda, nup, d_mu, B):
     z = equilibrated(cuda, nup, 0, B)
     gen = torch.Generator(device=cuda).manual_seed(3)
@@ -241,7 +252,8 @@ def _agree_on_shared_stream(k, p):
     torch.testing.assert_close(k[2][agree], p[2][agree], rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 1000), (2, 1, 33)])
+@pytest.mark.parametrize("nup,ndown,B", [(6, 0, 1000), (2, 1, 33),
+                                         (10, 0, 1000)])
 def test_single_chain_kernel_matches_plain_on_shared_stream(cuda, nup, ndown,
                                                             B):
     n = nup + ndown

@@ -104,9 +104,11 @@ def f64(p):
             for k, v in p.items()}
 
 
-# Ragged batches: 16 walkers per block, 4 per warp.
+# Ragged batches: 16 walkers per block, 4 per warp (N <= 6); 4 walkers per
+# block, one per warp (N >= 7).
 @pytest.mark.parametrize("n,d_mu,B", [(2, None, 5), (3, 8, 37), (6, 8, 19),
-                                      (6, None, 17)])
+                                      (6, None, 17), (10, 8, 9),
+                                      (8, None, 6)])
 def test_hessian_flow_source_matches_plain(on_emu, n, d_mu, B):
     gen = torch.Generator().manual_seed(n + B)
     z = 0.8 * torch.randn((2 * n, B), generator=gen)
@@ -131,9 +133,11 @@ def flat_grads(gr):
                       for k in ("w2", "w1", "b1")])
 
 
-# Ragged batches: 16 walkers per block, 4 per warp.
+# Ragged batches: 16 walkers per block, 4 per warp (N <= 6); 8 walkers per
+# block, 2 per warp, the pairs in 3 (N = 10) or 2 (N = 7) chunks (N >= 7).
 @pytest.mark.parametrize("n,d_mu,B", [(3, 8, 37), (2, None, 33), (6, 8, 19),
-                                      (6, None, 17)])
+                                      (6, None, 17), (10, 8, 19),
+                                      (7, None, 11)])
 def test_reinforce_source_matches_plain(on_emu, n, d_mu, B):
     gen = torch.Generator().manual_seed(3)
     z = torch.randn((2 * n, B), generator=gen)
@@ -308,7 +312,8 @@ def same_chains(k, p, walker_axes):
 # Ragged batches: 16 (lanes 8) or 32 (lanes 4) walkers per block.
 @pytest.mark.parametrize("lanes", [4, 8])
 @pytest.mark.parametrize("nup,ndown,B,reinit", [
-    (2, 0, 5, False), (2, 1, 19, True), (6, 0, 37, False), (6, 0, 37, True)])
+    (2, 0, 5, False), (2, 1, 19, True), (6, 0, 37, False), (6, 0, 37, True),
+    (10, 0, 21, False), (5, 4, 13, True)])
 def test_metropolis_chains_source_matches_plain(sampler_emu, lanes, nup,
                                                 ndown, B, reinit):
     from fermiflow_tpu_torch.ops.metropolis import metropolis_chains_plain
@@ -331,7 +336,7 @@ def test_metropolis_chains_source_matches_plain(sampler_emu, lanes, nup,
 
 
 @pytest.mark.parametrize("lanes", [4, 8])
-@pytest.mark.parametrize("nup,ndown,B", [(3, 0, 19), (6, 0, 5)])
+@pytest.mark.parametrize("nup,ndown,B", [(3, 0, 19), (6, 0, 5), (10, 0, 7)])
 def test_metropolis_single_source_matches_plain(sampler_emu, lanes, nup,
                                                 ndown, B):
     from fermiflow_tpu_torch.ops.metropolis import metropolis_single_cm_plain
@@ -456,7 +461,8 @@ def ms_walkers(n, B):
 
 # Ragged batches: 32 walkers per block.
 @pytest.mark.parametrize("nup,ndown,B", [(2, 0, 5), (2, 1, 37), (3, 0, 37),
-                                         (4, 2, 21), (6, 0, 37)])
+                                         (4, 2, 21), (6, 0, 37), (10, 0, 37),
+                                         (5, 4, 21), (7, 0, 9)])
 def test_slater_vgh_source_matches_plain(sampler_emu, nup, ndown, B):
     occ = gs_occ(nup, ndown)
     z = gs_walkers(nup, ndown, B)
@@ -497,6 +503,29 @@ def test_vgh_lane_groups_give_the_same_bits(sampler_emu, entry):
         args = ("slater_vgh._vgh_cuda", gs_walkers(nup, n - nup, B),
                 occ["nx_occ"] + occ["nx_dn"], occ["ny_occ"] + occ["ny_dn"],
                 nup)
+    outs = [sampler_emu.launch(args[0], lanes, *args[1:])[0]
+            for lanes in (4, 8)]
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+        assert bool(torch.isfinite(a).all())
+
+
+@pytest.mark.parametrize("entry", ["chains", "single", "vgh"])
+def test_lane_groups_agree_bitwise_at_n10(sampler_emu, entry):
+    """N = 10 at 4 lanes (three row slots; three Philox calls on some lanes)
+    and at 8 (two slots; one call per lane): every output bitwise equal."""
+    n, B = 10, 11
+    occ = gs_occ(n, 0)
+    q = (occ["nx_occ"], occ["ny_occ"])
+    if entry == "vgh":
+        args = ("slater_vgh._vgh_cuda", gs_walkers(n, 0, B), *q, n)
+    else:
+        x0, _ = walkers(n, B, 9)
+        tau = torch.full((B,), 0.2)
+        args = {"chains": ("_chains_cuda", x0, tau, 14, 3, 2, *q, n, 0.5,
+                           0.1, False, None),
+                "single": ("_single_cuda", x0, tau, 15, 4, *q, n,
+                           None)}[entry]
     outs = [sampler_emu.launch(args[0], lanes, *args[1:])[0]
             for lanes in (4, 8)]
     for a, b in zip(*outs):
