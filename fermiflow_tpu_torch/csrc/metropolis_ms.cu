@@ -21,20 +21,25 @@
 // lane l owning particles l, l + G, ...; Philox4x32-10 keyed by
 // (seed, walker) with counter (draw, step, 0).  Every lane of the group
 // reads the walker's N (nx, ny) pairs once before the chain and keeps them
-// in registers (the counterpart of the TPU kernel's one-hot masks hoisted
-// out of its loop).  Orbital values are picked from the Hermite table by
-// unrolled compare-selects, never by indexing a register array with a
-// per-walker number, which would send the array to local memory.  The
-// Hermite depth K is a template parameter.  A quantum number outside
-// [0, K) turns the walker's outputs into NaN rather than a wrong chain.
+// in registers (WalkerQnums, common.cuh: the counterpart of the TPU
+// kernel's one-hot masks hoisted out of its loop).  Orbital values are
+// picked from the Hermite table by unrolled compare-selects, never by
+// indexing a register array with a per-walker number, which would send the
+// array to local memory.  The Hermite depth K is a template parameter.  A
+// quantum number outside [0, K) turns the walker's outputs into NaN rather
+// than a wrong chain.
+//
+// From N = 7 (to N = 10, at every depth) lanes 0..N-9 own two particles,
+// as in the ground-state sampler, and each axis's quantum numbers are
+// packed into one word: the 20 numbers of N = 10 would otherwise hold 20
+// registers for the whole chain beside the elimination.
 #include "sampler.cuh"
 
 namespace {
 
 template <int N, int K, int G>
 __device__ __forceinline__ float slater_logp_ms(const float (&x)[Group<N, G>::S][2],
-                                                const int (&qx)[N],
-                                                const int (&qy)[N], int lane) {
+                                                const WalkerQnums<N, K>& q, int lane) {
   float D[Group<N, G>::S][N];
 #pragma unroll
   for (int s = 0; s < Group<N, G>::S; ++s) {
@@ -45,7 +50,7 @@ __device__ __forceinline__ float slater_logp_ms(const float (&x)[Group<N, G>::S]
     hermite<K>(yi, hy);
 #pragma unroll
     for (int j = 0; j < N; ++j)
-      D[s][j] = g * select_order<K>(hx, qx[j]) * select_order<K>(hy, qy[j]);
+      D[s][j] = g * select_order<K>(hx, q(j, 0)) * select_order<K>(hy, q(j, 1));
   }
   return group_logabsdet2<N, G>(D, lane);
 }
@@ -66,14 +71,8 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
   const int w = min(wr, B - 1);
   const size_t Bs = (size_t)B;
 
-  int qx[N], qy[N];
-  bool ok = true;
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    qx[j] = nx[j * Bs + w];
-    qy[j] = ny[j * Bs + w];
-    ok = ok && qx[j] >= 0 && qx[j] < K && qy[j] >= 0 && qy[j] < K;
-  }
+  WalkerQnums<N, K> q;
+  const bool ok = q.load(nx, ny, Bs, w);
   float x[L::S][2];
 #pragma unroll
   for (int s = 0; s < L::S; ++s)
@@ -81,7 +80,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
     for (int a = 0; a < 2; ++a)
       x[s][a] = x0[(2 * slot_particle<N, G>(lane, s) + a) * Bs + w];
   const float tau = tau0[w];
-  float logp = slater_logp_ms<N, K, G>(x, qx, qy, lane);
+  float logp = slater_logp_ms<N, K, G>(x, q, lane);
 
   float acc = 0.f;
   for (int t = 0; t < steps; ++t) {
@@ -102,7 +101,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
     for (int s = 0; s < L::S; ++s)
 #pragma unroll
       for (int a = 0; a < 2; ++a) xn[s][a] = __fadd_rn(x[s][a], __fmul_rn(tau, z[s][a]));
-    const float lpn = slater_logp_ms<N, K, G>(xn, qx, qy, lane);
+    const float lpn = slater_logp_ms<N, K, G>(xn, q, lane);
     const bool accept = ua < expf(fminf(lpn - logp, 0.f));
 #pragma unroll
     for (int s = 0; s < L::S; ++s)
@@ -177,14 +176,18 @@ int dispatch(int n, int kdepth, const float* x0, const float* tau,
     case 4: return (int)dispatch_k<4>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
     case 5: return (int)dispatch_k<5>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
     case 6: return (int)dispatch_k<6>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
+    case 7: return (int)dispatch_k<7>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
+    case 8: return (int)dispatch_k<8>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
+    case 9: return (int)dispatch_k<9>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
+    case 10: return (int)dispatch_k<10>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// x0 (d, B), tau (B,), nx/ny (n, B) int32 -> x (d, B), logp (B,), acc (B,).
-// kdepth is the compiled Hermite depth (4, 5, 6 or 8).  Injected noise,
+// x0 (d, B), tau (B,), nx/ny (n, B) int32 -> x (d, B), logp (B,), acc (B,),
+// for 2 <= n <= 10.  kdepth is the compiled Hermite depth (4, 5, 6 or 8).  Injected noise,
 // when given, is normals (steps, d, B) and uniforms (steps, B).
 extern "C" int ff_metropolis_multistate(
     const float* x0, const float* tau, const int* nx, const int* ny, float* x,

@@ -48,13 +48,14 @@ __all__ = ["metropolis_chains", "metropolis_chains_plain",
            "metropolis_free_fermion_multistate", "slater_logp_qn",
            "slater_logp_ms", "ms_depth", "metropolis_occupancy",
            "metropolis_ms_occupancy", "SUPPORTED_N", "MS_SUPPORTED_N",
-           "gs_orders", "check_gs_occupation", "MS_DEPTHS", "LANES"]
+           "gs_orders", "check_gs_occupation", "check_ms_occupation",
+           "MS_DEPTHS", "LANES"]
 
 # Particle counts of the ground-state kernels (metropolis.cu, slater_vgh.cu,
 # hessian_flow.cu, reinforce.cu) and of the mixed-state ones
 # (metropolis_ms.cu, slater_vgh_ms.cu).
 SUPPORTED_N = tuple(range(2, 11))
-MS_SUPPORTED_N = (2, 3, 4, 5, 6)
+MS_SUPPORTED_N = SUPPORTED_N
 MS_DEPTHS = (4, 5, 6, 8)  # Hermite depths the mixed-state kernels are built for
 LANES = 8  # kSamplerLanes in csrc/sampler.cuh: lanes of a warp per chain
 
@@ -83,6 +84,15 @@ def ms_depth(num_shells: int) -> int:
             return k
     raise ValueError(f"mixed-state CUDA kernels are built for Hermite depths "
                      f"up to {MS_DEPTHS[-1]}; got num_shells={num_shells}")
+
+
+def check_ms_occupation(what: str, n: int, num_shells: int) -> None:
+    """Raise unless a mixed-state kernel is built for n particles at a depth
+    covering num_shells."""
+    if n not in MS_SUPPORTED_N:
+        raise ValueError(f"CUDA mixed-state {what} built for 2 ≤ N ≤ 10; "
+                         f"got N={n}")
+    ms_depth(num_shells)
 
 
 def metropolis_occupancy(n: int, batch: int) -> dict:
@@ -462,10 +472,7 @@ def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
         return metropolis_multistate_cm_plain(
             x0_cm, tau, seed, steps=steps, nx_cm=nx_cm, ny_cm=ny_cm,
             num_shells=num_shells, noise=noise, generator=generator)
-    if nx_cm.shape[0] not in MS_SUPPORTED_N:
-        raise ValueError(f"CUDA mixed-state sampler built for N ≤ 6 (N ≤ 10 "
-                         f"is the ground-state kernels'); "
-                         f"got n={nx_cm.shape[0]}")
+    check_ms_occupation("sampler", nx_cm.shape[0], num_shells)
     return _multistate_cuda(x0_cm, tau, int(seed), steps, nx_cm, ny_cm,
                             num_shells, noise)
 

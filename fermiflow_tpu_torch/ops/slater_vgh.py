@@ -24,8 +24,8 @@ import torch
 
 from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.metropolis import (
-    MS_SUPPORTED_N,
     check_gs_occupation,
+    check_ms_occupation,
     ms_depth,
 )
 from fermiflow_tpu_torch.physics.slater import (
@@ -196,10 +196,7 @@ def slater_vgh_ms_cm(x_cm: torch.Tensor, nx_cm: torch.Tensor,
         raise ValueError("occupations must cover all particles (dim = 2)")
     if x_cm.device.type == "cpu":
         return slater_vgh_ms_cm_plain(x_cm, nx_cm, ny_cm, num_shells)
-    if nx_cm.shape[0] not in MS_SUPPORTED_N:
-        raise ValueError(f"CUDA mixed-state Slater VGH built for N ≤ 6 (N ≤ 10 "
-                         f"is the ground-state kernels'); "
-                         f"got n={nx_cm.shape[0]}")
+    check_ms_occupation("Slater VGH", nx_cm.shape[0], num_shells)
     return _vgh_ms_cuda(x_cm, nx_cm, ny_cm, num_shells)
 
 

@@ -11,9 +11,12 @@ Hessian term and the RK combine counted on the packed state (the kernel's
 work) instead of a full d x d product and 10d.  Every count is a function of
 n, K and the widths, and holds from N = 2 to N = 10 (K = 3 or 4).
 The mixed-state kernels do the ground-state sampler's and VGH's work at
-K = num_shells and also read each walker's 2n int32 quantum numbers; how an
-implementation picks the orbitals (selects here, one-hot FMAs on the TPU)
-is not counted.
+K = num_shells and also read each walker's 2n int32 quantum numbers; the
+same counts hold for them from N = 2 to N = 10 at every compiled depth,
+the finite-T path's N = 10, K = 8 included (the Hermite terms grow with K,
+nothing else does).  How an implementation picks the orbitals (selects
+over the K orders here, one-hot FMAs on the TPU) and unpacks the quantum
+numbers is not counted.
 None of these kernels uses the tensor cores, so the FP32 rate is the
 denominator.
 """

@@ -16,10 +16,11 @@ dopri5 with 4 steps; (512, 300) partials; 30 Metropolis steps):
 - the three sampler entries on their own Philox stream with one fixed seed,
   on walkers that the plain samplers equilibrated (the same walkers in
   every turn): ``metropolis_chains`` (10 segments, tau adapted between
-  them), ``metropolis_single_cm`` and ``metropolis_multistate_cm`` (54
-  states of the deltaE = 2 table, Hermite depth 5; N=6 only, the
-  mixed-state kernels being built to N=6): CUDA events over 20 launches,
-  three times;
+  them), ``metropolis_single_cm`` and ``metropolis_multistate_cm`` (at
+  N=6 on uniformly drawn states of the deltaE = 2 table, 54 states,
+  Hermite depth 5; at N=10 the finite-T path's shapes: batch 2048, states
+  of the deltaE = 4 table, 1781 states, depth 8, drawn from the Boltzmann
+  probabilities at beta = 1): CUDA events over 20 launches, three times;
 - the two Slater VGH kernels on the same equilibrated walkers:
   ``slater_vgh_cm`` on the ground-state walkers and ``slater_vgh_ms_cm`` on
   the mixed-state walkers in their states: CUDA-graph replay of 50 launches
@@ -51,6 +52,9 @@ import tempfile
 
 D_ETA, D_MU, ODE_STEPS = 50, 50, 4
 BATCH_OF = {6: 8192, 10: 4096}  # the paths' batches at N=6 and N=10
+# The mixed-state kernels' (batch, deltaE, beta of the drawn states or None
+# for uniform draws) at N=6 and, on the finite-T path at N=10, N=10.
+MS_OF = {6: (8192, 2.0, None), 10: (2048, 4.0, 1.0)}
 NBLOCKS, NQ = 512, 300  # the adjoint's partials at either path's batch
 MCMC_STEPS, SEGMENTS = 30, 10
 SEED = 1234
@@ -74,7 +78,7 @@ def setup(n: int) -> None:
 def sampler_inputs(torch, dev):
     """Walkers equilibrated by the plain samplers (deterministic: the same
     in every turn and tree): GS walkers and their adapted tau, and walkers
-    in uniformly drawn deltaE = 2 states with the states' quantum numbers."""
+    in states of ``MS_OF[N]`` with the states' quantum numbers."""
     from fermiflow_tpu_torch.ops import metropolis as mp
     from fermiflow_tpu_torch.physics import HO2D
 
@@ -84,20 +88,25 @@ def sampler_inputs(torch, dev):
     xs, _, _, tau = mp.metropolis_chains_plain(
         x0, torch.full((BATCH,), 0.1, **f32), 0, steps=MCMC_STEPS,
         segments=SEGMENTS, generator=gen, **GS_OCC)
-    if N > 6:
-        return xs[-1].contiguous(), tau.contiguous(), None, None
+    batch, delta_e, beta = MS_OF[N]
     orb = HO2D()
-    table, _ = orb.fermion_states(N, 0, 2.0)
+    table, es = orb.fermion_states(N, 0, delta_e)
     ks = int(max(orb.nx[table].max(), orb.ny[table].max())) + 1
-    idx = torch.randint(0, table.shape[0], (BATCH,), generator=gen,
-                        device=dev)
+    if beta is None:
+        idx = torch.randint(0, table.shape[0], (batch,), generator=gen,
+                            device=dev)
+    else:
+        probs = torch.softmax(torch.as_tensor(-beta * (es - es[0]),
+                                              device=dev), dim=-1)
+        idx = torch.multinomial(probs, batch, replacement=True,
+                                generator=gen)
     occ = torch.as_tensor(table, device=dev).long()[idx]
     nx, ny = (torch.as_tensor(q, device=dev)[occ].T.to(torch.int32)
               .contiguous() for q in (orb.nx, orb.ny))
     ms = dict(nx_cm=nx, ny_cm=ny, num_shells=ks)
-    z = torch.randn((2 * N, BATCH), generator=gen, **f32)
+    z = torch.randn((2 * N, batch), generator=gen, **f32)
     z, _, _ = mp.metropolis_multistate_cm_plain(
-        z, torch.full((BATCH,), 0.2, **f32), 0, steps=10 * MCMC_STEPS,
+        z, torch.full((batch,), 0.2, **f32), 0, steps=10 * MCMC_STEPS,
         generator=gen, **ms)
     return xs[-1].contiguous(), tau.contiguous(), z.contiguous(), ms
 
@@ -108,6 +117,7 @@ def time_samplers(torch, dev, cuda_ms, inputs):
 
     z_gs, tau_gs, z_ms, ms = inputs
     tau01 = torch.full((BATCH,), 0.1, device=dev)
+    tau01_ms = torch.full((z_ms.shape[1],), 0.1, device=dev)
     calls = {
         "metropolis_chains": lambda: mp.metropolis_chains(
             z_gs, tau_gs, SEED, steps=MCMC_STEPS, segments=SEGMENTS,
@@ -115,10 +125,8 @@ def time_samplers(torch, dev, cuda_ms, inputs):
         "metropolis_single": lambda: mp.metropolis_single_cm(
             z_gs, tau01, SEED, steps=MCMC_STEPS, **GS_OCC),
         "metropolis_multistate": lambda: mp.metropolis_multistate_cm(
-            z_ms, tau01, SEED, steps=MCMC_STEPS, **ms),
+            z_ms, tau01_ms, SEED, steps=MCMC_STEPS, **ms),
     }
-    if ms is None:
-        del calls["metropolis_multistate"]
     times = {k: [cuda_ms(fn, 20) for _ in range(3)] for k, fn in calls.items()}
     outs = {k: [t.cpu() for t in fn()] for k, fn in calls.items()}
     return times, outs
@@ -135,8 +143,6 @@ def time_vgh(graph_ms, inputs):
         "slater_vgh_ms": lambda: sv.slater_vgh_ms_cm(
             z_ms, ms["nx_cm"], ms["ny_cm"], ms["num_shells"]),
     }
-    if ms is None:
-        del calls["slater_vgh_ms"]
     # graph_ms replays the captured launches and checks their last H.
     times = {k: [graph_ms(lambda: fn()[2])[0] for _ in range(3)]
              for k, fn in calls.items()}
@@ -321,7 +327,8 @@ def main() -> int:
         bitwise=all(torch.equal(p, c)
                     for p, c in zip(outs[0]["vgh"][entry], got)))
         for entry, got in outs[1]["vgh"].items()}
-    summary = dict(card=smi, n=a.n, batch=BATCH_OF[a.n], turns=turns,
+    summary = dict(card=smi, n=a.n, batch=BATCH_OF[a.n], ms_batch=MS_OF[a.n][0],
+                   turns=turns,
                    same_tree_bitwise=same_tree,
                    parent_vs_change_rel=rel,
                    parent_vs_change_bitwise=bitwise, ptxas=regs,

@@ -225,9 +225,12 @@ def test_reduce_kernel_matches_plain(cuda, nblocks, nq):
 # ---- the per-iteration and mixed-state kernels ----
 
 
-def ms_inputs(device, nup, B, seed=4, deltaE=2.0):
+def ms_inputs(device, nup, B, seed=4, deltaE=None):
     """Walkers equilibrated by the mixed-state kernel in states drawn
-    uniformly from the deltaE table, and the states' quantum numbers."""
+    uniformly from the deltaE table (by default 2 to N = 6, and 4, quantum
+    numbers to 7, from N = 7), and the states' quantum numbers."""
+    if deltaE is None:
+        deltaE = 2.0 if nup <= 6 else 4.0
     occ_table, _ = ORB.fermion_states(nup, 0, deltaE)
     ks = int(max(ORB.nx[occ_table].max(), ORB.ny[occ_table].max())) + 1
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -272,7 +275,7 @@ def test_single_chain_kernel_matches_plain_on_shared_stream(cuda, nup, ndown,
     _agree_on_shared_stream(k, p)
 
 
-@pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37)])
+@pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37), (10, 2048), (7, 100)])
 def test_multistate_kernel_matches_plain_on_shared_stream(cuda, nup, B):
     x0, nx, ny, ks, gen = ms_inputs(cuda, nup, B)
     steps = 20
@@ -306,6 +309,21 @@ def test_sampler_grids_fill_the_card(cuda):
         assert min(got["grid_warps"], got["warps_per_sm"] * sms) / sms >= 7
 
 
+def test_ms_n10_grids_are_resident_at_once(cuda):
+    # The finite-T path at N = 10 (batch 2048, depth 8): 512 warps of
+    # either 8-lane grid, all resident at once (the sampler at 4 blocks
+    # per SM, the VGH kernel at one of 8 warps).
+    from fermiflow_tpu_torch.ops import metropolis as mp
+    from fermiflow_tpu_torch.ops import slater_vgh as sv
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for got, resident in ((mp.metropolis_ms_occupancy(10, 8, 2048), 16),
+                          (sv.slater_vgh_ms_occupancy(10, 8, 2048), 8)):
+        assert got["lanes"] == 8 and got["grid_warps"] == 512
+        assert got["warps_per_sm"] >= resident
+        assert got["warps_per_sm"] * sms >= got["grid_warps"]
+
+
 def test_vgh_grids_fill_the_card(cuda):
     # The paths' batch: 8 lanes per walker place >= 8 warps per SM on
     # average, against 1.9 for one thread per walker.
@@ -318,7 +336,7 @@ def test_vgh_grids_fill_the_card(cuda):
         assert min(got["grid_warps"], got["warps_per_sm"] * sms) / sms >= 8
 
 
-@pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37)])
+@pytest.mark.parametrize("nup,B", [(6, 1000), (3, 37), (10, 2048), (7, 100)])
 def test_slater_vgh_ms_kernel_matches_plain(cuda, nup, B):
     z, nx, ny, ks, _ = ms_inputs(cuda, nup, B)
     before = _build.LAUNCHES["slater_vgh_ms"]

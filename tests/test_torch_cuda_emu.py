@@ -358,25 +358,38 @@ def test_metropolis_single_source_matches_plain(sampler_emu, lanes, nup,
     same_chains(k, p, 0)
 
 
-def ms_states(nup, B, gen):
-    """(nx, ny) (n, B) int32 of states drawn from the deltaE = 2 table."""
-    table, _ = ORB.fermion_states(nup, 0, 2.0)
+def ms_states(nup, B, gen, deltaE=2.0):
+    """(nx, ny) (n, B) int32 of states drawn from the deltaE table.  At
+    deltaE = 4 walker 0 takes the first state that holds quantum number 7,
+    the deepest of depth 8 (8 of N = 10's 1781 states)."""
+    table, _ = ORB.fermion_states(nup, 0, deltaE)
     idx = torch.randint(0, table.shape[0], (B,), generator=gen)
+    if deltaE == 4.0:
+        top = np.maximum(ORB.nx[table], ORB.ny[table]).max(axis=1)
+        idx[0] = int(np.flatnonzero(top == 7)[0])
     occ = torch.as_tensor(table).long()[idx]
     return tuple(torch.as_tensor(q)[occ].T.to(torch.int32).contiguous()
                  for q in (ORB.nx, ORB.ny))
 
 
+def ms_case(n):
+    """(deltaE, Hermite depth) of the mixed-state rows at n particles: the
+    deltaE = 2 table at depth 5 to N = 6, the deltaE = 4 table (quantum
+    numbers to 7) at depth 8 from N = 7."""
+    return (2.0, 5) if n <= 6 else (4.0, 8)
+
+
 @pytest.mark.parametrize("lanes", [4, 8])
-@pytest.mark.parametrize("n,B", [(3, 19), (6, 37)])
+@pytest.mark.parametrize("n,B", [(3, 19), (6, 37), (7, 21), (10, 11)])
 def test_metropolis_ms_source_matches_plain(sampler_emu, lanes, n, B):
     from fermiflow_tpu_torch.ops.metropolis import (
         metropolis_multistate_cm_plain,
     )
 
     x0, gen = walkers(n, B, 3 * B)
-    nx, ny = ms_states(n, B, gen)
-    steps, K = 6, 5
+    deltaE, K = ms_case(n)
+    nx, ny = ms_states(n, B, gen, deltaE)
+    steps = 6
     noise = (torch.randn((steps, 2 * n, B), generator=gen),
              torch.rand((steps, B), generator=gen).clamp_min(1e-12))
     tau = torch.full((B,), 0.3)
@@ -445,17 +458,18 @@ def gs_walkers(nup, ndown, B):
 
 
 def ms_walkers(n, B):
-    """Walkers in deltaE = 2 states, equilibrated by the plain mixed-state
-    sampler, and the states' (nx, ny)."""
+    """Walkers in states of ``ms_case(n)``'s table, equilibrated by the
+    plain mixed-state sampler, and the states' (nx, ny)."""
     from fermiflow_tpu_torch.ops.metropolis import (
         metropolis_multistate_cm_plain,
     )
 
+    deltaE, K = ms_case(n)
     x0, gen = walkers(n, B, 7 * B + n)
-    nx, ny = ms_states(n, B, gen)
+    nx, ny = ms_states(n, B, gen, deltaE)
     x, _, _ = metropolis_multistate_cm_plain(
         x0, torch.full((B,), 0.3), 2, steps=60, nx_cm=nx, ny_cm=ny,
-        num_shells=5)
+        num_shells=K)
     return x.contiguous(), nx, ny
 
 
@@ -473,12 +487,12 @@ def test_slater_vgh_source_matches_plain(sampler_emu, nup, ndown, B):
     vgh_close(k, slater_vgh_cm_plain(z.double(), **occ))
 
 
-@pytest.mark.parametrize("n,B", [(2, 5), (3, 37), (6, 37)])
+@pytest.mark.parametrize("n,B", [(2, 5), (3, 37), (6, 37), (7, 21), (10, 37)])
 def test_slater_vgh_ms_source_matches_plain(sampler_emu, n, B):
     from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_ms_cm_plain
 
     z, nx, ny = ms_walkers(n, B)
-    K = 5
+    _, K = ms_case(n)
     bad = nx.clone()
     bad[n - 1, B // 2] = K  # outside the compiled depth: NaN outputs
     k, counts = sampler_emu.launch("slater_vgh._vgh_ms_cuda", 8, z, bad, ny,
@@ -510,22 +524,28 @@ def test_vgh_lane_groups_give_the_same_bits(sampler_emu, entry):
         assert bool(torch.isfinite(a).all())
 
 
-@pytest.mark.parametrize("entry", ["chains", "single", "vgh"])
+@pytest.mark.parametrize("entry", ["chains", "single", "vgh", "multistate",
+                                   "vgh_ms"])
 def test_lane_groups_agree_bitwise_at_n10(sampler_emu, entry):
     """N = 10 at 4 lanes (three row slots; three Philox calls on some lanes)
-    and at 8 (two slots; one call per lane): every output bitwise equal."""
+    and at 8 (two slots; one call per lane): every output bitwise equal.
+    The mixed-state kernels run at depth 8 on deltaE = 4 states."""
     n, B = 10, 11
     occ = gs_occ(n, 0)
     q = (occ["nx_occ"], occ["ny_occ"])
     if entry == "vgh":
         args = ("slater_vgh._vgh_cuda", gs_walkers(n, 0, B), *q, n)
+    elif entry == "vgh_ms":
+        args = ("slater_vgh._vgh_ms_cuda", *ms_walkers(n, B), 8)
     else:
-        x0, _ = walkers(n, B, 9)
+        x0, gen = walkers(n, B, 9)
         tau = torch.full((B,), 0.2)
         args = {"chains": ("_chains_cuda", x0, tau, 14, 3, 2, *q, n, 0.5,
                            0.1, False, None),
                 "single": ("_single_cuda", x0, tau, 15, 4, *q, n,
-                           None)}[entry]
+                           None),
+                "multistate": ("_multistate_cuda", x0, tau, 16, 4,
+                               *ms_states(n, B, gen, 4.0), 8, None)}[entry]
     outs = [sampler_emu.launch(args[0], lanes, *args[1:])[0]
             for lanes in (4, 8)]
     for a, b in zip(*outs):
