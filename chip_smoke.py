@@ -67,6 +67,25 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      line (resident warps, and whether the batch-2048 grids fit in one
      wave).
 
+  8. restartable runs, the nested-jvp engine and the solvers (N=6): the GS
+     path (batch 8192, K=10) for 30 iterations with checkpoints every 10,
+     and again cut at 20, its checkpoint restored in this process bitwise
+     (every tensor, Adam and both generators; the save and restore seconds
+     and the file size printed) and resumed to 30 in a fresh process of the
+     CLI: rows 21-30 and the final checkpoint bitwise equal to the
+     uninterrupted run's; the same for finite T (20 iterations, cut at 10);
+     the fused GS chunks with chunk 2's metrics poisoned on the original
+     stream, restored and completed at --max-restarts 1 (the WATCHDOG line),
+     the JAX message at 0; the nested-jvp engine: the Z=0 identity oracle,
+     E against the Hessian-flow kernels' within a tolerance measured on the
+     CPU, 3 iterations of --local-energy nested_jvp (E in (17, 21), kernel
+     #1 alone) and 1 at K=1 (#5 alone), at batch 8192 with its peak
+     memory; 2 iterations each at --ode-solver
+     adaptive and adjoint, the adjoint's gradient against the fixed grid's,
+     the --movie frames against generate; the three --no-pallas-* flags
+     launching no kernel, their update against the kernel chain's within
+     phase 5's bounds.
+
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
 The last lines of standard output are the kernels JSON line, the card line
@@ -81,6 +100,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 
 SEED = 1234
@@ -1197,6 +1217,426 @@ def phase_beta_update_vs_plain(device, z_ms, idx, flow_params, n=N, beta=BETA,
           "gradient within rtol 1e-4, atol 1e-6")
 
 
+# ---- phase 8: restartable runs, the nested-jvp engine and the solvers ----
+
+CKPT_ITERS, CKPT_EVERY, CKPT_ITERS_BETA = 30, 10, 20
+# The nested-jvp engine's E against the Hessian flow's on the same walkers
+# and parameters: they integrate the flow in opposite directions, so they
+# differ by the fixed grid's error.  Measured on the CPU at N=6, d_eta=d_mu=50,
+# dopri5 x 4, weights of std 0.1, 256 walkers equilibrated by the plain
+# sampler: 5.50e-5 relative in float64 (and 5.50e-5 in float32).
+E_ENGINES_RTOL = 3e-4
+# The adjoint's parameter gradient through CNF.generate against the fixed
+# grid's autograd gradient, per leaf, relative to the leaf's largest entry:
+# measured on the CPU (same shapes, 256 walkers) at <= 4.0e-6 in float64,
+# <= 6.6e-6 in float32.
+ADJOINT_GRAD_RTOL = 1e-4
+SOLVER_BATCH = 1024  # the adaptive and adjoint runs (2 iterations each)
+MOVIE_FRAMES, MOVIE_WALKERS = 5, 512
+TIMING_KEYS = ("iter_seconds", "hours_per_100_iters")
+
+
+def _ckpt_argv(device, iters, ckpt_dir, finite):
+    argv = path_argv(device, iters, SEGMENTS)
+    if finite:
+        argv = ["--beta", str(BETA), "--deltaE", str(DELTA_E),
+                "--boltzmann"] + argv
+    return argv + ["--checkpoint-dir", ckpt_dir, "--checkpoint-every",
+                   str(CKPT_EVERY)]
+
+
+def _rows(path):
+    with open(path) as fh:
+        return [{k: v for k, v in json.loads(line).items()
+                 if k not in TIMING_KEYS} for line in fh]
+
+
+def _bitwise_dicts(a: dict, b: dict) -> list:
+    """Names of the entries of two checkpoint payloads that differ."""
+    import torch
+
+    bad = []
+
+    def walk(x, y, name):
+        if isinstance(x, torch.Tensor):
+            if not (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y)):
+                bad.append(name)
+        elif isinstance(x, dict):
+            if not isinstance(y, dict) or set(x) != set(y):
+                bad.append(name)
+            else:
+                for k in x:
+                    walk(x[k], y[k], f"{name}.{k}")
+        elif isinstance(x, (list, tuple)):
+            if len(x) != len(y):
+                bad.append(name)
+            for i, (u, v) in enumerate(zip(x, y)):
+                walk(u, v, f"{name}[{i}]")
+        elif x != y:
+            bad.append(name)
+
+    walk(a, b, "ckpt")
+    return bad
+
+
+def _load(path):
+    import torch
+
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def phase_resume_start(device, finite, tmp):
+    """The uninterrupted run (checkpoints every 10), and the run cut at step
+    20 then restored in this process, bitwise against what it saved.
+    Starts the resume to the end in a fresh process (the CLI as a user runs
+    it) and returns what ``phase_resume_finish`` needs."""
+    import argparse
+    import os
+
+    import torch
+
+    from fermiflow_tpu_torch.cli import common, finite_t, ground_state
+    from fermiflow_tpu_torch.train import init_beta_state, init_gs_state
+    from fermiflow_tpu_torch.utils import restore_checkpoint, save_checkpoint
+
+    what = "resume finite T" if finite else "resume GS"
+    main = finite_t.main if finite else ground_state.main
+    iters = CKPT_ITERS_BETA if finite else CKPT_ITERS
+    cut_at = iters - CKPT_EVERY
+    whole_dir, cut_dir = f"{tmp}/whole", f"{tmp}/cut"
+    state_w, recs_w, counts_w, wall_w = drive_path(
+        main, _ckpt_argv(device, iters, whole_dir, finite))
+    print(f"{what}: uninterrupted {iters} iterations in {wall_w:.3f} s, "
+          f"checkpoints {sorted(os.listdir(whole_dir))}; launches "
+          f"{json.dumps(counts_w)}")
+    state_c, _, _, _ = drive_path(main, _ckpt_argv(device, cut_at, cut_dir,
+                                                   finite))
+    # Restore the cut run's last checkpoint into a fresh state: every tensor
+    # and both generators equal what the live run saved.
+    parser = argparse.ArgumentParser()
+    common.add_flags(parser, finite_t=finite)
+    cfg = common.config_from_args(parser.parse_args(
+        _ckpt_argv(device, iters, cut_dir, finite)), finite_t=finite)
+    build = common.build_beta if finite else common.build_gs
+    init = init_beta_state if finite else init_gs_state
+    model, params = build(cfg)
+    fresh = init(model, params, cfg, device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fresh, step = restore_checkpoint(cut_dir, fresh)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    path = save_checkpoint(f"{tmp}/live", step, state_c)
+    save_s = time.perf_counter() - t0
+    again = save_checkpoint(f"{tmp}/restored", step, fresh)
+    bad = _bitwise_dicts(_load(path), _load(again))
+    size = os.path.getsize(path)
+    print(f"{what}: checkpoint step {step}: save {save_s:.4f} s, restore "
+          f"{restore_s:.4f} s, {size} bytes; restored state against the "
+          f"live one: {'bitwise equal' if not bad else bad}")
+    check(step == cut_at and not bad, f"{what}: the restored tensors and "
+          "generator states equal the saved ones bitwise")
+    metrics = f"{tmp}/resumed.jsonl"
+    mod = "finite_t" if finite else "ground_state"
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"fermiflow_tpu_torch.cli.{mod}",
+         *_ckpt_argv(device, iters, cut_dir, finite), "--metrics", metrics],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    recs = [{k: v for k, v in r.items() if k not in TIMING_KEYS}
+            for r in recs_w]
+    return dict(what=what, main=main, finite=finite, iters=iters,
+                cut_at=cut_at, tmp=tmp, recs=recs, proc=proc,
+                metrics=metrics, timing=dict(save_s=save_s,
+                                             restore_s=restore_s,
+                                             bytes=size))
+
+
+def phase_resume_finish(device, run):
+    """Waits for the resumed process; its rows after the cut and its last
+    checkpoint against the uninterrupted run's."""
+    import os
+
+    what, iters, cut_at, tmp = (run["what"], run["iters"], run["cut_at"],
+                                run["tmp"])
+    t0 = time.perf_counter()
+    out, _ = run["proc"].communicate(timeout=300)
+    waited = time.perf_counter() - t0
+    tail = out.strip().splitlines()[-3:]
+    check(run["proc"].returncode == 0 and f"resumed from checkpoint step "
+          f"{cut_at}" in out, f"{what}: the resumed process (the CLI) ran "
+          f"from step {cut_at} (rc {run['proc'].returncode}; {tail})")
+    resumed = _rows(run["metrics"])
+    steps = [r["step"] for r in resumed]
+    want = run["recs"][cut_at:]
+    bitwise = resumed == want
+    ckpt = f"ckpt_{iters:08d}.pt"
+    bad = _bitwise_dicts(_load(f"{tmp}/whole/{ckpt}"),
+                         _load(f"{tmp}/cut/{ckpt}"))
+    print(f"{what}: resumed process waited {waited:.1f} s; rows "
+          f"{steps[0]}..{steps[-1]} against the uninterrupted run's: "
+          f"{'bitwise equal' if bitwise else 'DIFFERENT'}; final checkpoint: "
+          f"{'bitwise equal' if not bad else bad}")
+    if not bitwise:
+        worst = max(abs(a[k] - b[k]) for a, b in zip(resumed, want)
+                    for k in a if k != "step")
+        print(f"{what}: max|d| over the rows {worst:.3e}")
+    check(steps == list(range(cut_at + 1, iters + 1)) and bitwise and not bad,
+          f"{what}: rows {cut_at + 1}-{iters} and the final state equal the "
+          "uninterrupted run's bitwise")
+    return run["timing"]
+
+
+def phase_restart(device, tmp):
+    """The real fused GS chunks with the metrics of chunk 2 poisoned (NaN)
+    on the original stream: at --max-restarts 1 the run restores step 10
+    with reseeded chains, prints the WATCHDOG line and completes; at 0 it
+    raises the JAX CLI's message."""
+    import argparse
+    import contextlib
+    import io
+
+    import torch
+
+    from fermiflow_tpu_torch.cli import common
+    from fermiflow_tpu_torch.ops import _build
+    from fermiflow_tpu_torch.train import init_gs_state, make_gs_fused_multi_step
+    from fermiflow_tpu_torch.utils import MetricsLogger
+
+    def run(max_restarts, ckpt_dir):
+        parser = argparse.ArgumentParser()
+        common.add_flags(parser)
+        cfg = common.config_from_args(parser.parse_args(
+            _ckpt_argv(device, CKPT_ITERS, ckpt_dir, False)
+            + ["--max-restarts", str(max_restarts)]))
+        model, params = common.build_gs(cfg)
+        state = init_gs_state(model, params, cfg, device)
+        original = []
+
+        def make_chunk(k):
+            fn = make_gs_fused_multi_step(model, cfg, k)
+
+            def chunk(state):
+                start, gen = state.step, state.generator.get_state()
+                state, stacked = fn(state)
+                if start == CKPT_EVERY:
+                    if not original:
+                        original.append(gen)
+                    if torch.equal(gen, original[0]):
+                        stacked = dict(stacked, E=stacked["E"] * float("nan"))
+                return state, stacked
+
+            return chunk
+
+        printed, out = [], io.StringIO()
+        _build.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            try:
+                state = common.run_training_loop(
+                    state, cfg, make_chunk, MetricsLogger(None),
+                    lambda rec: printed.append(rec["step"]))
+                raised = None
+            except FloatingPointError as e:
+                raised = str(e)
+        return state, printed, out.getvalue(), raised, dict(_build.LAUNCHES)
+
+    state, printed, out, raised, counts = run(1, f"{tmp}/restart1")
+    lines = [l for l in out.splitlines() if l.startswith("WATCHDOG:")]
+    print(f"restart: {lines}; printed steps {printed[0]}..{printed[-1]} "
+          f"({len(printed)} rows); launches {json.dumps(counts)}")
+    check(raised is None and state.step == CKPT_ITERS
+          and printed == list(range(1, CKPT_ITERS + 1))
+          and lines == [f"WATCHDOG: non-finite energy (E=nan) at iteration "
+                        f"{2 * CKPT_EVERY}; restored checkpoint step "
+                        f"{CKPT_EVERY} with reseeded chains (restart 1/1)"]
+          and counts["metropolis_chains"] == CKPT_ITERS // SEGMENTS + 1,
+          "restart: chunk 2 poisoned on the original stream restores step "
+          f"{CKPT_EVERY}, prints the WATCHDOG line and completes")
+    _, _, _, raised, _ = run(0, f"{tmp}/restart0")
+    want = (f"non-finite energy (E=nan) at iteration {2 * CKPT_EVERY}; "
+            "0/0 restarts used")
+    print(f"restart at --max-restarts 0: FloatingPointError({raised!r})")
+    check(raised == want, "restart: at --max-restarts 0 the JAX message is "
+          "raised")
+
+
+def phase_nested(device, z_eq, params):
+    """The nested-jvp engine: the Z=0 identity oracle, the path through the
+    CLI (3 iterations at K=3, 1 at K=1), its peak memory and its E against
+    the Hessian-flow kernels' on the same walkers and parameters."""
+    import torch
+
+    from fermiflow_tpu_torch.cli import ground_state
+
+    # The path's batch: it fits (9.2 GiB at its peak on an 80 GB card).
+    batch = BATCH
+    model0, params0 = make_model(0.0, device, N)
+    e0 = float(model0.basedist.orbitals.Es[:N].sum())
+    x = z_eq.T.reshape(batch, N, 2)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        eloc, _ = model0.local_energy(params0, x)
+    torch.cuda.synchronize()
+    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    err = (eloc.double() - e0).abs()
+    frac = float((err > 1e-3).double().mean())
+    print(f"nested jvp identity oracle N={N} Z=0, batch {batch}: {secs:.3f} s, "
+          f"peak {peak / 2**30:.2f} GiB; max|Eloc - {e0:g}| "
+          f"{float(err.max()):.3e}, outside 1e-3: {frac:.2e}")
+    check(bool(torch.isfinite(eloc).all()) and frac <= 1e-3,
+          f"nested jvp: identity flow Eloc = {e0:g} within 1e-3 on >= 99.9% "
+          "of walkers")
+
+    model, _ = make_model(0.5, device, N, batch)
+    z = z_eq
+    _, e_hf, _, _ = model.local_energy_cm(params, z)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        x = model.cnf.generate(params, z.T.reshape(batch, N, 2))
+        e_jvp, _ = model.local_energy(params, x)
+    torch.cuda.synchronize()
+    peak_engine = torch.cuda.max_memory_allocated()
+    E_hf, E_jvp = float(e_hf.double().mean()), float(e_jvp.double().mean())
+    rel = abs(E_jvp - E_hf) / abs(E_hf)
+    print(f"nested jvp against the Hessian-flow kernels (Gaussian weights, "
+          f"batch {batch}): E {E_jvp:.7f} / {E_hf:.7f}, relative {rel:.3e}; "
+          f"peak {peak_engine / 2**30:.2f} GiB")
+    check(rel <= E_ENGINES_RTOL, f"nested jvp: E within {E_ENGINES_RTOL:g} "
+          "(relative) of the Hessian-flow kernels' E")
+
+    torch.cuda.reset_peak_memory_stats()
+    state, recs, counts, wall = drive_path(
+        ground_state.main, path_argv(device, 3, 3, batch=batch)
+        + ["--local-energy", "nested_jvp"])
+    peak_path = torch.cuda.max_memory_allocated()
+    energies = [r["E"] for r in recs]
+    ms = 1e3 * recs[-1]["iter_seconds"]
+    print(f"nested-jvp path: batch {batch}, 3 iterations in {wall:.3f} s "
+          f"wall, {ms:.1f} ms per iteration (the K=3 chunk); E {energies}; "
+          f"peak {peak_path / 2**30:.2f} GiB; launches {json.dumps(counts)}")
+    check(len(recs) == 3 and all(math.isfinite(e) and 17.0 < e < 21.0
+                                 for e in energies),
+          "nested-jvp path: 3 iterations, every E finite and in (17, 21)")
+    check(counts["metropolis_chains"] == 1 and sum(counts.values()) == 1,
+          "nested-jvp path: one launch of kernel #1 and of no other")
+    _, recs1, counts1, _ = drive_path(
+        ground_state.main, path_argv(device, 1, 1, batch=batch)
+        + ["--local-energy", "nested_jvp"])
+    print(f"nested-jvp path K=1: E {recs1[0]['E']:.5f}, "
+          f"{1e3 * recs1[0]['iter_seconds']:.1f} ms; launches "
+          f"{json.dumps(counts1)}")
+    check(counts1["metropolis_single"] == 1 and sum(counts1.values()) == 1
+          and 17.0 < recs1[0]["E"] < 21.0,
+          "nested-jvp path K=1: one launch of kernel #5 and of no other")
+    return dict(batch=batch, ms=ms, peak_bytes=peak_path, wall=wall)
+
+
+def phase_solvers(device, z_eq, params, tmp):
+    """Two iterations each at --ode-solver adaptive and adjoint (the
+    nested-jvp path, whose samples come from CNF.generate), the adjoint's
+    gradient against the fixed grid's, and the density movie."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from fermiflow_tpu_torch.cli import ground_state
+
+    for solver in ("adaptive", "adjoint"):
+        _, recs, counts, wall = drive_path(
+            ground_state.main, path_argv(device, 2, 2, batch=SOLVER_BATCH)
+            + ["--local-energy", "nested_jvp", "--ode-solver", solver])
+        energies = [r["E"] for r in recs]
+        print(f"--ode-solver {solver}: batch {SOLVER_BATCH}, 2 iterations in "
+              f"{wall:.3f} s, E {energies}; launches {json.dumps(counts)}")
+        check(len(recs) == 2 and all(math.isfinite(e) for e in energies)
+              and counts["metropolis_chains"] == 1,
+              f"--ode-solver {solver}: 2 iterations with finite E")
+
+    model, _ = make_model(0.5, device, N, SOLVER_BATCH)
+    z = z_eq[:, :SOLVER_BATCH].T.reshape(SOLVER_BATCH, N, 2)
+    w = torch.randn(z.shape, generator=torch.Generator(device).manual_seed(
+        SEED + 31), device=device)
+    grads = []
+    for cnf in (model.cnf, dataclasses.replace(model.cnf, solver="adjoint")):
+        p = {k: {kk: t.detach().clone().requires_grad_(True)
+                 for kk, t in v.items()} for k, v in params.items()}
+        leaves = [p[m][k] for m in ("eta", "mu") for k in ("w1", "b1", "w2")]
+        grads.append(torch.autograd.grad((w * cnf.generate(p, z)).sum(),
+                                         leaves))
+    worst = max(float((a - b).abs().max() / b.abs().max())
+                for a, b in zip(*grads))
+    print(f"adjoint gradient against the fixed grid's autograd gradient: max "
+          f"over leaves of max|d| / max|g| {worst:.3e}")
+    check(worst <= ADJOINT_GRAD_RTOL, "adjoint: the parameter gradient "
+          f"within {ADJOINT_GRAD_RTOL:g} of each leaf's largest entry of the "
+          "fixed grid's")
+
+    movie = f"{tmp}/movie.npy"
+    state, _, counts, _ = drive_path(
+        ground_state.main, path_argv(device, 1, 1, batch=SOLVER_BATCH)
+        + ["--movie", movie, "--movie-frames", str(MOVIE_FRAMES),
+           "--movie-walkers", str(MOVIE_WALKERS)])
+    frames = np.load(movie)
+    fine = dataclasses.replace(model.cnf, steps=4 * (MOVIE_FRAMES - 1))
+    with torch.no_grad():
+        z0 = torch.as_tensor(frames[0], device=device)
+        x_fine = fine.generate(state.params, z0)
+        x_grid = model.cnf.generate(state.params, z0)
+    last = torch.as_tensor(frames[-1], device=device)
+    d_fine = float((last - x_fine).abs().max())
+    d_grid = float((last - x_grid).abs().max())
+    scale = 1.0 + float(last.abs().max())
+    print(f"movie: frames {frames.shape}; last frame against generate of the "
+          f"first on the trajectory's grid max|d| {d_fine:.3e}, on the "
+          f"4-step grid {d_grid:.3e}; launches {json.dumps(counts)}")
+    check(frames.shape == (MOVIE_FRAMES, MOVIE_WALKERS, N, 2)
+          and np.isfinite(frames).all() and d_fine <= 1e-5 * scale,
+          "movie: (frames, walkers, n, 2) finite frames, the last equal to "
+          "generate of the first within 1e-5 x (1 + max|x|)")
+
+
+def phase_no_pallas(device, z_eq, params):
+    """--no-pallas-sampler --no-pallas-local-energy --no-pallas-reinforce:
+    the path launches none of the port's kernels, and the update (plain
+    Hessian flow, autograd) matches the kernel chain within phase 5's
+    bounds."""
+    import torch
+
+    from fermiflow_tpu_torch.cli import ground_state
+
+    flags = ["--no-pallas-sampler", "--no-pallas-local-energy",
+             "--no-pallas-reinforce"]
+    _, recs, counts, wall = drive_path(
+        ground_state.main, path_argv(device, 2, 2) + flags)
+    energies = [r["E"] for r in recs]
+    print(f"--no-pallas-*: 2 iterations in {wall:.3f} s, E {energies}; "
+          f"launches {json.dumps(counts)}")
+    check(sum(counts.values()) == 0 and all(17.0 < e < 21.0 for e in energies),
+          "--no-pallas-*: no kernel launched, every E in (17, 21)")
+    model, _ = make_model(0.5, device, N, z_eq.shape[1])
+    loss_k, m_k, g_k = model.loss_metrics_grads_cm(params, z_eq)
+    p = {k: {kk: t.detach().clone().requires_grad_(True)
+             for kk, t in v.items()} for k, v in params.items()}
+    loss_a, m_a = model.loss_and_metrics_from_base(
+        p, z_eq.T.reshape(z_eq.shape[1], N, 2))
+    loss_a.backward()
+    g_a = {m: {k: p[m][k].grad for k in p[m]} for m in p}
+    torch.cuda.synchronize()
+    worst, ok_g = flow_grads_close(g_k, g_a)
+    print(f"--no-pallas-* update vs the kernel chain: E {float(m_a['E']):.7f} / "
+          f"{float(m_k['E']):.7f}, loss {float(loss_a):.4e} / "
+          f"{float(loss_k):.4e}, grads max|d| {worst:.3e}")
+    check(allclose64(m_a["E"], m_k["E"], 1e-5, 0.0)
+          and allclose64(m_a["E_std"], m_k["E_std"], 1e-5, 0.0)
+          and allclose64(loss_a.detach(), loss_k, 1e-4, 1e-6) and ok_g,
+          "--no-pallas-*: E, E_std within rtol 1e-5, loss and every gradient "
+          "leaf within rtol 1e-4, atol 1e-6 of the kernel chain's")
+
+
 def main() -> int:
     try:
         import torch
@@ -1275,6 +1715,23 @@ def main() -> int:
             f_range=(F_FLOOR_BETA10, math.inf), f_first=F_FIRST_BETA10,
             **beta10)
         phase_beta_update_vs_plain(device, zb10, idx10, params10, **beta10)
+        phase("8: restartable runs, the nested-jvp engine and the solvers")
+        with tempfile.TemporaryDirectory() as tmp8:
+            runs = []
+            try:
+                runs.append(phase_resume_start(device, False, f"{tmp8}/gs"))
+                runs.append(phase_resume_start(device, True, f"{tmp8}/beta"))
+                phase_restart(device, tmp8)
+                for run in runs:
+                    phase_resume_finish(device, run)
+            finally:
+                for run in runs:
+                    if run["proc"].poll() is None:
+                        run["proc"].kill()
+                        run["proc"].wait()
+            phase_nested(device, z_eq, params)
+            phase_solvers(device, z_eq, params, tmp8)
+            phase_no_pallas(device, z_eq, params)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,10 +1,10 @@
-"""PyTorch/CUDA port of ``fermiflow_tpu`` (ground-state training path).
+"""PyTorch/CUDA port of ``fermiflow_tpu`` (its single-process surface).
 
 The JAX package ``fermiflow_tpu`` stays the reference; this package keeps its
 module layout and public function names so each counterpart is easy to find.
-Plain tensor code is PyTorch; the four Pallas kernels of the ground-state
-main path are hand-written CUDA C++ for Hopper (``csrc/``), built with
-``nvcc`` at first use and bound through ``ctypes`` (``ops/_build.py``).
+Plain tensor code is PyTorch; the Pallas kernels of the JAX package are
+hand-written CUDA C++ for Hopper (``csrc/``), built with ``nvcc`` at first
+use and bound through ``ctypes`` (``ops/_build.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with
 no GPU and no explicit ``cpu`` they raise instead of falling back.

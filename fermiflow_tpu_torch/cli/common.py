@@ -1,21 +1,24 @@
 """Shared CLI plumbing for the two drivers (port of
-``fermiflow_tpu/cli/common.py``): flags, config, model builders and the
-chunked training loop.
+``fermiflow_tpu/cli/common.py``): flags, config, model builders, the
+chunked training loop with checkpoints and the restart watchdog, and the
+density movie.
 
-Flags whose machinery is not ported yet (sharding, checkpoints and restarts,
-the adaptive/adjoint solvers, the nested-jvp engine, density movies) are
-still parsed so that a command written for the JAX CLI fails loudly here:
-``config_from_args`` raises ``NotImplementedError`` for them instead of
-ignoring them.
+Every flag of the JAX CLI is parsed.  Those of the multi-process mesh
+(``--shard``, ``--coordinator``, ``--num-processes``, ``--process-id``,
+``--init-timeout``) wait for ``parallel/mesh.py`` and ``--pallas-interpret``
+has no CUDA counterpart: ``config_from_args`` raises
+``NotImplementedError`` for them instead of ignoring them.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import math
 import time
 
+import numpy as np
 import torch
 
 from fermiflow_tpu_torch import resolve_device
@@ -27,17 +30,28 @@ from fermiflow_tpu_torch.nn.backflow import (
     backflow_init_zeros,
 )
 from fermiflow_tpu_torch.nn.backflow_derivs import backflow_field_tensors
+from fermiflow_tpu_torch.ops.metropolis import (
+    metropolis_multistate_cm,
+    metropolis_single_cm,
+)
 from fermiflow_tpu_torch.physics import (
     HO2D,
     CoulombPairPotential,
     FreeFermion,
     HOPotential,
 )
+from fermiflow_tpu_torch.utils.checkpointing import (
+    named_tensors,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from fermiflow_tpu_torch.utils.profiling import trace
 from fermiflow_tpu_torch.vmc import BetaVMC, GSVMC
+from fermiflow_tpu_torch.vmc.gs import _detach
 
 __all__ = ["add_flags", "config_from_args", "make_cnf", "build_gs",
-           "build_beta", "run_training_loop"]
+           "build_beta", "restore", "run_training_loop", "derived_seed",
+           "dump_density_movie"]
 
 
 def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
@@ -90,34 +104,83 @@ def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
                              "divergence watchdog (0 disables)")
     parser.add_argument("--divergence-nsigma", type=float,
                         default=d.divergence_nsigma,
-                        help="stop when the energy exceeds the window "
+                        help="restore when the energy exceeds the window "
                              "mean by this many window standard deviations "
                              "(finite-divergence watchdog; <=0 disables)")
+    parser.add_argument("--checkpoint-dir", type=str, default=None,
+                        help="save the full training state here and resume "
+                             "from its latest checkpoint at start")
+    parser.add_argument("--checkpoint-every", type=int,
+                        default=d.checkpoint_every,
+                        help="iterations between checkpoints (chunks are "
+                             "clipped to this cadence)")
+    parser.add_argument("--max-restarts", type=int, default=d.max_restarts,
+                        help="automatic recovery: on a non-finite or "
+                             "diverged energy, restore the latest checkpoint "
+                             "with reseeded chains, up to N times (requires "
+                             "--checkpoint-dir)")
+    parser.add_argument("--ode-solver", type=str, default=d.ode_solver,
+                        choices=["fixed", "adaptive", "adjoint"],
+                        help="generative-flow integrator (CNF.generate: the "
+                             "nested-jvp path and the movie): fixed grid, "
+                             "adaptive dopri5 (--rtol/--atol) or the "
+                             "O(1)-memory adjoint")
+    parser.add_argument("--rtol", type=float, default=d.rtol,
+                        help="adaptive-solver relative tolerance")
+    parser.add_argument("--atol", type=float, default=d.atol,
+                        help="adaptive-solver absolute tolerance")
+    parser.add_argument("--local-energy", type=str, default=d.local_energy,
+                        choices=["auto", "hessian_flow", "nested_jvp"],
+                        help="local-energy engine: the Hessian flow (the "
+                             "kernel chain) or the nested-jvp Laplacian "
+                             "through the reverse ODE (autograd gradient)")
+    parser.add_argument("--movie", type=str, default=None,
+                        help="after training, save density-movie trajectory "
+                             "frames (.npy) to this path")
+    parser.add_argument("--movie-frames", type=int, default=50)
+    parser.add_argument("--movie-walkers", type=int, default=2000)
+    parser.add_argument("--debug-nans", action="store_true",
+                        help="autograd anomaly detection, and stop at the "
+                             "first non-finite state tensor of a chunk")
+    parser.add_argument("--no-pallas-sampler", action="store_true",
+                        help="the plain samplers instead of kernels #1, #5 "
+                             "and #7 (an A/B switch)")
+    parser.add_argument("--no-pallas-local-energy", action="store_true",
+                        help="the plain Hessian flow and an autograd "
+                             "gradient instead of the VGH, Hessian-flow and "
+                             "adjoint kernels (an A/B switch)")
+    parser.add_argument("--no-pallas-reinforce", action="store_true",
+                        help="the REINFORCE gradient by autograd through "
+                             "the reverse-ODE logp instead of the adjoint "
+                             "kernel (an A/B switch)")
     # Parsed but not ported: config_from_args refuses them.
     parser.add_argument("--shard", action="store_true")
-    parser.add_argument("--checkpoint-dir", type=str, default=None)
-    parser.add_argument("--max-restarts", type=int, default=d.max_restarts)
-    parser.add_argument("--ode-solver", type=str, default=d.ode_solver,
-                        choices=["fixed", "adaptive", "adjoint"])
-    parser.add_argument("--local-energy", type=str, default=d.local_energy,
-                        choices=["auto", "hessian_flow", "nested_jvp"])
-    parser.add_argument("--movie", type=str, default=None)
+    parser.add_argument("--coordinator", type=str, default=None)
+    parser.add_argument("--num-processes", type=int, default=None)
+    parser.add_argument("--process-id", type=int, default=None)
+    parser.add_argument("--init-timeout", type=int, default=None)
+    parser.add_argument("--pallas-interpret", action="store_true")
 
 
 def _refuse_unported(args):
+    if args.pallas_interpret:
+        raise NotImplementedError(
+            "--pallas-interpret: the Pallas TPU interpreter has no CUDA "
+            "counterpart; the port's kernels run on the card, their plain "
+            "PyTorch versions on --device cpu")
     unported = {
         "--shard": args.shard,
-        "--checkpoint-dir": args.checkpoint_dir is not None,
-        "--max-restarts": args.max_restarts != 0,
-        f"--ode-solver {args.ode_solver}": args.ode_solver != "fixed",
-        "--local-energy nested_jvp": args.local_energy == "nested_jvp",
-        "--movie": args.movie is not None,
+        "--coordinator": args.coordinator is not None,
+        "--num-processes": args.num_processes is not None,
+        "--process-id": args.process_id is not None,
+        "--init-timeout": args.init_timeout is not None,
     }
     asked = [flag for flag, on in unported.items() if on]
     if asked:
         raise NotImplementedError(
             f"{', '.join(asked)}: not ported to fermiflow_tpu_torch yet "
-            "(see ROADMAP.md); use the JAX driver fermiflow_tpu.cli")
+            "(the multi-process mesh, parallel/mesh.py; see ROADMAP.md); "
+            "use the JAX driver fermiflow_tpu.cli")
 
 
 def config_from_args(args, finite_t: bool = False) -> Config:
@@ -141,11 +204,20 @@ def config_from_args(args, finite_t: bool = False) -> Config:
         mcmc_steps=args.mcmc_steps,
         tau=args.tau,
         persistent_walkers=args.persistent,
+        checkpoint_dir=args.checkpoint_dir,
+        checkpoint_every=args.checkpoint_every,
         metrics_path=args.metrics,
         local_energy=args.local_energy,
         steps_per_call=args.steps_per_call,
+        max_restarts=args.max_restarts,
         divergence_window=args.divergence_window,
         divergence_nsigma=args.divergence_nsigma,
+        ode_solver=args.ode_solver,
+        rtol=args.rtol,
+        atol=args.atol,
+        pallas_sampler=not args.no_pallas_sampler,
+        pallas_local_energy=not args.no_pallas_local_energy,
+        pallas_reinforce=not args.no_pallas_reinforce,
         device=args.device,
     )
     if finite_t:
@@ -164,6 +236,9 @@ def make_cnf(cfg: Config) -> CNF:
         t1=cfg.t1,
         steps=cfg.ode_steps,
         method=cfg.ode_method,
+        solver=cfg.ode_solver,
+        rtol=cfg.rtol,
+        atol=cfg.atol,
     )
 
 
@@ -181,7 +256,8 @@ def build_gs(cfg: Config):
     device cannot run this configuration."""
     device = _device(cfg)
     model = GSVMC(cfg.nup, cfg.ndown, FreeFermion(HO2D()), make_cnf(cfg),
-                  CoulombPairPotential(cfg.Z), HOPotential())
+                  CoulombPairPotential(cfg.Z), HOPotential(),
+                  laplacian_chunk=cfg.laplacian_chunk)
     params = backflow_init_zeros(cfg.d_eta, cfg.d_mu, dtype=cfg.torch_dtype(),
                                  device=device)
     return model, params
@@ -196,7 +272,8 @@ def build_beta(cfg: Config):
     orbitals = HO2D()
     model = BetaVMC(cfg.beta, cfg.nup, cfg.ndown, cfg.deltaE, orbitals,
                     FreeFermion(orbitals), make_cnf(cfg),
-                    CoulombPairPotential(cfg.Z), HOPotential())
+                    CoulombPairPotential(cfg.Z), HOPotential(),
+                    laplacian_chunk=cfg.laplacian_chunk)
     gen = None if cfg.boltzmann else torch.Generator().manual_seed(cfg.seed + 7)
     params = {
         "flow": backflow_init_zeros(cfg.d_eta, cfg.d_mu, dtype=dtype,
@@ -254,9 +331,48 @@ def _note_healthy(cfg: Config, window: list, recs: list) -> None:
     del window[:-cfg.divergence_window]
 
 
+def derived_seed(generator: torch.Generator, salt: int) -> int:
+    """A 63-bit seed that is a fixed function of ``generator``'s state and
+    ``salt`` (the counterpart of ``jax.random.fold_in``); draws nothing."""
+    h = hashlib.sha256(generator.get_state().numpy().tobytes())
+    h.update(int(salt).to_bytes(8, "little"))
+    return int.from_bytes(h.digest()[:8], "little") >> 1
+
+
+def _reseed(state, salt: int) -> None:
+    """Reseed the host generator, and the device one where the state has
+    it, by a fixed function of the (restored) host generator and ``salt``."""
+    seed = derived_seed(state.generator, salt)
+    if state.device_generator is not None:
+        state.device_generator.manual_seed(
+            derived_seed(state.generator, salt + 2**32))
+    state.generator.manual_seed(seed)
+
+
+def _first_nonfinite(state):
+    """The name of the first state tensor holding a NaN or inf, or None."""
+    for name, t in named_tensors(state).items():
+        if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+            return name
+    return None
+
+
+def restore(state, cfg: Config):
+    """Resume from ``cfg.checkpoint_dir``'s latest checkpoint, as the JAX
+    drivers do at start: (state, start step), (state, 0) without one."""
+    if not cfg.checkpoint_dir:
+        return state, 0
+    state, step = restore_checkpoint(cfg.checkpoint_dir, state)
+    if step:
+        print(f"resumed from checkpoint step {step} in {cfg.checkpoint_dir}")
+    return state, step
+
+
 def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
-                      profile_dir: str | None = None):
-    """Drive ``cfg.iternum`` iterations in chunks of ``cfg.steps_per_call``.
+                      profile_dir: str | None = None, start_step: int = 0,
+                      debug_nans: bool = False):
+    """Drive iterations ``start_step`` + 1 .. ``cfg.iternum`` in chunks of
+    ``cfg.steps_per_call``, clipped to the checkpoint cadence.
 
     ``make_chunk(K)`` returns the K-iteration function.  The metrics fetch
     at the end of a chunk waits for the device, so its wall time over K is
@@ -265,38 +381,121 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
     else E), or a finite divergence (the metric ``divergence_nsigma``
     window-sigmas above the mean of the trailing ``divergence_window``
     healthy iterations, or its per-walker std 10x over the window median)
-    raises ``FloatingPointError`` with the JAX CLI's message at
-    ``max_restarts`` = 0 (no checkpoint restore is ported).  With
+    restores the latest checkpoint of ``cfg.checkpoint_dir`` with reseeded
+    generators, up to ``cfg.max_restarts`` times, and otherwise raises
+    ``FloatingPointError`` with the JAX CLI's message.  After the rows are
+    printed, a chunk that ends on the cadence saves a checkpoint.  With
     ``profile_dir`` it traces chunks 2-4 at K = 1 (the JAX CLI's iterations
-    2-4), else chunk 2.
+    2-4), else chunk 2.  ``debug_nans`` turns on autograd's anomaly
+    detection and raises ``FloatingPointError`` naming the first non-finite
+    state tensor after a chunk.
     """
     K = max(1, int(cfg.steps_per_call))
     last_traced = 4 if K == 1 else 2
     chunk_fns = {}
     window = []  # (metric, metric_std) of the trailing healthy iterations
-    i = n_chunk = 0
-    with contextlib.ExitStack() as profiling:
+    restarts = 0
+
+    def recover(state, at_iter, reason):
+        nonlocal restarts
+        if not cfg.checkpoint_dir or restarts >= cfg.max_restarts:
+            raise FloatingPointError(
+                f"{reason} at iteration {at_iter}"
+                + ("" if cfg.checkpoint_dir else " (no --checkpoint-dir)")
+                + f"; {restarts}/{cfg.max_restarts} restarts used")
+        restarts += 1
+        state, step = restore_checkpoint(cfg.checkpoint_dir, state)
+        if step == 0:
+            # No checkpoint yet: the state is the diverged one, unchanged.
+            raise FloatingPointError(
+                f"{reason} at iteration {at_iter} before the first "
+                f"checkpoint was written (nothing to restore)")
+        # A new stream, so the retried trajectory differs from the one that
+        # blew up; the window restarts from the restored point.
+        _reseed(state, 7919 + restarts)
+        window.clear()
+        print(f"WATCHDOG: {reason} at iteration {at_iter}; restored "
+              f"checkpoint step {step} with reseeded chains (restart "
+              f"{restarts}/{cfg.max_restarts})")
+        return state, step
+
+    i = start_step
+    n_chunk = 0
+    anomaly = (torch.autograd.set_detect_anomaly(True) if debug_nans
+               else contextlib.nullcontext())
+    with anomaly, contextlib.ExitStack() as profiling:
         while i < cfg.iternum:
             n_chunk += 1
             if profile_dir and n_chunk == 2:
                 profiling.enter_context(
                     trace(profile_dir, cuda=cfg.device != "cpu"))
             chunk = min(K, cfg.iternum - i)
+            if cfg.checkpoint_dir:
+                chunk = min(chunk, cfg.checkpoint_every
+                            - i % cfg.checkpoint_every)
             fn = chunk_fns.get(chunk)
             if fn is None:
                 fn = chunk_fns[chunk] = make_chunk(chunk)
             t0 = time.time()
             state, stacked = fn(state)
+            if debug_nans:
+                name = _first_nonfinite(state)
+                if name is not None:
+                    raise FloatingPointError(
+                        f"--debug-nans: non-finite {name} after iteration "
+                        f"{i + chunk}")
             rows = logger.log_many(i + 1, stacked, t0)
             if n_chunk == last_traced:
                 profiling.close()
             reason = _bad(cfg, window, rows)
             if reason:
-                raise FloatingPointError(
-                    f"{reason} at iteration {i + chunk} (no --checkpoint-dir)"
-                    f"; 0/{cfg.max_restarts} restarts used")
+                state, i = recover(state, i + chunk, reason)
+                continue
             _note_healthy(cfg, window, rows)
             for rec in rows:
                 print_row(rec)
             i += chunk
+            if cfg.checkpoint_dir and i % cfg.checkpoint_every == 0:
+                save_checkpoint(cfg.checkpoint_dir, i, state)
     return state
+
+
+def dump_density_movie(path: str, model, flow_params: dict,
+                       generator: torch.Generator, nframes: int,
+                       nwalkers: int, cfg: Config, state_logits=None):
+    """Save generative-flow trajectory frames (nframes, nwalkers, n, dim)
+    as .npy, the reference's density-movie path.
+
+    The base walkers start Gaussian and equilibrate for
+    ``cfg.equilibrium_steps`` at ``cfg.tau`` through the sampler wrappers
+    (kernel #5, or #7 with ``state_logits``: each walker in a state drawn
+    from their Categorical); every draw comes from ``generator``, on the
+    parameters' device.
+    """
+    dim = model.basedist.dim
+    d = model.n * dim
+    dev = generator.device
+    kw = dict(dtype=cfg.torch_dtype(), device=dev)
+    z0 = torch.randn((d, nwalkers), generator=generator, **kw)
+    tau = torch.full((nwalkers,), cfg.tau, **kw)
+    seed = int(torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=dev))
+    if state_logits is not None:
+        probs = torch.softmax(state_logits.detach(), dim=-1)
+        state_idx = torch.multinomial(probs, nwalkers, replacement=True,
+                                      generator=generator).to(torch.int32)
+        nx_cm, ny_cm = model.qnums_cm(state_idx)
+        z, _, _ = metropolis_multistate_cm(
+            z0, tau, seed, steps=cfg.equilibrium_steps, nx_cm=nx_cm,
+            ny_cm=ny_cm, num_shells=model._qnum_tables()[2])
+    else:
+        nx_up, ny_up, nx_dn, ny_dn, ks = model.occ_qnums()
+        z, _, _ = metropolis_single_cm(
+            z0, tau, seed, steps=cfg.equilibrium_steps, nx_occ=nx_up,
+            ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=ks)
+    with torch.no_grad():
+        frames = model.cnf.generate_trajectory(
+            _detach(flow_params), z.T.reshape(nwalkers, model.n, dim), nframes)
+    np.save(path, frames.cpu().numpy())
+    print(f"density movie: saved {nframes} frames x {nwalkers} walkers to {path}")
+    return frames

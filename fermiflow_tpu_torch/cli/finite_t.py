@@ -7,12 +7,15 @@
 Runs on ``cuda`` (the hand-written kernels) unless ``--device cpu`` asks for
 the plain PyTorch versions.  Each iteration is one mixed-state sampler
 launch and one kernel-chain update; ``--steps-per-call K`` fetches the
-metrics once per K iterations.
+metrics once per K iterations.  ``--checkpoint-dir`` saves and resumes as
+the ground-state driver does.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from fermiflow_tpu_torch.cli import common
 from fermiflow_tpu_torch.train import (
@@ -34,6 +37,7 @@ def main(argv=None):
     model, params = common.build_beta(cfg)
     state = init_beta_state(model, params, cfg,
                             params["log_state_weights"].device)
+    state, start_step = common.restore(state, cfg)
     logger = MetricsLogger(cfg.metrics_path)
 
     print(f"beta = {cfg.beta:.1f}, nup = {cfg.nup}, ndown = {cfg.ndown}, "
@@ -58,10 +62,17 @@ def main(argv=None):
             state, cfg,
             lambda chunk: make_multi_step(make_beta_train_step(model, cfg),
                                           chunk),
-            logger, print_row, args.profile_dir,
+            logger, print_row, args.profile_dir, start_step, args.debug_nans,
         )
     finally:
         logger.close()
+    if args.movie:
+        common.dump_density_movie(
+            args.movie, model, state.params["flow"],
+            torch.Generator(state.walkers_cm.device).manual_seed(
+                common.derived_seed(state.generator, 999)),
+            args.movie_frames, args.movie_walkers, cfg,
+            state_logits=state.log_state_weights)
     return state
 
 

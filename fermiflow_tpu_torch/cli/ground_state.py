@@ -4,12 +4,16 @@
         --batch 8192 --dtype float32 --persistent --steps-per-call 10
 
 Runs on ``cuda`` (the hand-written kernels) unless ``--device cpu`` asks for
-the plain PyTorch versions.
+the plain PyTorch versions.  With ``--checkpoint-dir`` it saves every
+``--checkpoint-every`` iterations and resumes from the latest checkpoint
+there; rerunning the same command continues an interrupted run.
 """
 
 from __future__ import annotations
 
 import argparse
+
+import torch
 
 from fermiflow_tpu_torch.cli import common
 from fermiflow_tpu_torch.train import (
@@ -31,6 +35,7 @@ def main(argv=None):
 
     model, params = common.build_gs(cfg)
     state = init_gs_state(model, params, cfg, params["eta"]["w1"].device)
+    state, start_step = common.restore(state, cfg)
     logger = MetricsLogger(cfg.metrics_path)
 
     print(f"nup = {cfg.nup}, ndown = {cfg.ndown}, Z = {cfg.Z:.1f}")
@@ -54,9 +59,16 @@ def main(argv=None):
             make_gs_train_step(model, cfg), chunk)
     try:
         state = common.run_training_loop(state, cfg, make_chunk, logger,
-                                         print_row, args.profile_dir)
+                                         print_row, args.profile_dir,
+                                         start_step, args.debug_nans)
     finally:
         logger.close()
+    if args.movie:
+        common.dump_density_movie(
+            args.movie, model, state.params,
+            torch.Generator(state.walkers_cm.device).manual_seed(
+                common.derived_seed(state.generator, 999)),
+            args.movie_frames, args.movie_walkers, cfg)
     return state
 
 

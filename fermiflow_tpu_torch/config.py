@@ -1,8 +1,11 @@
 """Single experiment configuration dataclass (port of ``fermiflow_tpu/config.py``).
 
-Same fields, defaults and JSON as the JAX package, so one file drives both.
-Added: ``device`` (where entry points run; not written by ``to_json`` so the
-file it writes loads in both packages) and ``torch_dtype()``.
+Same fields and JSON as the JAX package, so one file drives both, and the
+same defaults but for the three ``pallas_*`` switches, which here select the
+port's CUDA kernels and default to on (the JAX CLI sets them from its
+backend).  Added: ``device`` (where entry points run; not written by
+``to_json`` so the file it writes loads in both packages) and
+``torch_dtype()``.
 """
 
 from __future__ import annotations
@@ -32,8 +35,8 @@ class Config:
     # ODE solver (fixed dopri5 grid; see the JAX config for the error study)
     ode_steps: int = 4
     ode_method: str = "dopri5"
-    ode_solver: str = "fixed"  # only "fixed" is ported
-    rtol: float = 1e-6
+    ode_solver: str = "fixed"  # fixed | adaptive | adjoint, for CNF.generate
+    rtol: float = 1e-6  # adaptive-solver tolerances
     atol: float = 1e-8
 
     # sampler
@@ -44,7 +47,7 @@ class Config:
     persistent_walkers: bool = False  # carry chains + per-walker tau adaptation
     tau_target_accept: float = 0.5
     tau_gain: float = 0.1
-    pallas_sampler: bool = False  # JAX-only switch, kept for JSON parity
+    pallas_sampler: bool = True  # the sampler kernels (#1, #5, #7); off: plain
     pallas_interpret: bool = False  # JAX-only switch, kept for JSON parity
 
     # optimization
@@ -53,9 +56,9 @@ class Config:
     steps_per_call: int = 1  # iterations per fused sampler launch
 
     # numerics / runtime
-    local_energy: str = "auto"  # only the Hessian-flow engine is ported
-    pallas_local_energy: bool = False  # JAX-only switch, kept for JSON parity
-    pallas_reinforce: bool = True  # JAX-only switch, kept for JSON parity
+    local_energy: str = "auto"  # auto | hessian_flow | nested_jvp
+    pallas_local_energy: bool = True  # VGH and Hessian-flow kernels; off: plain
+    pallas_reinforce: bool = True  # the adjoint kernel; off: autograd
     max_restarts: int = 0
     divergence_window: int = 50
     divergence_nsigma: float = 10.0

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 from typing import Callable
 
-__all__ = ["odeint", "rk_step", "tree_map", "TABLEAUS"]
+import torch
+
+__all__ = ["odeint", "odeint_trajectory", "rk_step", "tree_map",
+           "tree_flatten", "tree_unflatten", "TABLEAUS"]
 
 
 class _Tableau:
@@ -59,6 +62,38 @@ def tree_map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_flatten(tree):
+    """(tensor leaves in order, structure) of nested tuples/lists/dicts."""
+    if tree is None:
+        return [], None
+    if isinstance(tree, dict):
+        parts = [tree_flatten(tree[k]) for k in tree]
+        return ([l for ls, _ in parts for l in ls],
+                (dict, list(tree), [s for _, s in parts]))
+    if isinstance(tree, (tuple, list)):
+        parts = [tree_flatten(t) for t in tree]
+        return ([l for ls, _ in parts for l in ls],
+                (type(tree), len(tree), [s for _, s in parts]))
+    return [tree], "leaf"
+
+
+def tree_unflatten(structure, leaves):
+    """Inverse of ``tree_flatten``."""
+    it = iter(leaves)
+
+    def build(s):
+        if s is None:
+            return None
+        if s == "leaf":
+            return next(it)
+        kind, keys, subs = s
+        if kind is dict:
+            return {k: build(sub) for k, sub in zip(keys, subs)}
+        return kind(build(sub) for sub in subs)
+
+    return build(structure)
+
+
 def _axpy(x, h, coefs, ks):
     """x + h * sum_j coefs[j] * ks[j], over nested state."""
     def leaf(xl, *kls):
@@ -90,3 +125,21 @@ def odeint(f: Callable, params, x0, t0: float, t1: float, steps: int = 16,
     for i in range(steps):
         x, _ = rk_step(f, params, t0 + i * h, h, x, tableau)
     return x
+
+
+def odeint_trajectory(f: Callable, params, x0, ts, steps_per_frame: int = 4,
+                      method: str = "dopri5"):
+    """The state at each time in ``ts`` (a 1-D tensor or sequence), frame i
+    reached from frame i-1 with ``steps_per_frame`` fixed sub-steps (the
+    density-movie path).  Returns the state with a leading ``len(ts)`` axis
+    on every leaf, x0 as the first frame."""
+    tableau = TABLEAUS[method]
+    ts = [float(t) for t in ts]
+    frames = [x0]
+    x = x0
+    for ta, tb in zip(ts[:-1], ts[1:]):
+        h = (tb - ta) / steps_per_frame
+        for i in range(steps_per_frame):
+            x, _ = rk_step(f, params, ta + i * h, h, x, tableau)
+        frames.append(x)
+    return tree_map(lambda *ls: torch.stack(ls), *frames)

@@ -8,15 +8,20 @@ the computation is plain batched arithmetic, unrolled over the small n.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 __all__ = ["logabsdet", "gauss_jordan_inv"]
 
 
 def _pivot(col: torch.Tensor, used: torch.Tensor) -> torch.Tensor:
-    """One-hot (..., n) of the masked argmax of |col| over unused rows."""
+    """One-hot (..., n) of the masked argmax of |col| over unused rows.
+
+    Built by comparison with ``arange`` rather than ``F.one_hot``, whose
+    size check reads a value on the host and so fails under
+    ``torch.func.vmap`` (the nested-jvp engine maps over walkers).
+    """
     score = torch.where(used > 0.5, torch.full_like(col, -float("inf")), col.abs())
-    return F.one_hot(torch.argmax(score, dim=-1), col.shape[-1]).to(col.dtype)
+    rows = torch.arange(col.shape[-1], device=col.device)
+    return (rows == torch.argmax(score, dim=-1)[..., None]).to(col.dtype)
 
 
 def gauss_jordan_inv(D: torch.Tensor) -> torch.Tensor:

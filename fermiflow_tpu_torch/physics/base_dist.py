@@ -58,6 +58,19 @@ class FreeFermion:
         H = 2.0 * _block_diag(*[p[2] for p in parts])
         return y, g, H
 
+    def sample(self, occ_up, occ_down, generator: torch.Generator,
+               sample_shape: tuple, equilibrium_steps: int = 100,
+               tau: float = 0.1, dtype=torch.float64) -> torch.Tensor:
+        """Metropolis-sample the Slater density from a fresh Gaussian init;
+        draws from ``generator`` on its device."""
+        n = len(occ_up) + len(occ_down)
+        x0 = torch.randn((*sample_shape, n, self.dim), dtype=dtype,
+                         device=generator.device, generator=generator)
+        state = mcmc.metropolis(
+            lambda x: self.log_prob(occ_up, occ_down, x),
+            generator, x0, equilibrium_steps, tau)
+        return state.x
+
     # ---- mixed-state (finite-temperature) path, spin-polarized ----
 
     def log_prob_multstates(self, occ_table, state_idx: torch.Tensor,

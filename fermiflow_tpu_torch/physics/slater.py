@@ -83,8 +83,12 @@ def walker_qnums(orbitals: HO2D, occ_table, state_idx: torch.Tensor):
     """Per-walker 1D quantum numbers (nx, ny), each ``state_idx.shape + (n,)``
     long, of the orbitals ``occ_table[state_idx]`` occupies."""
     dev = state_idx.device
-    occ = torch.as_tensor(np.asarray(occ_table), dtype=torch.long,
-                          device=dev)[state_idx.long()]
+    table = torch.as_tensor(np.asarray(occ_table), dtype=torch.long, device=dev)
+    # index_select, not table[state_idx]: indexing by a 0-d tensor reads it
+    # on the host, which torch.func.vmap cannot do over walkers.
+    idx = state_idx.long()
+    occ = table.index_select(0, idx.reshape(-1)).reshape(
+        idx.shape + table.shape[1:])
     nx = torch.as_tensor(orbitals.nx, dtype=torch.long, device=dev)[occ]
     ny = torch.as_tensor(orbitals.ny, dtype=torch.long, device=dev)[occ]
     return nx, ny

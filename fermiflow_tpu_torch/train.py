@@ -13,6 +13,14 @@ Finite temperature: ``make_beta_train_step``, one iteration of
 Adam over the flow and the state logits).  ``make_multi_step`` runs K
 one-iteration steps with the metrics kept on the device.  Walkers stay
 coordinate-major (d, B) from the sampler through the update.
+
+The update follows the JAX selection (``train.py:_use_hessian_flow``):
+the kernel chain by default; with ``cfg.local_energy == "nested_jvp"``
+x = flow(z) and autograd of the nested-jvp ``loss_and_metrics``; and with
+``cfg.pallas_local_energy`` or ``cfg.pallas_reinforce`` off (the CLI's
+``--no-pallas-*``) autograd of ``loss_and_metrics_from_base``, Eloc from
+the kernel chain or the plain Hessian flow.  ``cfg.pallas_sampler`` off
+runs the plain samplers.  The sampler kernels draw z on every other path.
 """
 
 from __future__ import annotations
@@ -26,11 +34,14 @@ from fermiflow_tpu_torch.mcmc import MCMCState, adapt_tau
 from fermiflow_tpu_torch.nn.backflow import Backflow
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
+    metropolis_chains_plain,
     metropolis_multistate_cm,
+    metropolis_multistate_cm_plain,
     metropolis_single_cm,
+    metropolis_single_cm_plain,
 )
 from fermiflow_tpu_torch.vmc.beta import BetaVMC
-from fermiflow_tpu_torch.vmc.gs import GSVMC
+from fermiflow_tpu_torch.vmc.gs import GSVMC, _detach
 
 __all__ = ["TrainState", "init_gs_state", "init_beta_state", "make_adam",
            "make_gs_fused_multi_step", "make_gs_train_step",
@@ -114,14 +125,61 @@ def _apply_grads(state: TrainState, grads: dict) -> None:
     state.optimizer.step()
 
 
-def _make_gs_update(model: GSVMC):
-    """(state, z_cm) -> (loss, metrics): Eloc, REINFORCE gradient and one
-    Adam step; the gradient comes from the kernel chain, not autograd."""
+def _autograd_step(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
+    """Adam on the gradient that autograd takes of ``loss``."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    return loss.detach()
 
-    def update(state: TrainState, z_cm: torch.Tensor):
-        loss, metrics, grads = model.loss_metrics_grads_cm(state.params, z_cm)
-        _apply_grads(state, grads)
-        return loss, metrics
+
+def _use_hessian_flow(cfg: Config, cnf) -> bool:
+    """Local-energy engine selection: the Hessian flow needs the closed-form
+    field tensors; "auto" uses it whenever they are available."""
+    if cfg.local_energy == "nested_jvp":
+        return False
+    if cnf.field_tensors is None:
+        if cfg.local_energy == "hessian_flow":
+            raise ValueError(
+                "local_energy='hessian_flow' requires cnf.field_tensors")
+        return False
+    return True
+
+
+def _walkers(model, z_cm: torch.Tensor) -> torch.Tensor:
+    """Coordinate-major (d, B) -> the JAX layout (B, n, dim)."""
+    B = z_cm.shape[1]
+    return z_cm.T.reshape(B, model.n, model.basedist.dim)
+
+
+def _generated(model, flow_params: dict, z_cm: torch.Tensor) -> torch.Tensor:
+    """x = flow(z) in the JAX layout, with no gradient (the samples)."""
+    with torch.no_grad():
+        return model.cnf.generate(_detach(flow_params), _walkers(model, z_cm))
+
+
+def _make_gs_update(model: GSVMC, cfg: Config | None = None):
+    """(state, z_cm) -> (loss, metrics): Eloc, the REINFORCE gradient and one
+    Adam step, by the path ``cfg`` selects (module docstring; without one,
+    the kernel chain)."""
+    cfg = Config() if cfg is None else cfg
+    if not _use_hessian_flow(cfg, model.cnf):
+        def update(state: TrainState, z_cm: torch.Tensor):
+            x = _generated(model, state.params, z_cm)
+            loss, metrics = model.loss_and_metrics(state.params, x)
+            return _autograd_step(state, loss), metrics
+    elif not (cfg.pallas_local_energy and cfg.pallas_reinforce):
+        def update(state: TrainState, z_cm: torch.Tensor):
+            loss, metrics = model.loss_and_metrics_from_base(
+                state.params, _walkers(model, z_cm),
+                chain=cfg.pallas_local_energy)
+            return _autograd_step(state, loss), metrics
+    else:
+        def update(state: TrainState, z_cm: torch.Tensor):
+            loss, metrics, grads = model.loss_metrics_grads_cm(state.params,
+                                                               z_cm)
+            _apply_grads(state, grads)
+            return loss, metrics
 
     return update
 
@@ -160,13 +218,14 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
     shape (K,) on the state's device.
     """
     nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
-    update = _make_gs_update(model)
+    update = _make_gs_update(model, cfg)
+    chains = metropolis_chains if cfg.pallas_sampler else metropolis_chains_plain
     K = steps_per_call
 
     def multi(state: TrainState):
         seed = _new_seed(state)
         z0, n_steps, tau = _chain_start(state, cfg)
-        zs, _, rates, tau_out = metropolis_chains(
+        zs, _, rates, tau_out = chains(
             z0, tau, seed, steps=n_steps, segments=K, nx_occ=nx_up,
             ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
             target=cfg.tau_target_accept, gain=cfg.tau_gain,
@@ -189,12 +248,14 @@ def make_gs_train_step(model: GSVMC, cfg: Config):
     per-iteration kernel), the kernel-chain update and Adam.  Returns
     ``step(state) -> (state, metrics)``."""
     nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
-    update = _make_gs_update(model)
+    update = _make_gs_update(model, cfg)
+    single = (metropolis_single_cm if cfg.pallas_sampler
+              else metropolis_single_cm_plain)
 
     def step(state: TrainState):
         seed = _new_seed(state)
         z0, n_steps, tau = _chain_start(state, cfg)
-        z, _, acc = metropolis_single_cm(
+        z, _, acc = single(
             z0, tau, seed, steps=n_steps, nx_occ=nx_up, ny_occ=ny_up,
             nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells)
         loss, metrics = update(state, z)
@@ -297,6 +358,26 @@ def make_beta_train_step(model: BetaVMC, cfg: Config):
     sampler launch, the kernel-chain update, Adam over the flow and the
     logits, and tau adaptation.  Returns ``step(state) -> (state, metrics)``."""
     _, _, kshells = model._qnum_tables()
+    sampler = (metropolis_multistate_cm if cfg.pallas_sampler
+               else metropolis_multistate_cm_plain)
+    hessian_flow = _use_hessian_flow(cfg, model.cnf)
+    chain_grads = hessian_flow and cfg.pallas_local_energy \
+        and cfg.pallas_reinforce
+
+    def update(state: TrainState, state_idx: torch.Tensor, z: torch.Tensor):
+        if chain_grads:
+            loss, metrics, grads = model.loss_metrics_grads_cm(
+                state.params, state_idx, z)
+            _apply_grads(state, grads)
+            return loss, metrics
+        if hessian_flow:
+            loss, metrics = model.loss_and_metrics_from_base(
+                state.params, state_idx, _walkers(model, z),
+                chain=cfg.pallas_local_energy)
+        else:
+            x = _generated(model, state.params["flow"], z)
+            loss, metrics = model.loss_and_metrics(state.params, state_idx, x)
+        return _autograd_step(state, loss), metrics
 
     def step(state: TrainState):
         logits = state.log_state_weights.detach()
@@ -313,12 +394,10 @@ def make_beta_train_step(model: BetaVMC, cfg: Config):
         seed = _new_seed(state)
         z0, n_steps, tau = _chain_start(state, cfg)
         nx_cm, ny_cm = model.qnums_cm(state_idx)
-        z, _, acc = metropolis_multistate_cm(
+        z, _, acc = sampler(
             z0, tau, seed, steps=n_steps, nx_cm=nx_cm, ny_cm=ny_cm,
             num_shells=kshells)
-        loss, metrics, grads = model.loss_metrics_grads_cm(state.params,
-                                                           state_idx, z)
-        _apply_grads(state, grads)
+        loss, metrics = update(state, state_idx, z)
         state.state_idx, state.sample_probs = state_idx, probs
         _end_iteration(state, cfg, z, acc)
         metrics = dict(metrics, accept_rate=acc.mean(), loss=loss)

@@ -1,3 +1,7 @@
+from fermiflow_tpu_torch.utils.checkpointing import (
+    restore_checkpoint,
+    save_checkpoint,
+)
 from fermiflow_tpu_torch.utils.metrics import MetricsLogger
 
-__all__ = ["MetricsLogger"]
+__all__ = ["MetricsLogger", "restore_checkpoint", "save_checkpoint"]

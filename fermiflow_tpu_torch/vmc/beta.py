@@ -16,8 +16,11 @@ with E_state the mean Eloc of the walkers in the same state.  Every walker
 carries a dense state index; the per-state sums are a one-hot (Nstates, B)
 product, which sums in a fixed order on every device (JAX: ``segment_sum``).
 
-Two gradient paths, as in ``vmc/gs.py``:
-  * ``loss_and_metrics_from_base``: the autograd reference, any dtype;
+Three gradient paths, as in ``vmc/gs.py``:
+  * ``loss_and_metrics``: Eloc by the nested-jvp engine on generated
+    walkers, gradient by autograd (``--local-energy nested_jvp``);
+  * ``loss_and_metrics_from_base``: Eloc by the Hessian flow (plain, or the
+    kernel chain), gradient by autograd, any dtype;
   * ``loss_metrics_grads_cm``: no autograd.  Mixed-state Slater VGH ->
     Hessian flow -> Eloc -> phi loss and weights -> REINFORCE adjoint, on
     coordinate-major (rows, B) buffers.
@@ -41,6 +44,7 @@ from fermiflow_tpu_torch.vmc.gs import (
     flow_local_energy_cm,
 )
 from fermiflow_tpu_torch.vmc.hessian_flow import local_energy_flow
+from fermiflow_tpu_torch.vmc.local_energy import y_grad_laplacian
 
 __all__ = ["BetaVMC"]
 
@@ -52,8 +56,9 @@ class BetaVMC:
     def __init__(self, beta: float, nup: int, ndown: int, deltaE: float,
                  orbitals: HO2D, basedist: FreeFermion, cnf: CNF,
                  pair_potential: Callable, sp_potential: Callable | None = None,
-                 ops: ChainOps = KERNEL_OPS):
+                 ops: ChainOps = KERNEL_OPS, laplacian_chunk: int | None = None):
         self.beta = beta
+        self.laplacian_chunk = laplacian_chunk
         self.nup, self.ndown = nup, ndown
         self.n = nup + ndown
         occ, Es = orbitals.fermion_states(nup, ndown, deltaE)
@@ -80,6 +85,22 @@ class BetaVMC:
             raise ValueError("random init requires a generator")
         return torch.randn((self.Nstates,), generator=generator, dtype=dtype,
                            device=generator.device).to(device)
+
+    # -- sampling --
+
+    def sample(self, params, generator: torch.Generator, batch: int,
+               equilibrium_steps: int = 100, tau: float = 0.1,
+               dtype=torch.float64):
+        """(state_idx, z, x): states from the Categorical of the logits, z
+        from each state's Slater density by the plain sampler, x = flow(z);
+        every draw from ``generator``."""
+        probs = torch.softmax(params["log_state_weights"].detach(), dim=-1)
+        state_idx = torch.multinomial(probs.to(generator.device), batch,
+                                      replacement=True, generator=generator)
+        z = self.basedist.sample_multstates(
+            self.occ_table, state_idx, generator,
+            equilibrium_steps=equilibrium_steps, tau=tau, dtype=dtype)
+        return state_idx, z, self.cnf.generate(params["flow"], z)
 
     # -- likelihood --
 
@@ -165,13 +186,40 @@ class BetaVMC:
         loss_theta = torch.mean(logp * (eloc - baseline))
         return loss_phi + loss_theta, metrics
 
-    def loss_and_metrics_from_base(self, params, state_idx: torch.Tensor,
-                                   z: torch.Tensor):
-        """Surrogate loss and metrics from base samples z (B, n, dim); the
-        local energy comes from the Hessian flow under detached parameters."""
+    def loss_and_metrics(self, params, state_idx: torch.Tensor,
+                         x: torch.Tensor):
+        """Surrogate loss (phi and theta terms, disjoint parameters) and the
+        metrics for generated walkers x (B, n, dim); the local energy comes
+        from the nested-jvp engine under detached flow parameters."""
+        flow = _detach(params["flow"])
         with torch.no_grad():
-            x, eloc, _ = self.local_energy_from_base(
-                _detach(params["flow"]), state_idx, z)
+            _, grad_logp, lap_logp = y_grad_laplacian(
+                lambda xs, idx: self.log_prob(flow, xs, idx), x, state_idx,
+                chunk_size=self.laplacian_chunk)
+            eloc = (-0.25 * lap_logp
+                    - 0.125 * torch.sum(grad_logp**2, dim=(-2, -1))
+                    + self.potential(x))
+        return self._losses_from_eloc(params, state_idx, x, eloc)
+
+    def loss_and_metrics_from_base(self, params, state_idx: torch.Tensor,
+                                   z: torch.Tensor, chain: bool = False):
+        """Surrogate loss and metrics from base samples z (B, n, dim); the
+        local energy comes from the Hessian flow under detached parameters,
+        the plain one, or with ``chain`` the VGH and Hessian-flow kernels of
+        ``self.ops``."""
+        with torch.no_grad():
+            flow = _detach(params["flow"])
+            if chain:
+                B, n, dim = z.shape
+                nx_cm, ny_cm = self.qnums_cm(state_idx)
+                _, _, ks = self._qnum_tables()
+                z_cm = z.reshape(B, n * dim).T.contiguous()
+                y, g0, Hp0 = self.ops.slater_vgh_ms(z_cm, nx_cm, ny_cm, ks)
+                x_cm, eloc, _, _ = flow_local_energy_cm(self, flow, z_cm, y,
+                                                        g0, Hp0)
+                x = x_cm.T.reshape(B, n, dim)
+            else:
+                x, eloc, _ = self.local_energy_from_base(flow, state_idx, z)
         return self._losses_from_eloc(params, state_idx, x, eloc)
 
     def _phi_loss_and_weights(self, params, state_idx: torch.Tensor,

@@ -3,9 +3,13 @@
 Local energy Eloc = -1/4 lap logp - 1/8 |grad logp|^2 + V(x) and the
 REINFORCE surrogate loss = mean[(Eloc - E) logp_theta(x)], Eloc detached.
 
-Two gradient paths:
-  * ``loss_and_metrics_from_base``: Eloc from the Hessian flow, logp_theta by
-    the reverse ODE, gradient by autograd (the reference path, any dtype);
+Three gradient paths:
+  * ``loss_and_metrics``: Eloc by the nested-jvp engine
+    (``vmc/local_energy.py``) on generated walkers x, logp_theta by the
+    reverse ODE, gradient by autograd (``--local-energy nested_jvp``);
+  * ``loss_and_metrics_from_base``: Eloc from the Hessian flow (the plain
+    one, or the kernel chain), logp_theta by the reverse ODE, gradient by
+    autograd (any dtype);
   * ``loss_metrics_grads``: no autograd at all.  The Slater-VGH, Hessian-flow
     and REINFORCE-adjoint kernel modules chain on coordinate-major (rows, B)
     buffers with no relayout, as the TPU tile chain does.
@@ -32,6 +36,7 @@ from fermiflow_tpu_torch.ops.slater_vgh import (
 )
 from fermiflow_tpu_torch.physics.base_dist import FreeFermion
 from fermiflow_tpu_torch.vmc.hessian_flow import local_energy_flow
+from fermiflow_tpu_torch.vmc.local_energy import y_grad_laplacian
 
 __all__ = ["GSVMC", "ChainOps", "KERNEL_OPS", "PLAIN_OPS",
            "flow_local_energy_cm"]
@@ -83,9 +88,11 @@ class GSVMC:
 
     def __init__(self, nup: int, ndown: int, basedist: FreeFermion, cnf: CNF,
                  pair_potential: Callable, sp_potential: Callable | None = None,
-                 ops: ChainOps = KERNEL_OPS):
+                 ops: ChainOps = KERNEL_OPS, laplacian_chunk: int | None = None):
         self.nup, self.ndown = nup, ndown
         self.ops = ops
+        # Batch chunk of the nested-jvp engine (a memory bound).
+        self.laplacian_chunk = laplacian_chunk
         self.n = nup + ndown
         self.occ_up = np.arange(nup, dtype=np.int32)
         self.occ_down = np.arange(ndown, dtype=np.int32)
@@ -93,6 +100,16 @@ class GSVMC:
         self.cnf = cnf
         self.pair_potential = pair_potential
         self.sp_potential = sp_potential
+
+    def sample(self, params, generator: torch.Generator, batch: int,
+               equilibrium_steps: int = 100, tau: float = 0.1,
+               dtype=torch.float64):
+        """(z, x): z from the Slater density by the plain sampler (draws from
+        ``generator``), x = flow(z)."""
+        z = self.basedist.sample(self.occ_up, self.occ_down, generator,
+                                 (batch,), equilibrium_steps=equilibrium_steps,
+                                 tau=tau, dtype=dtype)
+        return z, self.cnf.generate(params, z)
 
     def potential(self, x: torch.Tensor) -> torch.Tensor:
         pot = self.pair_potential(x)
@@ -123,6 +140,28 @@ class GSVMC:
         ks = int(max(nx_up + ny_up + nx_dn + ny_dn)) + 1
         return nx_up, ny_up, nx_dn, ny_dn, ks
 
+    def local_energy(self, params, x: torch.Tensor):
+        """(eloc, logp) per walker of x (B, n, dim) by the nested-jvp engine:
+        -1/4 lap logp - 1/8 |grad logp|^2 + V."""
+        logp, grad_logp, lap_logp = y_grad_laplacian(
+            lambda xs: self.log_prob(params, xs), x,
+            chunk_size=self.laplacian_chunk)
+        kinetic = -0.25 * lap_logp - 0.125 * torch.sum(grad_logp**2,
+                                                       dim=(-2, -1))
+        return kinetic + self.potential(x), logp
+
+    def loss_and_metrics(self, params, x: torch.Tensor):
+        """REINFORCE surrogate (differentiable in params) and {E, E_std} for
+        generated walkers x.  The local energy is computed with the
+        parameters detached; only ``log_prob`` carries their gradient."""
+        with torch.no_grad():
+            eloc, _ = self.local_energy(_detach(params), x)
+        logp = self.log_prob(params, x)
+        E = torch.mean(eloc)
+        E_std = torch.std(eloc, correction=0)
+        loss = torch.mean((eloc - E) * logp)
+        return loss, {"E": E, "E_std": E_std}
+
     def local_energy_from_base(self, params, z: torch.Tensor,
                                return_grad: bool = False):
         """(x, eloc, logp[, g]) by the plain Hessian flow from z (B, n, dim)."""
@@ -133,10 +172,22 @@ class GSVMC:
             steps=self.cnf.steps, method=self.cnf.method,
             return_grad=return_grad)
 
-    def loss_and_metrics_from_base(self, params, z: torch.Tensor):
-        """REINFORCE surrogate (differentiable in params) and {E, E_std}."""
+    def loss_and_metrics_from_base(self, params, z: torch.Tensor,
+                                   chain: bool = False):
+        """REINFORCE surrogate (differentiable in params) and {E, E_std}.
+
+        Eloc comes from the plain Hessian flow, or with ``chain`` from
+        ``local_energy_cm`` (the VGH and Hessian-flow kernels of
+        ``self.ops``); either way autograd of ``log_prob`` gives the
+        gradient in place of the REINFORCE adjoint."""
         with torch.no_grad():
-            x, eloc, _ = self.local_energy_from_base(_detach(params), z)
+            if chain:
+                B, n, dim = z.shape
+                x_cm, eloc, _, _ = self.local_energy_cm(
+                    params, z.reshape(B, n * dim).T.contiguous())
+                x = x_cm.T.reshape(B, n, dim)
+            else:
+                x, eloc, _ = self.local_energy_from_base(_detach(params), z)
         logp = self.log_prob(params, x)
         E = torch.mean(eloc)
         E_std = torch.std(eloc, correction=0)

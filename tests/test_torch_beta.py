@@ -372,8 +372,9 @@ def test_gs_cli_steps_per_call_1_runs_per_iteration_sampler(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard"], ["--checkpoint-dir", "ck"], ["--ode-solver", "adjoint"],
-    ["--local-energy", "nested_jvp"], ["--movie", "m.npz"],
+    ["--shard"], ["--shard", "--checkpoint-dir", "ck"],
+    ["--coordinator", "localhost:1"], ["--num-processes", "2"],
+    ["--process-id", "1"],
 ])
 def test_finite_t_cli_refuses_unported_flags(flags):
     with pytest.raises(NotImplementedError, match="not ported"):
