@@ -84,7 +84,18 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      adaptive and adjoint, the adjoint's gradient against the fixed grid's,
      the --movie frames against generate; the three --no-pallas-* flags
      launching no kernel, their update against the kernel chain's within
-     phase 5's bounds.
+     phase 5's bounds;
+  9. the walker mesh (``parallel/mesh.py``, N=6): (a) the ground-state
+     path of phase 4 at 20 iterations with checkpoints every 10, as 2
+     ranks of a gloo process group sharing the card (two CLI processes,
+     batch 8192 global) against one process: walkers and tau bitwise at
+     steps 10 and 20, E within 1e-6 (first row) and 1e-4 (every row);
+     (b) (a)'s step-10 shards resumed in one process, its step-20 walkers
+     bitwise the one-process run's; (c) the finite-T path (10 iterations)
+     as 2 ranks: F within 1e-6 (first row) and 1e-3 (every row); (d) one
+     NCCL rank with --shard against the run without a process group: every
+     E within 1e-6; (e) the pair's milliseconds per iteration and rank 0's
+     collectives (count and host ms per iteration).
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -1637,6 +1648,199 @@ def phase_no_pallas(device, z_eq, params):
           "leaf within rtol 1e-4, atol 1e-6 of the kernel chain's")
 
 
+# ---- phase 9: the walker mesh (parallel/mesh.py) ----
+
+MESH_ITERS = 20  # (a), (b), (d): checkpoints every CKPT_EVERY
+MESH_BETA_ITERS = 10  # (c)
+# f32 sums in another order: the first row's E and F (walkers bitwise, the
+# parameters still equal) to 1e-6; later rows after that many Adam steps on
+# gradients summed in another order to 1e-4 (GS) and 1e-3 (finite T, whose
+# states also follow the logits).
+MESH_FIRST_RTOL, MESH_GS_RTOL, MESH_BETA_RTOL = 1e-6, 1e-4, 1e-3
+MESH_NCCL_RTOL = 1e-6  # (d): one rank of NCCL against no process group
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_argv(world: int, rank: int, port: int) -> list:
+    return ["--coordinator", f"127.0.0.1:{port}", "--num-processes",
+            str(world), "--process-id", str(rank), "--init-timeout", "120"]
+
+
+def _spawn_ranks(mod: str, argv: list, world: int = 2) -> list:
+    """``world`` processes of the CLI ``mod``, one per rank, all on this
+    card (gloo: NCCL refuses two ranks on one device)."""
+    import os
+
+    port = _free_port()
+    return [subprocess.Popen(
+        [sys.executable, "-m", f"fermiflow_tpu_torch.cli.{mod}", *argv,
+         *_dist_argv(world, rank, port)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for rank in range(world)]
+
+
+def _wait_ranks(procs: list, what: str) -> list:
+    """Every rank's output; all are killed if one fails or hangs."""
+    try:
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            check(False, f"{what}: rank {rank} exited {p.returncode}; its "
+                  f"output ends {out.strip().splitlines()[-8:]}")
+    check(True, f"{what}: every rank ran to its end")
+    return outs
+
+
+def _ckpt_walkers(directory: str, step: int, world: int):
+    """(walkers_cm, tau) of a checkpoint step, merged over its shards."""
+    import torch
+
+    name = f"ckpt_{step:08d}.pt"
+    if world == 1:
+        t = _load(f"{directory}/{name}")["tensors"]
+        return t["walkers_cm"], t["tau"]
+    parts = [_load(f"{directory}/proc{r:05d}/{name}")["tensors"]
+             for r in range(world)]
+    return (torch.cat([p["walkers_cm"] for p in parts], dim=1),
+            torch.cat([p["tau"] for p in parts]))
+
+
+def _same_walkers(a_dir, a_world, b_dir, b_world, step) -> bool:
+    import torch
+
+    return all(torch.equal(x, y) for x, y in zip(
+        _ckpt_walkers(a_dir, step, a_world),
+        _ckpt_walkers(b_dir, step, b_world)))
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_mesh(device, tmp, smi):
+    """(a) the GS production command (batch 8192 global, K=10, 20
+    iterations, checkpoints every 10) as 2 ranks sharing the card over
+    gloo against one process: walkers and tau bitwise at steps 10 and 20,
+    E within MESH_FIRST_RTOL on the first row and MESH_GS_RTOL on every
+    row; (b) (a)'s step-10 shards resumed in one process: its step-20
+    walkers bitwise the one-process run's; (c) the finite-T path as 2 ranks
+    against one process: F within MESH_FIRST_RTOL on the first row,
+    MESH_BETA_RTOL on every row; (d) one rank of NCCL with --shard against
+    the run without it: every E within MESH_NCCL_RTOL; (e) the 2-rank
+    iteration ms and the collectives' ms and count per iteration."""
+    import os
+    import shutil
+
+    from fermiflow_tpu_torch.cli import finite_t, ground_state
+
+    gs2, gs1, resumed = f"{tmp}/gs2", f"{tmp}/gs1", f"{tmp}/resumed"
+    gs_argv = _ckpt_argv(device, MESH_ITERS, gs2, False)
+    t0 = time.perf_counter()
+    outs = _wait_ranks(_spawn_ranks(
+        "ground_state", gs_argv + ["--metrics", f"{tmp}/gs2.jsonl"]),
+        "mesh (a)")
+    wall2 = time.perf_counter() - t0
+    for rank, out in enumerate(outs):
+        check(f"torch.distributed: process {rank}/2, backend gloo" in out,
+              f"mesh (a): rank {rank} printed its bring-up line")
+    check("iter:" not in outs[1] and "iter: 001" in outs[0],
+          "mesh (a): rank 0 alone prints rows")
+    mesh_line = [ln for ln in outs[0].splitlines() if ln.startswith("mesh:")]
+    check(len(mesh_line) == 1, "mesh (a): rank 0 printed the collectives")
+    rows2 = _rows(f"{tmp}/gs2.jsonl")
+    secs2 = [r["iter_seconds"] for r in
+             (json.loads(ln) for ln in open(f"{tmp}/gs2.jsonl"))]
+
+    # The (c) pair runs while this process drives the one-process runs.
+    beta_argv = ["--beta", str(BETA), "--deltaE", str(DELTA_E),
+                 "--boltzmann"] + path_argv(device, MESH_BETA_ITERS, SEGMENTS)
+    beta_procs = _spawn_ranks("finite_t", beta_argv + [
+        "--metrics", f"{tmp}/beta2.jsonl"])
+    try:
+        _, recs1, _, _ = drive_path(ground_state.main, _ckpt_argv(
+            device, MESH_ITERS, gs1, False))
+        rows1 = [{k: v for k, v in r.items() if k not in TIMING_KEYS}
+                 for r in recs1]
+        os.makedirs(resumed)
+        for r in range(2):
+            shutil.copytree(f"{gs2}/proc{r:05d}", f"{resumed}/proc{r:05d}",
+                            ignore=lambda d, names: [
+                                n for n in names
+                                if n != f"ckpt_{CKPT_EVERY:08d}.pt"])
+        drive_path(ground_state.main, _ckpt_argv(device, MESH_ITERS, resumed,
+                                                 False))
+        _, recs_d, counts_d, _ = drive_path(
+            ground_state.main, path_argv(device, MESH_ITERS, SEGMENTS)
+            + _dist_argv(1, 0, _free_port()) + ["--shard"])
+        _, recs_b1, _, _ = drive_path(finite_t.main, beta_argv)
+    except BaseException:
+        for p in beta_procs:
+            p.kill()
+            p.wait()
+        raise
+    beta_outs = _wait_ranks(beta_procs, "mesh (c)")
+    rows_b2 = _rows(f"{tmp}/beta2.jsonl")
+
+    e_first = _rel(rows2[0]["E"], rows1[0]["E"])
+    e_worst = max(_rel(a["E"], b["E"]) for a, b in zip(rows2, rows1))
+    same = {step: _same_walkers(gs2, 2, gs1, 1, step)
+            for step in (CKPT_EVERY, MESH_ITERS)}
+    print(f"mesh (a): GS N={N}, batch {BATCH} as 2 ranks on one card (gloo) "
+          f"against one process: walkers and tau bitwise at steps "
+          f"{json.dumps(same)}; E rel. diff first row {e_first:.3e}, largest "
+          f"{e_worst:.3e}; {wall2:.1f} s wall for the pair ({smi})")
+    check(len(rows2) == MESH_ITERS and all(same.values()),
+          "mesh (a): walkers and tau at steps 10 and 20 bitwise the "
+          "one-process run's")
+    check(e_first <= MESH_FIRST_RTOL and e_worst <= MESH_GS_RTOL,
+          f"mesh (a): E within rtol {MESH_FIRST_RTOL:g} on the first row "
+          f"and {MESH_GS_RTOL:g} on every row")
+    same_b = _same_walkers(resumed, 1, gs1, 1, MESH_ITERS)
+    print(f"mesh (b): step-{CKPT_EVERY} shards of (a) resumed in one "
+          f"process: step-{MESH_ITERS} walkers and tau "
+          f"{'bitwise equal' if same_b else 'DIFFERENT'}")
+    check(same_b, "mesh (b): the 2 -> 1 resume's walkers at step 20 are "
+          "bitwise the one-process run's")
+    f_first = _rel(rows_b2[0]["F"], recs_b1[0]["F"])
+    f_worst = max(_rel(a["F"], b["F"]) for a, b in zip(rows_b2, recs_b1))
+    print(f"mesh (c): finite T N={N}, beta {BETA:g}, deltaE {DELTA_E:g} as "
+          f"2 ranks: F rel. diff first row {f_first:.3e}, largest "
+          f"{f_worst:.3e} over {len(rows_b2)} rows")
+    check("total number of states = 54" in beta_outs[0]
+          and "iter:" not in beta_outs[1], "mesh (c): rank 0 alone prints")
+    check(len(rows_b2) == MESH_BETA_ITERS
+          and all(math.isfinite(r["F"]) for r in rows_b2)
+          and f_first <= MESH_FIRST_RTOL and f_worst <= MESH_BETA_RTOL,
+          f"mesh (c): F finite, within rtol {MESH_FIRST_RTOL:g} on the first "
+          f"row and {MESH_BETA_RTOL:g} on every row")
+    d_worst = max(_rel(a["E"], b["E"]) for a, b in zip(recs_d, recs1))
+    print(f"mesh (d): one NCCL rank with --shard against no process group: "
+          f"E largest rel. diff {d_worst:.3e}; launches "
+          f"{json.dumps(counts_d)}")
+    check(len(recs_d) == MESH_ITERS and d_worst <= MESH_NCCL_RTOL,
+          f"mesh (d): every E within rtol {MESH_NCCL_RTOL:g}")
+    chunk_ms = [1e3 * s for s in secs2[::SEGMENTS]]
+    print(f"mesh (e): 2 ranks sharing one card (their SMs too: not a "
+          f"scaling figure), ms per iteration by chunk {chunk_ms}; rank 0 "
+          f"{mesh_line[0]} ({smi})")
+    return dict(pair_wall_s=wall2, chunk_ms=chunk_ms, collectives=mesh_line[0],
+                e_first=e_first, e_worst=e_worst, f_first=f_first,
+                f_worst=f_worst, nccl_e_worst=d_worst)
+
+
 def main() -> int:
     try:
         import torch
@@ -1732,6 +1936,9 @@ def main() -> int:
             phase_nested(device, z_eq, params)
             phase_solvers(device, z_eq, params, tmp8)
             phase_no_pallas(device, z_eq, params)
+        phase("9: the walker mesh")
+        with tempfile.TemporaryDirectory() as tmp9:
+            phase_mesh(device, tmp9, smi)
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

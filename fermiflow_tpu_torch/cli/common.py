@@ -3,11 +3,17 @@
 chunked training loop with checkpoints and the restart watchdog, and the
 density movie.
 
-Every flag of the JAX CLI is parsed.  Those of the multi-process mesh
-(``--shard``, ``--coordinator``, ``--num-processes``, ``--process-id``,
-``--init-timeout``) wait for ``parallel/mesh.py`` and ``--pallas-interpret``
-has no CUDA counterpart: ``config_from_args`` raises
-``NotImplementedError`` for them instead of ignoring them.
+Every flag of the JAX CLI is parsed.  ``--pallas-interpret`` has no CUDA
+counterpart: ``config_from_args`` raises ``NotImplementedError`` for it
+instead of ignoring it.
+
+Multi-process runs (``parallel/mesh.py``): every rank runs the same command
+with ``--coordinator HOST:PORT --num-processes W --process-id r``;
+``maybe_init_distributed`` brings the process group up and forces
+``--shard``, and ``--batch`` stays the global walker count.  Only rank 0
+prints rows, writes ``--metrics``, traces ``--profile-dir`` and writes the
+``--movie``; every rank runs every collective and checkpoint, on
+replicated values, so all take the same branches.
 """
 
 from __future__ import annotations
@@ -40,6 +46,13 @@ from fermiflow_tpu_torch.physics import (
     FreeFermion,
     HOPotential,
 )
+from fermiflow_tpu_torch.parallel.mesh import (
+    all_sum,
+    init_distributed,
+    make_walker_mesh,
+    process_index,
+    shutdown_distributed,
+)
 from fermiflow_tpu_torch.utils.checkpointing import (
     named_tensors,
     restore_checkpoint,
@@ -51,7 +64,8 @@ from fermiflow_tpu_torch.vmc.gs import _detach
 
 __all__ = ["add_flags", "config_from_args", "make_cnf", "build_gs",
            "build_beta", "restore", "run_training_loop", "derived_seed",
-           "dump_density_movie"]
+           "dump_density_movie", "maybe_init_distributed", "distributed",
+           "walker_mesh"]
 
 
 def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
@@ -153,38 +167,29 @@ def add_flags(parser: argparse.ArgumentParser, finite_t: bool = False):
                         help="the REINFORCE gradient by autograd through "
                              "the reverse-ODE logp instead of the adjoint "
                              "kernel (an A/B switch)")
-    # Parsed but not ported: config_from_args refuses them.
-    parser.add_argument("--shard", action="store_true")
-    parser.add_argument("--coordinator", type=str, default=None)
+    # The walker mesh (parallel/mesh.py): one process per rank.
+    parser.add_argument("--shard", action="store_true",
+                        help="split the walkers over the ranks of the "
+                             "process group (a 1-rank mesh without one; "
+                             "forced on a multi-process run)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="HOST:PORT of rank 0 for torch.distributed "
+                             "(tcp://) bring-up")
     parser.add_argument("--num-processes", type=int, default=None)
     parser.add_argument("--process-id", type=int, default=None)
-    parser.add_argument("--init-timeout", type=int, default=None)
+    parser.add_argument("--init-timeout", type=int, default=120,
+                        help="seconds that bring-up, and every later "
+                             "collective, may wait for the other ranks")
+    # Parsed but refused by config_from_args.
     parser.add_argument("--pallas-interpret", action="store_true")
 
 
-def _refuse_unported(args):
+def config_from_args(args, finite_t: bool = False) -> Config:
     if args.pallas_interpret:
         raise NotImplementedError(
             "--pallas-interpret: the Pallas TPU interpreter has no CUDA "
             "counterpart; the port's kernels run on the card, their plain "
             "PyTorch versions on --device cpu")
-    unported = {
-        "--shard": args.shard,
-        "--coordinator": args.coordinator is not None,
-        "--num-processes": args.num_processes is not None,
-        "--process-id": args.process_id is not None,
-        "--init-timeout": args.init_timeout is not None,
-    }
-    asked = [flag for flag, on in unported.items() if on]
-    if asked:
-        raise NotImplementedError(
-            f"{', '.join(asked)}: not ported to fermiflow_tpu_torch yet "
-            "(the multi-process mesh, parallel/mesh.py; see ROADMAP.md); "
-            "use the JAX driver fermiflow_tpu.cli")
-
-
-def config_from_args(args, finite_t: bool = False) -> Config:
-    _refuse_unported(args)
     cfg = Config(
         nup=args.nup,
         ndown=args.ndown,
@@ -225,6 +230,46 @@ def config_from_args(args, finite_t: bool = False) -> Config:
         cfg.deltaE = args.deltaE
         cfg.boltzmann = args.boltzmann
     return cfg
+
+
+def maybe_init_distributed(args) -> bool:
+    """Bring the process group up when the flags ask for one (before any
+    tensor is made) and return whether this process is the primary one
+    (rank 0).  A run of more than one process forces ``--shard``."""
+    if init_distributed(args.coordinator, args.num_processes,
+                        args.process_id, args.init_timeout, args.device):
+        args.shard = True
+    return process_index() == 0
+
+
+@contextlib.contextmanager
+def distributed(args):
+    """``maybe_init_distributed`` for the body of a driver, yielding
+    whether this process is the primary one; the process group it brought
+    up, if any, is torn down after the body."""
+    owned = not torch.distributed.is_initialized()
+    try:
+        yield maybe_init_distributed(args)
+    finally:
+        if owned:
+            shutdown_distributed()
+
+
+def walker_mesh(args, cfg: Config):
+    """The walker mesh ``--shard`` asks for (None without it), on the
+    device that ``cfg`` resolves to."""
+    return make_walker_mesh(_device(cfg)) if args.shard else None
+
+
+def _collectives_line(mesh, iterations: int) -> str | None:
+    """What the mesh's collectives cost this process: count and host ms,
+    in all and per iteration (None without a process group)."""
+    if mesh is None or mesh.group is None or iterations <= 0:
+        return None
+    count, ms = mesh.stats["count"], 1e3 * mesh.stats["seconds"]
+    return (f"mesh: {mesh.world} ranks over {mesh.backend}, {count} "
+            f"collectives in {ms:.3f} ms, {count / iterations:.1f} and "
+            f"{ms / iterations:.4f} ms per iteration")
 
 
 def make_cnf(cfg: Config) -> CNF:
@@ -357,20 +402,21 @@ def _first_nonfinite(state):
     return None
 
 
-def restore(state, cfg: Config):
+def restore(state, cfg: Config, primary: bool = True):
     """Resume from ``cfg.checkpoint_dir``'s latest checkpoint, as the JAX
     drivers do at start: (state, start step), (state, 0) without one."""
     if not cfg.checkpoint_dir:
         return state, 0
     state, step = restore_checkpoint(cfg.checkpoint_dir, state)
-    if step:
+    if step and primary:
         print(f"resumed from checkpoint step {step} in {cfg.checkpoint_dir}")
     return state, step
 
 
 def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
                       profile_dir: str | None = None, start_step: int = 0,
-                      debug_nans: bool = False):
+                      debug_nans: bool = False, primary: bool = True,
+                      mesh=None):
     """Drive iterations ``start_step`` + 1 .. ``cfg.iternum`` in chunks of
     ``cfg.steps_per_call``, clipped to the checkpoint cadence.
 
@@ -389,6 +435,12 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
     2-4), else chunk 2.  ``debug_nans`` turns on autograd's anomaly
     detection and raises ``FloatingPointError`` naming the first non-finite
     state tensor after a chunk.
+
+    On a walker ``mesh`` every rank runs the loop: the metrics are
+    replicated, so all ranks stop, restore and reseed alike; the
+    non-finite check of ``debug_nans`` is summed over ranks.  Only the
+    ``primary`` rank prints and traces; at the end it prints the mesh's
+    collectives (count, host ms, per iteration).
     """
     K = max(1, int(cfg.steps_per_call))
     last_traced = 4 if K == 1 else 2
@@ -414,9 +466,10 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
         # blew up; the window restarts from the restored point.
         _reseed(state, 7919 + restarts)
         window.clear()
-        print(f"WATCHDOG: {reason} at iteration {at_iter}; restored "
-              f"checkpoint step {step} with reseeded chains (restart "
-              f"{restarts}/{cfg.max_restarts})")
+        if primary:
+            print(f"WATCHDOG: {reason} at iteration {at_iter}; restored "
+                  f"checkpoint step {step} with reseeded chains (restart "
+                  f"{restarts}/{cfg.max_restarts})")
         return state, step
 
     i = start_step
@@ -426,7 +479,7 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
     with anomaly, contextlib.ExitStack() as profiling:
         while i < cfg.iternum:
             n_chunk += 1
-            if profile_dir and n_chunk == 2:
+            if profile_dir and primary and n_chunk == 2:
                 profiling.enter_context(
                     trace(profile_dir, cuda=cfg.device != "cpu"))
             chunk = min(K, cfg.iternum - i)
@@ -440,10 +493,13 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
             state, stacked = fn(state)
             if debug_nans:
                 name = _first_nonfinite(state)
-                if name is not None:
+                bad = torch.tensor([float(name is not None)],
+                                   device=state.walkers_cm.device)
+                if float(all_sum(mesh, bad)) > 0:
                     raise FloatingPointError(
-                        f"--debug-nans: non-finite {name} after iteration "
-                        f"{i + chunk}")
+                        f"--debug-nans: non-finite "
+                        f"{name or 'state tensor on another rank'} after "
+                        f"iteration {i + chunk}")
             rows = logger.log_many(i + 1, stacked, t0)
             if n_chunk == last_traced:
                 profiling.close()
@@ -452,11 +508,15 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
                 state, i = recover(state, i + chunk, reason)
                 continue
             _note_healthy(cfg, window, rows)
-            for rec in rows:
-                print_row(rec)
+            if primary:
+                for rec in rows:
+                    print_row(rec)
             i += chunk
             if cfg.checkpoint_dir and i % cfg.checkpoint_every == 0:
                 save_checkpoint(cfg.checkpoint_dir, i, state)
+    line = _collectives_line(mesh, cfg.iternum - start_step)
+    if primary and line:
+        print(line)
     return state
 
 

@@ -7,8 +7,9 @@
 Runs on ``cuda`` (the hand-written kernels) unless ``--device cpu`` asks for
 the plain PyTorch versions.  Each iteration is one mixed-state sampler
 launch and one kernel-chain update; ``--steps-per-call K`` fetches the
-metrics once per K iterations.  ``--checkpoint-dir`` saves and resumes as
-the ground-state driver does.
+metrics once per K iterations.  ``--checkpoint-dir`` saves and resumes,
+and ``--coordinator``, ``--num-processes`` and ``--process-id`` run it
+data parallel, as the ground-state driver does.
 """
 
 from __future__ import annotations
@@ -33,19 +34,27 @@ def main(argv=None):
     common.add_flags(parser, finite_t=True)
     args = parser.parse_args(argv)
     cfg = common.config_from_args(args, finite_t=True)
+    with common.distributed(args) as primary:
+        return _run(args, cfg, primary)
 
+
+def _run(args, cfg, primary: bool):
+    mesh = common.walker_mesh(args, cfg)
     model, params = common.build_beta(cfg)
     state = init_beta_state(model, params, cfg,
-                            params["log_state_weights"].device)
-    state, start_step = common.restore(state, cfg)
-    logger = MetricsLogger(cfg.metrics_path)
+                            params["log_state_weights"].device, mesh)
+    state, start_step = common.restore(state, cfg, primary)
+    logger = MetricsLogger(cfg.metrics_path if primary else None)
 
-    print(f"beta = {cfg.beta:.1f}, nup = {cfg.nup}, ndown = {cfg.ndown}, "
-          f"Z = {cfg.Z:.1f}")
-    print(f"deltaE = {cfg.deltaE:.1f}, total number of states = {model.Nstates}")
-    print("State probabilities initialized with "
-          + ("Boltzmann distribution." if cfg.boltzmann else "random Gaussian."))
-    print(f"batch = {cfg.batch}, iternum = {cfg.iternum}.")
+    if primary:
+        print(f"beta = {cfg.beta:.1f}, nup = {cfg.nup}, ndown = {cfg.ndown}, "
+              f"Z = {cfg.Z:.1f}")
+        print(f"deltaE = {cfg.deltaE:.1f}, total number of states = "
+              f"{model.Nstates}")
+        print("State probabilities initialized with "
+              + ("Boltzmann distribution." if cfg.boltzmann
+                 else "random Gaussian."))
+        print(f"batch = {cfg.batch}, iternum = {cfg.iternum}.")
 
     def print_row(rec):
         print(
@@ -60,13 +69,14 @@ def main(argv=None):
     try:
         state = common.run_training_loop(
             state, cfg,
-            lambda chunk: make_multi_step(make_beta_train_step(model, cfg),
-                                          chunk),
+            lambda chunk: make_multi_step(make_beta_train_step(model, cfg,
+                                                               mesh), chunk),
             logger, print_row, args.profile_dir, start_step, args.debug_nans,
+            primary, mesh,
         )
     finally:
         logger.close()
-    if args.movie:
+    if args.movie and primary:
         common.dump_density_movie(
             args.movie, model, state.params["flow"],
             torch.Generator(state.walkers_cm.device).manual_seed(

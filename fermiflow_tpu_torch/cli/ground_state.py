@@ -7,6 +7,10 @@ Runs on ``cuda`` (the hand-written kernels) unless ``--device cpu`` asks for
 the plain PyTorch versions.  With ``--checkpoint-dir`` it saves every
 ``--checkpoint-every`` iterations and resumes from the latest checkpoint
 there; rerunning the same command continues an interrupted run.
+
+Data parallel over the walkers: run the same command once per rank with
+``--coordinator HOST:PORT --num-processes W --process-id r`` (W processes,
+``--batch`` the global walker count), as ``cli/common.py`` says.
 """
 
 from __future__ import annotations
@@ -32,14 +36,21 @@ def main(argv=None):
     common.add_flags(parser)
     args = parser.parse_args(argv)
     cfg = common.config_from_args(args)
+    with common.distributed(args) as primary:
+        return _run(args, cfg, primary)
 
+
+def _run(args, cfg, primary: bool):
+    mesh = common.walker_mesh(args, cfg)
     model, params = common.build_gs(cfg)
-    state = init_gs_state(model, params, cfg, params["eta"]["w1"].device)
-    state, start_step = common.restore(state, cfg)
-    logger = MetricsLogger(cfg.metrics_path)
+    state = init_gs_state(model, params, cfg, params["eta"]["w1"].device,
+                          mesh)
+    state, start_step = common.restore(state, cfg, primary)
+    logger = MetricsLogger(cfg.metrics_path if primary else None)
 
-    print(f"nup = {cfg.nup}, ndown = {cfg.ndown}, Z = {cfg.Z:.1f}")
-    print(f"batch = {cfg.batch}, iternum = {cfg.iternum}.")
+    if primary:
+        print(f"nup = {cfg.nup}, ndown = {cfg.ndown}, Z = {cfg.Z:.1f}")
+        print(f"batch = {cfg.batch}, iternum = {cfg.iternum}.")
 
     def print_row(rec):
         print(
@@ -53,17 +64,19 @@ def main(argv=None):
     # sampler launch per chunk); with K = 1 each iteration is one
     # single-chain sampler launch, as the JAX driver's per-iteration step.
     if cfg.steps_per_call > 1:
-        make_chunk = lambda chunk: make_gs_fused_multi_step(model, cfg, chunk)
+        make_chunk = lambda chunk: make_gs_fused_multi_step(model, cfg, chunk,
+                                                            mesh)
     else:
         make_chunk = lambda chunk: make_multi_step(
-            make_gs_train_step(model, cfg), chunk)
+            make_gs_train_step(model, cfg, mesh), chunk)
     try:
         state = common.run_training_loop(state, cfg, make_chunk, logger,
                                          print_row, args.profile_dir,
-                                         start_step, args.debug_nans)
+                                         start_step, args.debug_nans,
+                                         primary, mesh)
     finally:
         logger.close()
-    if args.movie:
+    if args.movie and primary:
         common.dump_density_movie(
             args.movie, model, state.params,
             torch.Generator(state.walkers_cm.device).manual_seed(

@@ -25,7 +25,11 @@
 // builds its rows of the Slater matrix and eliminates them together; every
 // lane then holds the same log p and accept uniform, so all decide alike.
 // The arithmetic and the Philox stream are one thread's: counter (draw,
-// step, segment) keyed by (seed, walker), so no generator state is kept.
+// step, segment) keyed by (seed, walker0 + walker), so no generator state
+// is kept.  walker0 is the launch's first global walker: a rank of a
+// multi-process run launching on its rows (walker0 = its first row) walks
+// exactly the chains of those rows in a one-process launch, whatever the
+// process count (walker0 = 0 gives the one-process stream).
 // Optional pre-drawn normal/uniform buffers replace the generator (null in
 // production) so the kernel and its plain PyTorch version can be compared
 // on one random stream.  Between segments tau adapts per walker,
@@ -72,7 +76,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
     float* __restrict__ xs, float* __restrict__ logps, float* __restrict__ rates,
     float* __restrict__ tau_out, const float* __restrict__ normals,
     const float* __restrict__ uniforms, int B, Occ occ, uint32_t seed,
-    int steps, int segments, float target, float gain, int reinit) {
+    uint32_t walker0, int steps, int segments, float target, float gain, int reinit) {
   constexpr int G = kSamplerLanes;
   using L = Group<N, G>;
   constexpr int D = L::D;
@@ -102,7 +106,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
                                2 * slot_particle<N, G>(lane, s) + a) * Bs + w];
       } else {
         float ua;
-        draw_step<N, G>(seed, (uint32_t)w, (uint32_t)steps, (uint32_t)seg, lane, x, ua);
+        draw_step<N, G>(seed, walker0 + (uint32_t)w, (uint32_t)steps, (uint32_t)seg, lane, x, ua);
       }
       logp = slater_logp<N, G>(x, occ, lane);
     }
@@ -119,7 +123,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
                                2 * slot_particle<N, G>(lane, s) + a) * Bs + w];
         ua = uniforms[((size_t)seg * steps + t) * Bs + w];
       } else {
-        draw_step<N, G>(seed, (uint32_t)w, (uint32_t)t, (uint32_t)seg, lane, z, ua);
+        draw_step<N, G>(seed, walker0 + (uint32_t)w, (uint32_t)t, (uint32_t)seg, lane, z, ua);
       }
       float xn[L::S][2];
 #pragma unroll
@@ -156,12 +160,13 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
 template <int N>
 cudaError_t launch(const float* x0, const float* tau0, float* xs, float* logps,
                    float* rates, float* tau_out, const float* normals,
-                   const float* uniforms, int B, Occ occ, uint32_t seed, int steps,
+                   const float* uniforms, int B, Occ occ, uint32_t seed,
+                   uint32_t walker0, int steps,
                    int segments, float target, float gain, int reinit,
                    cudaStream_t stream) {
   metropolis_chains_kernel<N><<<sampler_blocks(B), kSamplerThreads, 0, stream>>>(
       x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed,
-      steps, segments, target, gain, reinit);
+      walker0, steps, segments, target, gain, reinit);
   return cudaGetLastError();
 }
 
@@ -182,21 +187,22 @@ cudaError_t occupancy(int* warps) {
 extern "C" int ff_metropolis_chains(
     const float* x0, const float* tau0, float* xs, float* logps, float* rates,
     float* tau_out, const float* normals, const float* uniforms, int B, int n,
-    int nup, const int* nx, const int* ny, unsigned int seed, int steps,
-    int segments, float target, float gain, int reinit, void* stream) {
+    int nup, const int* nx, const int* ny, unsigned int seed,
+    unsigned int walker0, int steps, int segments, float target, float gain,
+    int reinit, void* stream) {
   const Occ occ = make_occ(nx, ny, n, nup);
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err;
   switch (n) {
-    case 2: err = launch<2>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 3: err = launch<3>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 4: err = launch<4>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 5: err = launch<5>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 6: err = launch<6>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 7: err = launch<7>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 8: err = launch<8>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 9: err = launch<9>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
-    case 10: err = launch<10>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, steps, segments, target, gain, reinit, st); break;
+    case 2: err = launch<2>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 3: err = launch<3>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 4: err = launch<4>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 5: err = launch<5>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 6: err = launch<6>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 7: err = launch<7>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 8: err = launch<8>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 9: err = launch<9>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
+    case 10: err = launch<10>(x0, tau0, xs, logps, rates, tau_out, normals, uniforms, B, occ, seed, walker0, steps, segments, target, gain, reinit, st); break;
     default: return (int)cudaErrorInvalidValue;
   }
   return (int)err;
@@ -209,10 +215,11 @@ extern "C" int ff_metropolis_chains(
 extern "C" int ff_metropolis_free_fermion(
     const float* x0, const float* tau, float* x, float* logp, float* acc,
     const float* normals, const float* uniforms, int B, int n, int nup,
-    const int* nx, const int* ny, unsigned int seed, int steps, void* stream) {
+    const int* nx, const int* ny, unsigned int seed, unsigned int walker0,
+    int steps, void* stream) {
   return ff_metropolis_chains(x0, tau, x, logp, acc, nullptr, normals,
-                              uniforms, B, n, nup, nx, ny, seed, steps, 1,
-                              0.f, 0.f, 0, stream);
+                              uniforms, B, n, nup, nx, ny, seed, walker0,
+                              steps, 1, 0.f, 0.f, 0, stream);
 }
 
 // The chains kernel's launch for n particles over B walkers: resident warps

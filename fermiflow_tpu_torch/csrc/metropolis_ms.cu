@@ -19,7 +19,8 @@
 // Design: the ground-state sampler's (metropolis.cu), whose device code it
 // shares (sampler.cuh): a group of G = kSamplerLanes lanes walks one chain,
 // lane l owning particles l, l + G, ...; Philox4x32-10 keyed by
-// (seed, walker) with counter (draw, step, 0).  Every lane of the group
+// (seed, walker0 + walker) with counter (draw, step, 0), walker0 the
+// launch's first global walker (0 in a one-process run).  Every lane of the group
 // reads the walker's N (nx, ny) pairs once before the chain and keeps them
 // in registers (WalkerQnums, common.cuh: the counterpart of the TPU
 // kernel's one-hot masks hoisted out of its loop).  Orbital values are
@@ -61,7 +62,8 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
     const int* __restrict__ nx, const int* __restrict__ ny,
     float* __restrict__ x_out, float* __restrict__ logp_out,
     float* __restrict__ acc_out, const float* __restrict__ normals,
-    const float* __restrict__ uniforms, int B, uint32_t seed, int steps) {
+    const float* __restrict__ uniforms, int B, uint32_t seed, uint32_t walker0,
+    int steps) {
   constexpr int G = kSamplerLanes;
   using L = Group<N, G>;
   constexpr int D = L::D;
@@ -94,7 +96,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
           z[s][a] = normals[((size_t)t * D + 2 * slot_particle<N, G>(lane, s) + a) * Bs + w];
       ua = uniforms[(size_t)t * Bs + w];
     } else {
-      draw_step<N, G>(seed, (uint32_t)w, (uint32_t)t, 0u, lane, z, ua);
+      draw_step<N, G>(seed, walker0 + (uint32_t)w, (uint32_t)t, 0u, lane, z, ua);
     }
     float xn[L::S][2];
 #pragma unroll
@@ -128,9 +130,9 @@ template <int N, int K>
 cudaError_t launch(const float* x0, const float* tau, const int* nx,
                    const int* ny, float* x, float* logp, float* acc,
                    const float* normals, const float* uniforms, int B,
-                   uint32_t seed, int steps, cudaStream_t stream) {
+                   uint32_t seed, uint32_t walker0, int steps, cudaStream_t stream) {
   metropolis_ms_kernel<N, K><<<sampler_blocks(B), kSamplerThreads, 0, stream>>>(
-      x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps);
+      x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps);
   return cudaGetLastError();
 }
 
@@ -149,14 +151,14 @@ template <int N>
 cudaError_t dispatch_k(int kdepth, const float* x0, const float* tau,
                        const int* nx, const int* ny, float* x, float* logp,
                        float* acc, const float* normals, const float* uniforms,
-                       int B, uint32_t seed, int steps, cudaStream_t st,
-                       int* warps) {
+                       int B, uint32_t seed, uint32_t walker0, int steps,
+                       cudaStream_t st, int* warps) {
   switch (kdepth) {
 #define FF_MS_DEPTH(KD)                                                           \
   case KD:                                                                        \
     return warps ? occupancy<N, KD>(warps)                                        \
                  : launch<N, KD>(x0, tau, nx, ny, x, logp, acc, normals, uniforms, \
-                                 B, seed, steps, st);
+                                 B, seed, walker0, steps, st);
     FF_MS_DEPTH(4)
     FF_MS_DEPTH(5)
     FF_MS_DEPTH(6)
@@ -169,17 +171,17 @@ cudaError_t dispatch_k(int kdepth, const float* x0, const float* tau,
 int dispatch(int n, int kdepth, const float* x0, const float* tau,
              const int* nx, const int* ny, float* x, float* logp, float* acc,
              const float* normals, const float* uniforms, int B, uint32_t seed,
-             int steps, cudaStream_t st, int* warps) {
+             uint32_t walker0, int steps, cudaStream_t st, int* warps) {
   switch (n) {
-    case 2: return (int)dispatch_k<2>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 3: return (int)dispatch_k<3>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 4: return (int)dispatch_k<4>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 5: return (int)dispatch_k<5>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 6: return (int)dispatch_k<6>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 7: return (int)dispatch_k<7>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 8: return (int)dispatch_k<8>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 9: return (int)dispatch_k<9>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
-    case 10: return (int)dispatch_k<10>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, steps, st, warps);
+    case 2: return (int)dispatch_k<2>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 3: return (int)dispatch_k<3>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 4: return (int)dispatch_k<4>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 5: return (int)dispatch_k<5>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 6: return (int)dispatch_k<6>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 7: return (int)dispatch_k<7>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 8: return (int)dispatch_k<8>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 9: return (int)dispatch_k<9>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
+    case 10: return (int)dispatch_k<10>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -192,9 +194,10 @@ int dispatch(int n, int kdepth, const float* x0, const float* tau,
 extern "C" int ff_metropolis_multistate(
     const float* x0, const float* tau, const int* nx, const int* ny, float* x,
     float* logp, float* acc, const float* normals, const float* uniforms,
-    int B, int n, int kdepth, unsigned int seed, int steps, void* stream) {
+    int B, int n, int kdepth, unsigned int seed, unsigned int walker0,
+    int steps, void* stream) {
   return dispatch(n, kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms,
-                  B, seed, steps, (cudaStream_t)stream, nullptr);
+                  B, seed, walker0, steps, (cudaStream_t)stream, nullptr);
 }
 
 // The kernel's launch for (n, kdepth) over B walkers: resident warps per
@@ -205,6 +208,6 @@ extern "C" int ff_metropolis_ms_occupancy(int n, int kdepth, int B,
   *grid_warps = sampler_grid_warps(B);
   *lanes = kSamplerLanes;
   return dispatch(n, kdepth, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, nullptr, 0, 0u, 0, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, 0, 0u, 0u, 0, nullptr,
                   warps_per_sm);
 }

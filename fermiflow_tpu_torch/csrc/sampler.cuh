@@ -103,7 +103,8 @@ __device__ __forceinline__ float uniform_at(const uint4 (&r)[QS], int j) {
   }
 }
 
-// Step `step` of segment `seg` of walker `walker`: this lane's coordinates'
+// Step `step` of segment `seg` of global walker `walker` (the launch's
+// walker0 plus the walker's row): this lane's coordinates'
 // normals z[s][a] (coordinate a of its slot-s particle) and the accept
 // uniform ua.  The stream is one thread's: uniforms u[0..d] with u[4q + e]
 // word e of Philox call q (counter (q, step, seg, 0), key (seed, walker));

@@ -23,7 +23,7 @@ from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, unpack_triu
 
 __all__ = ["hessian_flow_cm", "hessian_flow_cm_plain", "hessian_flow_packed",
            "hessian_flow_occupancy", "lane_plan", "lanes_for",
-           "tableau_args", "w2k"]
+           "tableau_args", "w2k", "hessian_flow_pallas_sharded"]
 
 _MAXSTAGES = 6  # FF_MAXSTAGES in csrc/common.cuh
 
@@ -165,3 +165,14 @@ def hessian_flow_packed(params: dict, z: torch.Tensor, y0: torch.Tensor,
         params, z.reshape(B, n * dim).T.contiguous(), y0.contiguous(),
         g0.T.contiguous(), Hp0.T.contiguous(), t0, t1, steps, method)
     return x.T.reshape(B, n, dim), lp, g.T, Hp.T
+
+
+def hessian_flow_pallas_sharded(mesh, params: dict, z: torch.Tensor,
+                                y0: torch.Tensor, g0: torch.Tensor,
+                                Hp0: torch.Tensor, t0: float, t1: float,
+                                steps: int = 16, method: str = "dopri5"):
+    """``hessian_flow_packed`` on this rank's rows of ``mesh`` (a walker
+    mesh, ``parallel/mesh.py``): the augmented flow of a walker depends on
+    that walker alone, so each rank launches on its rows, the parameters
+    replicated, with no collective."""
+    return hessian_flow_packed(params, z, y0, g0, Hp0, t0, t1, steps, method)

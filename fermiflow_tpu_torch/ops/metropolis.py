@@ -19,6 +19,17 @@ Each kernel walks a chain with a group of ``LANES`` lanes of a warp
 (``csrc/sampler.cuh``: lane l owns particles l, l + LANES, ...), on the
 Philox stream that one thread per chain would draw.
 
+Walker-axis data parallelism (``parallel/mesh.py``): each entry takes
+``walker0``, the global index of its first walker, and its plain version
+also ``global_batch``.  A kernel keys its Philox stream by (seed, walker0 +
+walker); a plain version draws the global (d, B) normals and (B,) uniforms
+and keeps its rows.  So a rank launching on its rows walks bitwise the
+chains of those rows in the one-process launch, whatever the process
+count; walker0 = 0 is the one-process stream.  This replaces the JAX
+package's ``_per_shard_seed`` (seed + shard << 16), whose streams depend on
+the shard count (the port's streams never matched JAX's).  The
+``*_sharded`` entry points take a rank's rows in the JAX layout.
+
 Each takes an optional ``noise = (normals, uniforms)`` so that a kernel and
 its plain version can be compared on one random stream: for the chains
 normals (segments, steps + 1, d, B) (slot ``steps`` feeds the ``reinit``
@@ -38,6 +49,7 @@ import torch
 
 from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.logdet import logabsdet
+from fermiflow_tpu_torch.parallel.mesh import sampler_rows
 from fermiflow_tpu_torch.physics.orbitals import hermite_functions
 from fermiflow_tpu_torch.physics.slater import slater_matrix_qnums
 
@@ -45,7 +57,10 @@ __all__ = ["metropolis_chains", "metropolis_chains_plain",
            "metropolis_free_fermion_chains", "metropolis_single_cm",
            "metropolis_single_cm_plain", "metropolis_free_fermion",
            "metropolis_multistate_cm", "metropolis_multistate_cm_plain",
-           "metropolis_free_fermion_multistate", "slater_logp_qn",
+           "metropolis_free_fermion_multistate",
+           "metropolis_free_fermion_chains_sharded",
+           "metropolis_free_fermion_sharded",
+           "metropolis_free_fermion_multistate_sharded", "slater_logp_qn",
            "slater_logp_ms", "ms_depth", "metropolis_occupancy",
            "metropolis_ms_occupancy", "SUPPORTED_N", "MS_SUPPORTED_N",
            "gs_orders", "check_gs_occupation", "check_ms_occupation",
@@ -144,16 +159,28 @@ def _chain_plain(x, logp, tau, logp_fn, steps, draws):
     return x, logp, acc / max(steps, 1)
 
 
+def _global_rows(B: int, walker0: int, global_batch: int | None):
+    """(global batch, slice of this launch's rows) of a plain sampler."""
+    Bg = B if global_batch is None else int(global_batch)
+    if not 0 <= walker0 <= Bg - B:
+        raise ValueError(f"rows {walker0}..{walker0 + B} lie outside the "
+                         f"global batch {Bg}")
+    return Bg, slice(walker0, walker0 + B)
+
+
 def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
                             *, steps: int, segments: int, nx_occ: tuple,
                             ny_occ: tuple, nx_dn: tuple = (), ny_dn: tuple = (),
                             num_shells: int = 3, target: float = 0.5,
                             gain: float = 0.1, reinit: bool = False,
                             noise=None,
-                            generator: torch.Generator | None = None):
+                            generator: torch.Generator | None = None,
+                            walker0: int = 0, global_batch: int | None = None):
     """Plain PyTorch version of ``metropolis_chains`` (same arguments and
     returns), on any device.  Without ``noise`` it draws from ``generator``,
-    or from a new one seeded with ``seed`` on the walkers' device."""
+    or from a new one seeded with ``seed`` on the walkers' device: the
+    ``global_batch`` (default B) walkers' draws, keeping rows
+    ``walker0``.. of them."""
     nx = tuple(nx_occ) + tuple(nx_dn)
     ny = tuple(ny_occ) + tuple(ny_dn)
     nup = len(nx_occ)
@@ -161,6 +188,7 @@ def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
         generator = torch.Generator(x0_cm.device).manual_seed(int(seed))
     d, B = x0_cm.shape
     n = d // 2
+    Bg, rows = _global_rows(B, walker0, global_batch)
     to_walkers = lambda a: a.T.reshape(B, n, 2)
     logp_fn = lambda x: slater_logp_qn(x, nx, ny, nup, num_shells)
     kw = dict(dtype=x0_cm.dtype, device=x0_cm.device)
@@ -168,12 +196,13 @@ def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
     def normals(s, t):
         if noise is not None:
             return noise[0][s, t]
-        return torch.randn((d, B), generator=generator, **kw)
+        return torch.randn((d, Bg), generator=generator, **kw)[:, rows]
 
     def uniform(s, t):
         if noise is not None:
             return noise[1][s, t]
-        return torch.rand((B,), generator=generator, **kw).clamp_min(1e-12)
+        return torch.rand((Bg,), generator=generator,
+                          **kw)[rows].clamp_min(1e-12)
 
     x = to_walkers(x0_cm)
     tau = tau.clone()
@@ -195,7 +224,7 @@ def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
 
 
 def _chains_cuda(x0_cm, tau, seed, steps, segments, nx, ny, nup, target, gain,
-                 reinit, noise):
+                 reinit, noise, walker0=0):
     d, B = x0_cm.shape
     n = d // 2
     normals, uniforms = noise if noise is not None else (None, None)
@@ -219,8 +248,8 @@ def _chains_cuda(x0_cm, tau, seed, steps, segments, nx, ny, nup, target, gain,
             _build.ptr(logps), _build.ptr(rates), _build.ptr(tau_out),
             _build.ptr(normals), _build.ptr(uniforms), ctypes.c_int(B),
             ctypes.c_int(n), ctypes.c_int(nup), ints(*nx), ints(*ny),
-            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_int(steps),
-            ctypes.c_int(segments), ctypes.c_float(target),
+            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_uint(walker0),
+            ctypes.c_int(steps), ctypes.c_int(segments), ctypes.c_float(target),
             ctypes.c_float(gain), ctypes.c_int(int(reinit)),
             _build.stream_ptr(x0_cm.device))
     _build.check_rc(rc, "metropolis_chains")
@@ -233,7 +262,8 @@ def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
                       nx_dn: tuple = (), ny_dn: tuple = (), num_shells: int = 3,
                       target: float = 0.5, gain: float = 0.1,
                       reinit: bool = False, noise=None,
-                      generator: torch.Generator | None = None):
+                      generator: torch.Generator | None = None,
+                      walker0: int = 0, global_batch: int | None = None):
     """K segments of ``steps`` Metropolis steps, coordinate-major.
 
     Args:
@@ -245,6 +275,9 @@ def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
       target, gain: tau adaptation between segments (ignored with reinit).
       reinit: restart each segment after the first from fresh Gaussians.
       noise: optional shared random stream, see the module docstring.
+      walker0, global_batch: the global index of the first walker, and the
+        global walker count (the plain version's draws), see the module
+        docstring.
 
     Returns:
       xs (segments, d, B), logps (segments, B), rates (segments, B),
@@ -260,10 +293,10 @@ def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
             x0_cm, tau, seed, steps=steps, segments=segments, nx_occ=nx_occ,
             ny_occ=ny_occ, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells,
             target=target, gain=gain, reinit=reinit, noise=noise,
-            generator=generator)
+            generator=generator, walker0=walker0, global_batch=global_batch)
     check_gs_occupation("sampler", nx, ny)
     return _chains_cuda(x0_cm, tau, int(seed), steps, segments, nx, ny, nup,
-                        target, gain, reinit, noise)
+                        target, gain, reinit, noise, int(walker0))
 
 
 def metropolis_free_fermion_chains(x0: torch.Tensor, seed: int, tau, steps: int,
@@ -271,7 +304,8 @@ def metropolis_free_fermion_chains(x0: torch.Tensor, seed: int, tau, steps: int,
                                    num_shells: int = 3, nx_dn: tuple = (),
                                    ny_dn: tuple = (), target: float = 0.5,
                                    gain: float = 0.1, reinit: bool = False,
-                                   noise=None, generator=None):
+                                   noise=None, generator=None, walker0=0,
+                                   global_batch=None):
     """JAX-layout wrapper: x0 (B, n, dim) -> (xs (S, B, n, dim), logps (S, B),
     rates (S, B), tau_out (B,)), as the TPU function returns."""
     B, n, dim = x0.shape
@@ -281,7 +315,8 @@ def metropolis_free_fermion_chains(x0: torch.Tensor, seed: int, tau, steps: int,
         x0.reshape(B, n * dim).T.contiguous(), tau, seed, steps=steps,
         segments=segments, nx_occ=nx_occ, ny_occ=ny_occ, nx_dn=nx_dn,
         ny_dn=ny_dn, num_shells=num_shells, target=target, gain=gain,
-        reinit=reinit, noise=noise, generator=generator)
+        reinit=reinit, noise=noise, generator=generator, walker0=walker0,
+        global_batch=global_batch)
     return xs.transpose(1, 2).reshape(segments, B, n, dim), logps, rates, tau_out
 
 
@@ -293,7 +328,9 @@ def metropolis_single_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
                                ny_occ: tuple, nx_dn: tuple = (),
                                ny_dn: tuple = (), num_shells: int = 3,
                                noise=None,
-                               generator: torch.Generator | None = None):
+                               generator: torch.Generator | None = None,
+                               walker0: int = 0,
+                               global_batch: int | None = None):
     """Plain PyTorch version of ``metropolis_single_cm`` (same arguments and
     returns), on any device: ``metropolis_chains_plain`` at one segment."""
     if noise is not None:
@@ -301,11 +338,12 @@ def metropolis_single_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
     xs, logps, rates, _ = metropolis_chains_plain(
         x0_cm, tau, seed, steps=steps, segments=1, nx_occ=nx_occ,
         ny_occ=ny_occ, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells,
-        noise=noise, generator=generator)
+        noise=noise, generator=generator, walker0=walker0,
+        global_batch=global_batch)
     return xs[0], logps[0], rates[0]
 
 
-def _single_cuda(x0_cm, tau, seed, steps, nx, ny, nup, noise):
+def _single_cuda(x0_cm, tau, seed, steps, nx, ny, nup, noise, walker0=0):
     d, B = x0_cm.shape
     n = d // 2
     normals, uniforms = noise if noise is not None else (None, None)
@@ -326,8 +364,8 @@ def _single_cuda(x0_cm, tau, seed, steps, nx, ny, nup, noise):
     rc = fn(_build.ptr(x0_cm), _build.ptr(tau), _build.ptr(x), _build.ptr(logp),
             _build.ptr(acc), _build.ptr(normals), _build.ptr(uniforms),
             ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(nup), ints(*nx),
-            ints(*ny), ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_int(steps),
-            _build.stream_ptr(x0_cm.device))
+            ints(*ny), ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_uint(walker0),
+            ctypes.c_int(steps), _build.stream_ptr(x0_cm.device))
     _build.check_rc(rc, "metropolis_single")
     _build.LAUNCHES["metropolis_single"] += 1
     return x, logp, acc
@@ -337,12 +375,13 @@ def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
                          steps: int, nx_occ: tuple, ny_occ: tuple,
                          nx_dn: tuple = (), ny_dn: tuple = (),
                          num_shells: int = 3, noise=None,
-                         generator: torch.Generator | None = None):
+                         generator: torch.Generator | None = None,
+                         walker0: int = 0, global_batch: int | None = None):
     """One chain of ``steps`` Metropolis steps at fixed per-walker tau.
 
     x0_cm (d, B), tau (B,) -> x (d, B), logp (B,), accept rate (B,).
-    Occupations and ``noise`` as for ``metropolis_chains`` (noise shapes in
-    the module docstring).
+    Occupations, ``noise``, ``walker0`` and ``global_batch`` as for
+    ``metropolis_chains`` (noise shapes in the module docstring).
     """
     nx = tuple(nx_occ) + tuple(nx_dn)
     ny = tuple(ny_occ) + tuple(ny_dn)
@@ -352,16 +391,16 @@ def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
         return metropolis_single_cm_plain(
             x0_cm, tau, seed, steps=steps, nx_occ=nx_occ, ny_occ=ny_occ,
             nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells, noise=noise,
-            generator=generator)
+            generator=generator, walker0=walker0, global_batch=global_batch)
     check_gs_occupation("sampler", nx, ny)
     return _single_cuda(x0_cm, tau, int(seed), steps, nx, ny, len(nx_occ),
-                        noise)
+                        noise, int(walker0))
 
 
 def metropolis_free_fermion(x0: torch.Tensor, seed: int, tau, steps: int,
                             nx_occ: tuple, ny_occ: tuple, num_shells: int = 8,
                             nx_dn: tuple = (), ny_dn: tuple = (), noise=None,
-                            generator=None):
+                            generator=None, walker0=0, global_batch=None):
     """JAX-layout wrapper: x0 (B, n, dim), tau scalar or (B,) -> (x (B, n, dim),
     logp (B,), accept_rate (B,)), as the TPU function returns."""
     B, n, dim = x0.shape
@@ -370,7 +409,8 @@ def metropolis_free_fermion(x0: torch.Tensor, seed: int, tau, steps: int,
     x, logp, acc = metropolis_single_cm(
         x0.reshape(B, n * dim).T.contiguous(), tau, seed, steps=steps,
         nx_occ=nx_occ, ny_occ=ny_occ, nx_dn=nx_dn, ny_dn=ny_dn,
-        num_shells=num_shells, noise=noise, generator=generator)
+        num_shells=num_shells, noise=noise, generator=generator,
+        walker0=walker0, global_batch=global_batch)
     return x.T.reshape(B, n, dim), logp, acc
 
 
@@ -392,13 +432,16 @@ def metropolis_multistate_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
                                    seed: int, *, steps: int,
                                    nx_cm: torch.Tensor, ny_cm: torch.Tensor,
                                    num_shells: int, noise=None,
-                                   generator: torch.Generator | None = None):
+                                   generator: torch.Generator | None = None,
+                                   walker0: int = 0,
+                                   global_batch: int | None = None):
     """Plain PyTorch version of ``metropolis_multistate_cm`` (same arguments
     and returns), on any device."""
     if noise is None and generator is None:
         generator = torch.Generator(x0_cm.device).manual_seed(int(seed))
     d, B = x0_cm.shape
     n = d // 2
+    Bg, rows = _global_rows(B, walker0, global_batch)
     to_walkers = lambda a: a.T.reshape(B, n, 2)
     nx, ny = nx_cm.T, ny_cm.T
     logp_fn = lambda x: slater_logp_ms(x, nx, ny, num_shells)
@@ -407,16 +450,17 @@ def metropolis_multistate_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
     def draws(t):
         if noise is not None:
             return to_walkers(noise[0][t]), noise[1][t]
-        z = torch.randn((d, B), generator=generator, **kw)
-        return to_walkers(z), torch.rand((B,), generator=generator,
-                                         **kw).clamp_min(1e-12)
+        z = torch.randn((d, Bg), generator=generator, **kw)[:, rows]
+        return to_walkers(z), torch.rand((Bg,), generator=generator,
+                                         **kw)[rows].clamp_min(1e-12)
 
     x = to_walkers(x0_cm)
     x, logp, rate = _chain_plain(x, logp_fn(x), tau, logp_fn, steps, draws)
     return x.reshape(B, d).T.contiguous(), logp, rate
 
 
-def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise):
+def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise,
+                     walker0=0):
     d, B = x0_cm.shape
     n = d // 2
     normals, uniforms = noise if noise is not None else (None, None)
@@ -440,8 +484,8 @@ def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise):
     rc = fn(P(x0_cm), P(tau), P(nx_cm), P(ny_cm), P(x), P(logp), P(acc),
             P(normals), P(uniforms), ctypes.c_int(B), ctypes.c_int(n),
             ctypes.c_int(ms_depth(num_shells)),
-            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_int(steps),
-            _build.stream_ptr(x0_cm.device))
+            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_uint(walker0),
+            ctypes.c_int(steps), _build.stream_ptr(x0_cm.device))
     _build.check_rc(rc, "metropolis_multistate")
     _build.LAUNCHES["metropolis_multistate"] += 1
     return x, logp, acc
@@ -450,7 +494,8 @@ def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise):
 def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
                              seed: int, *, steps: int, nx_cm: torch.Tensor,
                              ny_cm: torch.Tensor, num_shells: int, noise=None,
-                             generator: torch.Generator | None = None):
+                             generator: torch.Generator | None = None,
+                             walker0: int = 0, global_batch: int | None = None):
     """One fixed-tau chain per walker on its own Slater state's density.
 
     Args:
@@ -461,6 +506,7 @@ def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
         orbitals (one spin sector), all below ``num_shells``.
       num_shells: Hermite depth covering the quantum numbers.
       noise: optional shared random stream, see the module docstring.
+      walker0, global_batch: as for ``metropolis_chains``.
 
     Returns:
       x (d, B), logp (B,), accept rate (B,).  On the GPU a walker with a
@@ -471,16 +517,18 @@ def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
     if x0_cm.device.type == "cpu":
         return metropolis_multistate_cm_plain(
             x0_cm, tau, seed, steps=steps, nx_cm=nx_cm, ny_cm=ny_cm,
-            num_shells=num_shells, noise=noise, generator=generator)
+            num_shells=num_shells, noise=noise, generator=generator,
+            walker0=walker0, global_batch=global_batch)
     check_ms_occupation("sampler", nx_cm.shape[0], num_shells)
     return _multistate_cuda(x0_cm, tau, int(seed), steps, nx_cm, ny_cm,
-                            num_shells, noise)
+                            num_shells, noise, int(walker0))
 
 
 def metropolis_free_fermion_multistate(x0: torch.Tensor, seed: int, tau,
                                        steps: int, nx: torch.Tensor,
                                        ny: torch.Tensor, num_shells: int = 8,
-                                       noise=None, generator=None):
+                                       noise=None, generator=None, walker0=0,
+                                       global_batch=None):
     """JAX-layout wrapper: x0 (B, n, dim), tau scalar or (B,), nx/ny (B, n)
     -> (x (B, n, dim), logp (B,), accept_rate (B,)), as the TPU function
     returns."""
@@ -491,5 +539,47 @@ def metropolis_free_fermion_multistate(x0: torch.Tensor, seed: int, tau,
         x0.reshape(B, n * dim).T.contiguous(), tau, seed, steps=steps,
         nx_cm=nx.T.to(torch.int32).contiguous(),
         ny_cm=ny.T.to(torch.int32).contiguous(), num_shells=num_shells,
-        noise=noise, generator=generator)
+        noise=noise, generator=generator, walker0=walker0,
+        global_batch=global_batch)
     return x.T.reshape(B, n, dim), logp, acc
+
+
+# ---- over a walker mesh: one launch per rank on its rows ----
+
+
+def metropolis_free_fermion_chains_sharded(mesh, x0: torch.Tensor, seed: int,
+                                           tau, steps: int, segments: int,
+                                           nx_occ: tuple, ny_occ: tuple,
+                                           num_shells: int = 3,
+                                           nx_dn: tuple = (), ny_dn: tuple = (),
+                                           target: float = 0.5,
+                                           gain: float = 0.1,
+                                           reinit: bool = False):
+    """``metropolis_free_fermion_chains`` on this rank's rows x0 (B, n, dim)
+    of a walker mesh (``parallel/mesh.py``): one launch, no collective, the
+    rows' chains of the one-process launch bitwise (module docstring)."""
+    return metropolis_free_fermion_chains(
+        x0, seed, tau, steps, segments, nx_occ, ny_occ, num_shells, nx_dn,
+        ny_dn, target, gain, reinit, **sampler_rows(mesh, x0.shape[0]))
+
+
+def metropolis_free_fermion_sharded(mesh, x0: torch.Tensor, seed: int, tau,
+                                    steps: int, nx_occ: tuple, ny_occ: tuple,
+                                    num_shells: int = 8, nx_dn: tuple = (),
+                                    ny_dn: tuple = ()):
+    """``metropolis_free_fermion`` on this rank's rows of a walker mesh."""
+    return metropolis_free_fermion(
+        x0, seed, tau, steps, nx_occ, ny_occ, num_shells, nx_dn, ny_dn,
+        **sampler_rows(mesh, x0.shape[0]))
+
+
+def metropolis_free_fermion_multistate_sharded(mesh, x0: torch.Tensor,
+                                               seed: int, tau, steps: int,
+                                               nx: torch.Tensor,
+                                               ny: torch.Tensor,
+                                               num_shells: int = 8):
+    """``metropolis_free_fermion_multistate`` on this rank's rows of a
+    walker mesh; the occupations nx, ny (B, n) are the rows' own."""
+    return metropolis_free_fermion_multistate(
+        x0, seed, tau, steps, nx, ny, num_shells,
+        **sampler_rows(mesh, x0.shape[0]))

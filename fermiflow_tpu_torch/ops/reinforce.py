@@ -30,10 +30,12 @@ from fermiflow_tpu_torch.ode.integrators import TABLEAUS
 from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.hessian_flow import tableau_args
 from fermiflow_tpu_torch.ops.metropolis import SUPPORTED_N
+from fermiflow_tpu_torch.parallel.mesh import all_sum_tree
 
 __all__ = ["reinforce_cm", "reinforce_cm_plain", "reinforce_partials",
            "block_sum", "reinforce_flow_grad", "grads_from_rows",
-           "reinforce_occupancy", "lane_plan", "lanes_for"]
+           "reinforce_occupancy", "lane_plan", "lanes_for",
+           "reinforce_flow_grad_pallas_sharded"]
 
 CHUNK_INPUTS = 16  # kChunkInputs in csrc/reinforce.cu
 
@@ -303,3 +305,15 @@ def reinforce_flow_grad(params: dict, x1: torch.Tensor, ghat: torch.Tensor,
                             ghat.T.contiguous(), w.contiguous(), t0, t1,
                             steps, method)
     return grads, z.T.reshape(B, n, dim)
+
+
+def reinforce_flow_grad_pallas_sharded(mesh, params: dict, x1: torch.Tensor,
+                                       ghat: torch.Tensor, w: torch.Tensor,
+                                       t0: float, t1: float, steps: int = 8,
+                                       method: str = "dopri5"):
+    """``reinforce_flow_grad`` over a walker mesh (``parallel/mesh.py``):
+    the adjoint and block sum on this rank's rows, then one ``all_sum`` of
+    the parameter gradient, replicated on every rank (the JAX function's
+    ``psum``).  z_back stays this rank's rows."""
+    grads, z = reinforce_flow_grad(params, x1, ghat, w, t0, t1, steps, method)
+    return all_sum_tree(mesh, grads), z

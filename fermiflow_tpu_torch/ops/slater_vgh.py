@@ -38,7 +38,8 @@ from fermiflow_tpu_torch.physics.slater import (
 __all__ = ["slater_vgh_cm", "slater_vgh_cm_plain", "slater_vgh",
            "slater_vgh_ms_cm", "slater_vgh_ms_cm_plain", "slater_vgh_ms",
            "pack_triu", "unpack_triu", "slater_vgh_occupancy",
-           "slater_vgh_ms_occupancy", "LANES"]
+           "slater_vgh_ms_occupancy", "slater_vgh_pallas_sharded",
+           "slater_vgh_ms_pallas_sharded", "LANES"]
 
 LANES = 8  # kVghLanes in csrc/vgh.cuh: lanes of a warp per walker
 
@@ -209,3 +210,22 @@ def slater_vgh_ms(x: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
                                 nx.T.to(torch.int32).contiguous(),
                                 ny.T.to(torch.int32).contiguous(), num_shells)
     return y, g.T, Hp.T
+
+
+# ---- over a walker mesh (parallel/mesh.py): one launch per rank ----
+# A walker's VGH depends on that walker alone, so each rank launches on its
+# own rows with no collective (the JAX functions' shard_map).
+
+
+def slater_vgh_pallas_sharded(mesh, x: torch.Tensor, nx_occ: tuple,
+                              ny_occ: tuple, num_shells: int = 3,
+                              nx_dn: tuple = (), ny_dn: tuple = ()):
+    """``slater_vgh`` on this rank's rows x (B, n, 2) of ``mesh``."""
+    return slater_vgh(x, nx_occ, ny_occ, num_shells, nx_dn, ny_dn)
+
+
+def slater_vgh_ms_pallas_sharded(mesh, x: torch.Tensor, nx: torch.Tensor,
+                                 ny: torch.Tensor, num_shells: int = 8):
+    """``slater_vgh_ms`` on this rank's rows x (B, n, 2) and their
+    occupations nx, ny (B, n) of ``mesh``."""
+    return slater_vgh_ms(x, nx, ny, num_shells)

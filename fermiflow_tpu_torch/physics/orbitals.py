@@ -78,6 +78,10 @@ class HO2D:
         """Orbital indices of shell n."""
         return tuple(range(n * (n + 1) // 2, (n + 1) * (n + 2) // 2))
 
+    def eval_all(self, x: torch.Tensor) -> torch.Tensor:
+        """Every orbital at positions x: (..., 2) -> (..., num_orbitals)."""
+        return self.eval_orbitals(np.arange(self.num_orbitals), x)
+
     def eval_orbitals(self, orb_indices, x: torch.Tensor) -> torch.Tensor:
         """phi_m(r) = pi^{-1/2} exp(-r^2/2) h_{nx_m}(x) h_{ny_m}(y) for a static
         subset of orbitals: (..., 2) -> (..., len(orb_indices))."""
@@ -113,3 +117,11 @@ class HO2D:
         states.sort(key=lambda s: s[1])
         occ = np.array([s[0] for s in states], dtype=np.int32)
         return occ, np.array([s[1] for s in states], dtype=np.float64)
+
+    def fermion_states_random(self, n: int, seed: int | None = None):
+        """n distinct random orbitals, sorted, and their energies (float64),
+        drawn as the JAX package draws them (``np.random.default_rng``)."""
+        rng = np.random.default_rng(seed)
+        idx = np.sort(rng.choice(self.num_orbitals, size=n, replace=False))
+        idx = idx.astype(np.int32)
+        return idx, self.Es[idx].astype(np.float64)

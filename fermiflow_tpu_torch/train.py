@@ -21,6 +21,17 @@ x = flow(z) and autograd of the nested-jvp ``loss_and_metrics``; and with
 ``--no-pallas-*``) autograd of ``loss_and_metrics_from_base``, Eloc from
 the kernel chain or the plain Hessian flow.  ``cfg.pallas_sampler`` off
 runs the plain samplers.  The sampler kernels draw z on every other path.
+
+Every builder takes ``mesh`` (``parallel/mesh.py``): the state then holds
+this rank's rows of the global ``cfg.batch`` walkers.  Every walker-axis
+draw (the initial Gaussians and states, fresh chain starts, the state
+refresh's uniforms and redraws, the plain samplers' noise) takes the global
+shape and keeps the rank's rows, so the host and device generators stay
+replicated and a rank's rows are those of the one-process run; the
+sampler kernels key their streams by the global walker index.  The
+metrics are global (summed over ranks) and so replicated, the autograd
+paths sum every parameter's gradient over ranks before Adam, and so every
+rank takes the same decisions and the same Adam step.
 """
 
 from __future__ import annotations
@@ -39,6 +50,13 @@ from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_multistate_cm_plain,
     metropolis_single_cm,
     metropolis_single_cm_plain,
+)
+from fermiflow_tpu_torch.parallel.mesh import (
+    all_sum_tensors,
+    global_batch,
+    sampler_rows,
+    shard_walkers,
+    walker_mean,
 )
 from fermiflow_tpu_torch.vmc.beta import BetaVMC
 from fermiflow_tpu_torch.vmc.gs import GSVMC, _detach
@@ -93,9 +111,14 @@ def _flow_on(params: dict, device, dtype) -> Backflow:
                      for k, v in params.items()})
 
 
+def _local_batch(cfg: Config, mesh) -> int:
+    return cfg.batch if mesh is None else mesh.rows(cfg.batch)[1]
+
+
 def init_gs_state(model: GSVMC, params: dict, cfg: Config,
-                  device: torch.device) -> TrainState:
-    """Fresh state: Gaussian walkers and tau = cfg.tau, from ``cfg.seed``."""
+                  device: torch.device, mesh=None) -> TrainState:
+    """Fresh state: Gaussian walkers and tau = cfg.tau, from ``cfg.seed``
+    (with ``mesh``, this rank's rows of them)."""
     dtype = cfg.torch_dtype()
     gen = torch.Generator().manual_seed(cfg.seed)
     d = model.n * model.basedist.dim
@@ -106,8 +129,9 @@ def init_gs_state(model: GSVMC, params: dict, cfg: Config,
         optimizer=make_adam(flow, cfg.lr),
         generator=gen,
         step=0,
-        walkers_cm=walkers.to(device),
-        tau=torch.full((cfg.batch,), cfg.tau, dtype=dtype, device=device),
+        walkers_cm=shard_walkers(mesh, walkers, 1).to(device),
+        tau=torch.full((_local_batch(cfg, mesh),), cfg.tau, dtype=dtype,
+                       device=device),
     )
 
 
@@ -125,12 +149,21 @@ def _apply_grads(state: TrainState, grads: dict) -> None:
     state.optimizer.step()
 
 
-def _autograd_step(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-    """Adam on the gradient that autograd takes of ``loss``."""
+def _autograd_step(state: TrainState, loss: torch.Tensor,
+                   mesh=None) -> torch.Tensor:
+    """Adam on the gradient that autograd takes of ``loss``; with ``mesh``
+    ``loss`` is this rank's share, and every parameter's gradient and the
+    loss are summed over ranks (one collective) before the step."""
     state.optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    params = [p for g in state.optimizer.param_groups for p in g["params"]
+              if p.grad is not None]
+    *grads, loss = all_sum_tensors(mesh, *(p.grad for p in params),
+                                   loss.detach())
+    for p, g in zip(params, grads):
+        p.grad = g
     state.optimizer.step()
-    return loss.detach()
+    return loss
 
 
 def _use_hessian_flow(cfg: Config, cnf) -> bool:
@@ -158,7 +191,7 @@ def _generated(model, flow_params: dict, z_cm: torch.Tensor) -> torch.Tensor:
         return model.cnf.generate(_detach(flow_params), _walkers(model, z_cm))
 
 
-def _make_gs_update(model: GSVMC, cfg: Config | None = None):
+def _make_gs_update(model: GSVMC, cfg: Config | None = None, mesh=None):
     """(state, z_cm) -> (loss, metrics): Eloc, the REINFORCE gradient and one
     Adam step, by the path ``cfg`` selects (module docstring; without one,
     the kernel chain)."""
@@ -166,31 +199,34 @@ def _make_gs_update(model: GSVMC, cfg: Config | None = None):
     if not _use_hessian_flow(cfg, model.cnf):
         def update(state: TrainState, z_cm: torch.Tensor):
             x = _generated(model, state.params, z_cm)
-            loss, metrics = model.loss_and_metrics(state.params, x)
-            return _autograd_step(state, loss), metrics
+            loss, metrics = model.loss_and_metrics(state.params, x, mesh)
+            return _autograd_step(state, loss, mesh), metrics
     elif not (cfg.pallas_local_energy and cfg.pallas_reinforce):
         def update(state: TrainState, z_cm: torch.Tensor):
             loss, metrics = model.loss_and_metrics_from_base(
                 state.params, _walkers(model, z_cm),
-                chain=cfg.pallas_local_energy)
-            return _autograd_step(state, loss), metrics
+                chain=cfg.pallas_local_energy, mesh=mesh)
+            return _autograd_step(state, loss, mesh), metrics
     else:
         def update(state: TrainState, z_cm: torch.Tensor):
             loss, metrics, grads = model.loss_metrics_grads_cm(state.params,
-                                                               z_cm)
+                                                               z_cm, mesh)
             _apply_grads(state, grads)
             return loss, metrics
 
     return update
 
 
-def _chain_start(state: TrainState, cfg: Config):
+def _chain_start(state: TrainState, cfg: Config, mesh=None):
     """(z0, steps, tau) of this iteration's chains: the persistent walkers
-    at their own tau, or fresh Gaussians at cfg.tau."""
+    at their own tau, or fresh Gaussians at cfg.tau (this rank's rows of
+    the global draw)."""
     if cfg.persistent_walkers:
         return state.walkers_cm, cfg.mcmc_steps, state.tau
-    z0 = torch.randn(state.walkers_cm.shape, generator=state.generator,
-                     dtype=state.walkers_cm.dtype).to(state.walkers_cm.device)
+    d, B = state.walkers_cm.shape
+    z0 = torch.randn((d, global_batch(mesh, B)), generator=state.generator,
+                     dtype=state.walkers_cm.dtype)
+    z0 = shard_walkers(mesh, z0, 1).to(state.walkers_cm.device)
     return z0, cfg.equilibrium_steps, torch.full_like(state.tau, cfg.tau)
 
 
@@ -208,7 +244,8 @@ def _end_iteration(state: TrainState, cfg: Config, z: torch.Tensor,
     state.step += 1
 
 
-def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
+def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,
+                             mesh=None):
     """K training iterations per call with ONE multi-segment sampler launch.
 
     Persistent walkers continue their chains for ``cfg.mcmc_steps`` per
@@ -218,22 +255,24 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
     shape (K,) on the state's device.
     """
     nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
-    update = _make_gs_update(model, cfg)
+    update = _make_gs_update(model, cfg, mesh)
     chains = metropolis_chains if cfg.pallas_sampler else metropolis_chains_plain
     K = steps_per_call
 
     def multi(state: TrainState):
         seed = _new_seed(state)
-        z0, n_steps, tau = _chain_start(state, cfg)
+        z0, n_steps, tau = _chain_start(state, cfg, mesh)
         zs, _, rates, tau_out = chains(
             z0, tau, seed, steps=n_steps, segments=K, nx_occ=nx_up,
             ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
             target=cfg.tau_target_accept, gain=cfg.tau_gain,
-            reinit=not cfg.persistent_walkers)
+            reinit=not cfg.persistent_walkers,
+            **sampler_rows(mesh, z0.shape[1]))
+        accept = walker_mean(mesh, rates)  # (K,)
         rows = []
         for k in range(K):
             loss, metrics = update(state, zs[k])
-            rows.append(dict(metrics, accept_rate=rates[k].mean(), loss=loss))
+            rows.append(dict(metrics, accept_rate=accept[k], loss=loss))
             state.step += 1
         state.walkers_cm = zs[-1]
         if cfg.persistent_walkers:
@@ -243,24 +282,26 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int):
     return multi
 
 
-def make_gs_train_step(model: GSVMC, cfg: Config):
+def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None):
     """One ground-state iteration: a single-chain sampler launch (the
     per-iteration kernel), the kernel-chain update and Adam.  Returns
     ``step(state) -> (state, metrics)``."""
     nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
-    update = _make_gs_update(model, cfg)
+    update = _make_gs_update(model, cfg, mesh)
     single = (metropolis_single_cm if cfg.pallas_sampler
               else metropolis_single_cm_plain)
 
     def step(state: TrainState):
         seed = _new_seed(state)
-        z0, n_steps, tau = _chain_start(state, cfg)
+        z0, n_steps, tau = _chain_start(state, cfg, mesh)
         z, _, acc = single(
             z0, tau, seed, steps=n_steps, nx_occ=nx_up, ny_occ=ny_up,
-            nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells)
+            nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
+            **sampler_rows(mesh, z0.shape[1]))
         loss, metrics = update(state, z)
         _end_iteration(state, cfg, z, acc)
-        return state, dict(metrics, accept_rate=acc.mean(), loss=loss)
+        return state, dict(metrics, accept_rate=walker_mean(mesh, acc),
+                           loss=loss)
 
     return step
 
@@ -291,7 +332,7 @@ def _categorical(generator: torch.Generator, probs: torch.Tensor,
 def _coupled_state_refresh(generator: torch.Generator, logits_new: torch.Tensor,
                            probs_old: torch.Tensor, state_idx_old: torch.Tensor,
                            u: torch.Tensor | None = None,
-                           redraw: torch.Tensor | None = None):
+                           redraw: torch.Tensor | None = None, mesh=None):
     """Refresh per-walker occupation states to the current Categorical while
     keeping as many walkers as possible on their previous state.
 
@@ -301,7 +342,8 @@ def _coupled_state_refresh(generator: torch.Generator, logits_new: torch.Tensor,
     is exactly p_new, and only a TV(p_old, p_new) fraction of walkers switch
     target densities (JAX ``train.py:_coupled_state_refresh``).  The keep
     uniforms ``u`` and the residual draws ``redraw`` come from ``generator``
-    on the walkers' device unless given.
+    on the walkers' device unless given (with ``mesh``, this rank's rows of
+    the global draws).
 
     Returns (state_idx_new, p_new, switch_fraction).
     """
@@ -309,25 +351,28 @@ def _coupled_state_refresh(generator: torch.Generator, logits_new: torch.Tensor,
     pmin = torch.minimum(p_new, probs_old)
     idx = state_idx_old.long()
     keep_prob = pmin[idx] / probs_old[idx].clamp_min(1e-30)
-    B = state_idx_old.shape[0]
+    Bg = global_batch(mesh, state_idx_old.shape[0])
     if u is None:
-        u = torch.rand((B,), generator=generator, dtype=p_new.dtype,
-                       device=p_new.device)
+        u = shard_walkers(mesh, torch.rand((Bg,), generator=generator,
+                                           dtype=p_new.dtype,
+                                           device=p_new.device), 0)
     keep = u < keep_prob
     if redraw is None:
         # When the distributions coincide the residual is ~0 and every walker
         # keeps its state; the floor only keeps the draw well defined.
         resid = torch.clamp(p_new - pmin, min=0.0)
-        redraw = _categorical(generator, resid + 1e-30, B)
+        redraw = shard_walkers(mesh, _categorical(generator, resid + 1e-30,
+                                                  Bg), 0)
     state_idx = torch.where(keep, state_idx_old, redraw.to(state_idx_old.dtype))
-    return state_idx, p_new, 1.0 - keep.to(p_new.dtype).mean()
+    return state_idx, p_new, 1.0 - walker_mean(mesh, keep.to(p_new.dtype))
 
 
 def init_beta_state(model: BetaVMC, params: dict, cfg: Config,
-                    device: torch.device) -> TrainState:
+                    device: torch.device, mesh=None) -> TrainState:
     """Fresh finite-T state: Gaussian walkers, tau = cfg.tau, and states
-    drawn from the initial logits, all from ``cfg.seed``.  ``params`` is
-    ``{"flow": ..., "log_state_weights": ...}``."""
+    drawn from the initial logits, all from ``cfg.seed`` (with ``mesh``,
+    this rank's rows of them).  ``params`` is ``{"flow": ...,
+    "log_state_weights": ...}``."""
     dtype = cfg.torch_dtype()
     gen = torch.Generator().manual_seed(cfg.seed)
     dev_gen = torch.Generator(device).manual_seed(cfg.seed + 2)
@@ -343,16 +388,18 @@ def init_beta_state(model: BetaVMC, params: dict, cfg: Config,
         optimizer=make_adam(flow, cfg.lr, extra=[logits]),
         generator=gen,
         step=0,
-        walkers_cm=walkers.to(device),
-        tau=torch.full((cfg.batch,), cfg.tau, dtype=dtype, device=device),
+        walkers_cm=shard_walkers(mesh, walkers, 1).to(device),
+        tau=torch.full((_local_batch(cfg, mesh),), cfg.tau, dtype=dtype,
+                       device=device),
         log_state_weights=logits,
-        state_idx=_categorical(dev_gen, probs0, cfg.batch),
+        state_idx=shard_walkers(mesh, _categorical(dev_gen, probs0,
+                                                   cfg.batch), 0),
         sample_probs=probs0,
         device_generator=dev_gen,
     )
 
 
-def make_beta_train_step(model: BetaVMC, cfg: Config):
+def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None):
     """One finite-T iteration: the state refresh (maximal coupling with
     persistent walkers, a fresh Categorical draw otherwise), one mixed-state
     sampler launch, the kernel-chain update, Adam over the flow and the
@@ -367,17 +414,18 @@ def make_beta_train_step(model: BetaVMC, cfg: Config):
     def update(state: TrainState, state_idx: torch.Tensor, z: torch.Tensor):
         if chain_grads:
             loss, metrics, grads = model.loss_metrics_grads_cm(
-                state.params, state_idx, z)
+                state.params, state_idx, z, mesh)
             _apply_grads(state, grads)
             return loss, metrics
         if hessian_flow:
             loss, metrics = model.loss_and_metrics_from_base(
                 state.params, state_idx, _walkers(model, z),
-                chain=cfg.pallas_local_energy)
+                chain=cfg.pallas_local_energy, mesh=mesh)
         else:
             x = _generated(model, state.params["flow"], z)
-            loss, metrics = model.loss_and_metrics(state.params, state_idx, x)
-        return _autograd_step(state, loss), metrics
+            loss, metrics = model.loss_and_metrics(state.params, state_idx, x,
+                                                   mesh)
+        return _autograd_step(state, loss, mesh), metrics
 
     def step(state: TrainState):
         logits = state.log_state_weights.detach()
@@ -386,21 +434,22 @@ def make_beta_train_step(model: BetaVMC, cfg: Config):
             # every chain keeps its own target density and stays equilibrated.
             state_idx, probs, switch_frac = _coupled_state_refresh(
                 state.device_generator, logits, state.sample_probs,
-                state.state_idx)
+                state.state_idx, mesh=mesh)
         else:
             probs = torch.softmax(logits, dim=-1)
-            state_idx = _categorical(state.device_generator, probs,
-                                     state.state_idx.shape[0])
+            state_idx = shard_walkers(mesh, _categorical(
+                state.device_generator, probs,
+                global_batch(mesh, state.state_idx.shape[0])), 0)
         seed = _new_seed(state)
-        z0, n_steps, tau = _chain_start(state, cfg)
+        z0, n_steps, tau = _chain_start(state, cfg, mesh)
         nx_cm, ny_cm = model.qnums_cm(state_idx)
         z, _, acc = sampler(
             z0, tau, seed, steps=n_steps, nx_cm=nx_cm, ny_cm=ny_cm,
-            num_shells=kshells)
+            num_shells=kshells, **sampler_rows(mesh, z0.shape[1]))
         loss, metrics = update(state, state_idx, z)
         state.state_idx, state.sample_probs = state_idx, probs
         _end_iteration(state, cfg, z, acc)
-        metrics = dict(metrics, accept_rate=acc.mean(), loss=loss)
+        metrics = dict(metrics, accept_rate=walker_mean(mesh, acc), loss=loss)
         if cfg.persistent_walkers:
             metrics["state_switch_frac"] = switch_frac
         return state, metrics

@@ -11,6 +11,9 @@ kernels, copies and fills (through CUPTI).  On exit it writes into
   between back-to-back work (< ``SHORT_GAP_US``: launch latency) and longer
   ones (the device waiting on the host); and the host operators and
   runtime calls by self time.
+
+``PhaseTimer`` sums wall-clock time per named phase, waiting for the
+devices of the tensors it is given before it stops the clock.
 """
 
 from __future__ import annotations
@@ -18,10 +21,11 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import time
 
 import torch
 
-__all__ = ["trace", "summarize", "SHORT_GAP_US"]
+__all__ = ["trace", "summarize", "PhaseTimer", "SHORT_GAP_US"]
 
 SHORT_GAP_US = 10.0  # device gaps up to this long count as launch gaps
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
@@ -131,3 +135,47 @@ def summarize(trace_events: dict) -> dict:
             device_work=_top(k_tot, k_cnt))
     return out
 
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+class PhaseTimer:
+    """Wall-clock time per named phase.  ``sync_on`` (a tensor or a nested
+    dict, list or tuple of them) makes the phase wait for the CUDA devices
+    those tensors live on before its clock stops, since kernels return
+    before the device has run them."""
+
+    def __init__(self):
+        self.totals: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def phase(self, name: str, sync_on=None):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            for dev in {t.device for t in _tensors(sync_on)}:
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def summary(self) -> dict:
+        return {
+            name: {
+                "total_s": round(self.totals[name], 4),
+                "count": self.counts[name],
+                "mean_ms": round(1e3 * self.totals[name] / self.counts[name], 2),
+            }
+            for name in self.totals
+        }

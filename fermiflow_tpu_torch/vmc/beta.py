@@ -24,6 +24,12 @@ Three gradient paths, as in ``vmc/gs.py``:
   * ``loss_metrics_grads_cm``: no autograd.  Mixed-state Slater VGH ->
     Hessian flow -> Eloc -> phi loss and weights -> REINFORCE adjoint, on
     coordinate-major (rows, B) buffers.
+
+With ``mesh`` (``parallel/mesh.py``) a rank holds its rows of the global
+batch, as in ``vmc/gs.py``: F, E and S are global means, F_std and E_std
+two-pass global standard deviations, the per-state counts and sums (and
+those of Floc - F) sums over ranks, and the weights divide by the global
+batch.  S_analytical comes from the replicated logits.
 """
 
 from __future__ import annotations
@@ -34,6 +40,14 @@ import numpy as np
 import torch
 
 from fermiflow_tpu_torch.flow.cnf import CNF
+from fermiflow_tpu_torch.parallel.mesh import (
+    all_sum_tensors,
+    all_sum_tree,
+    global_batch,
+    local_mean,
+    walker_mean,
+    walker_std,
+)
 from fermiflow_tpu_torch.physics.base_dist import FreeFermion
 from fermiflow_tpu_torch.physics.orbitals import HO2D
 from fermiflow_tpu_torch.vmc.gs import (
@@ -159,35 +173,36 @@ class BetaVMC:
         return (onehot.sum(1),) + tuple(onehot @ v for v in values)
 
     def _observables(self, logits: torch.Tensor, state_idx: torch.Tensor,
-                     eloc: torch.Tensor):
+                     eloc: torch.Tensor, mesh=None):
         """(floc, F, metrics) from detached logits and local energies."""
         lps_all = torch.log_softmax(logits, dim=-1)
         lps = lps_all[state_idx]
         floc = eloc + lps / self.beta
-        F = torch.mean(floc)
+        E, F, mean_lps = walker_mean(mesh, eloc, floc, lps)
+        E_std, F_std = walker_std(mesh, (eloc, E), (floc, F))
         metrics = {
-            "E": torch.mean(eloc), "E_std": torch.std(eloc, correction=0),
-            "F": F, "F_std": torch.std(floc, correction=0),
-            "S": -torch.mean(lps),
+            "E": E, "E_std": E_std, "F": F, "F_std": F_std, "S": -mean_lps,
             "S_analytical": -torch.sum(lps_all * torch.exp(lps_all)),
         }
         return floc, F, metrics
 
-    def _losses_from_eloc(self, params, state_idx, x, eloc):
-        """Both surrogate losses (differentiable in params) and the metrics,
-        given detached local energies."""
+    def _losses_from_eloc(self, params, state_idx, x, eloc, mesh=None):
+        """Both surrogate losses (this rank's share, differentiable in
+        params) and the metrics, given detached local energies."""
         logits = params["log_state_weights"]
         logp = self.log_prob(params["flow"], x, state_idx)
-        floc, F, metrics = self._observables(logits.detach(), state_idx, eloc)
+        floc, F, metrics = self._observables(logits.detach(), state_idx, eloc,
+                                             mesh)
         lps = torch.log_softmax(logits, dim=-1)[state_idx]
-        loss_phi = torch.mean(lps * (floc - F))
-        counts, sums = self._state_sums(state_idx, eloc)
+        loss_phi = local_mean(mesh, lps * (floc - F))
+        counts, sums = all_sum_tensors(mesh,
+                                       *self._state_sums(state_idx, eloc))
         baseline = (sums / counts.clamp_min(1.0))[state_idx]
-        loss_theta = torch.mean(logp * (eloc - baseline))
+        loss_theta = local_mean(mesh, logp * (eloc - baseline))
         return loss_phi + loss_theta, metrics
 
     def loss_and_metrics(self, params, state_idx: torch.Tensor,
-                         x: torch.Tensor):
+                         x: torch.Tensor, mesh=None):
         """Surrogate loss (phi and theta terms, disjoint parameters) and the
         metrics for generated walkers x (B, n, dim); the local energy comes
         from the nested-jvp engine under detached flow parameters."""
@@ -199,10 +214,11 @@ class BetaVMC:
             eloc = (-0.25 * lap_logp
                     - 0.125 * torch.sum(grad_logp**2, dim=(-2, -1))
                     + self.potential(x))
-        return self._losses_from_eloc(params, state_idx, x, eloc)
+        return self._losses_from_eloc(params, state_idx, x, eloc, mesh)
 
     def loss_and_metrics_from_base(self, params, state_idx: torch.Tensor,
-                                   z: torch.Tensor, chain: bool = False):
+                                   z: torch.Tensor, chain: bool = False,
+                                   mesh=None):
         """Surrogate loss and metrics from base samples z (B, n, dim); the
         local energy comes from the Hessian flow under detached parameters,
         the plain one, or with ``chain`` the VGH and Hessian-flow kernels of
@@ -220,33 +236,44 @@ class BetaVMC:
                 x = x_cm.T.reshape(B, n, dim)
             else:
                 x, eloc, _ = self.local_energy_from_base(flow, state_idx, z)
-        return self._losses_from_eloc(params, state_idx, x, eloc)
+        return self._losses_from_eloc(params, state_idx, x, eloc, mesh)
 
     def _phi_loss_and_weights(self, params, state_idx: torch.Tensor,
-                              eloc: torch.Tensor):
-        """(w, loss_phi, grad_logits, metrics): the phi loss and its gradient
-        in closed form, and the per-state-baselined theta weights w (B,).
+                              eloc: torch.Tensor, mesh=None):
+        """(w, loss_phi, grad_logits, metrics): the phi loss (this rank's
+        share) and its gradient in closed form, and the per-state-baselined
+        theta weights w (B,).
 
         d/dl mean_b log_softmax(l)[s_b] c_b = (sum_{b: s_b = s} c_b
-        - p_s sum_b c_b) / B with c = Floc - F held fixed.
+        - p_s sum_b c_b) / B with c = Floc - F held fixed, and sum_b c_b = 0
+        (F is the mean of Floc).  So the gradient is the per-state sums of c
+        over B, with no second term: in floating point that term is
+        roundoff alone, which Adam, dividing by its running scale, would
+        turn into steps of the logits of states no walker occupies (steps
+        that also differ with the order of the sums, so between process
+        counts).  The sums run over the global batch (one collective with
+        the per-state counts and sums).
         """
         logits = params["log_state_weights"].detach()
-        B = eloc.shape[0]
-        floc, F, metrics = self._observables(logits, state_idx, eloc)
+        B = global_batch(mesh, eloc.shape[0])
+        floc, F, metrics = self._observables(logits, state_idx, eloc, mesh)
         c = floc - F
         lps_all = torch.log_softmax(logits, dim=-1)
-        loss_phi = torch.mean(lps_all[state_idx] * c)
-        counts, sums, c_sums = self._state_sums(state_idx, eloc, c)
-        grad_logits = (c_sums - torch.exp(lps_all) * c.sum()) / B
+        loss_phi = local_mean(mesh, lps_all[state_idx] * c)
+        counts, sums, c_sums = all_sum_tensors(
+            mesh, *self._state_sums(state_idx, eloc, c))
+        grad_logits = c_sums / B
         baseline = (sums / counts.clamp_min(1.0))[state_idx]
         w = (eloc - baseline) / B
         return w, loss_phi, grad_logits, metrics
 
     @torch.no_grad()
     def loss_metrics_grads_cm(self, params, state_idx: torch.Tensor,
-                              z_cm: torch.Tensor):
+                              z_cm: torch.Tensor, mesh=None):
         """(loss, metrics, grads) for base walkers z_cm (d, B) in states
-        state_idx (B,), with no autograd: the kernel chain of ``self.ops``."""
+        state_idx (B,), with no autograd: the kernel chain of ``self.ops``
+        (with ``mesh``, on this rank's rows; the flow's gradient and the loss
+        summed over ranks)."""
         flow = _detach(params["flow"])
         cnf = self.cnf
         nx_cm, ny_cm = self.qnums_cm(state_idx)
@@ -254,10 +281,11 @@ class BetaVMC:
         y, g0, Hp0 = self.ops.slater_vgh_ms(z_cm, nx_cm, ny_cm, ks)
         x, eloc, logp, g = flow_local_energy_cm(self, flow, z_cm, y, g0, Hp0)
         w, loss_phi, grad_logits, metrics = self._phi_loss_and_weights(
-            params, state_idx, eloc)
+            params, state_idx, eloc, mesh)
         grads_flow, _ = self.ops.reinforce(flow, x, g, w.contiguous(), cnf.t0,
                                            cnf.t1, steps=cnf.steps,
                                            method=cnf.method)
-        loss = loss_phi + torch.sum(w * logp)
-        return loss, metrics, {"flow": grads_flow,
-                               "log_state_weights": grad_logits}
+        summed = all_sum_tree(mesh, {"flow": grads_flow,
+                                     "loss": loss_phi + torch.sum(w * logp)})
+        return summed["loss"], metrics, {"flow": summed["flow"],
+                                         "log_state_weights": grad_logits}

@@ -13,6 +13,14 @@ Three gradient paths:
   * ``loss_metrics_grads``: no autograd at all.  The Slater-VGH, Hessian-flow
     and REINFORCE-adjoint kernel modules chain on coordinate-major (rows, B)
     buffers with no relayout, as the TPU tile chain does.
+
+Each loss takes ``mesh`` (``parallel/mesh.py``), a walker mesh whose rank
+holds its rows of the global batch: E is the global mean, E_std the
+two-pass global standard deviation, the REINFORCE weights divide by the
+global batch and the no-autograd gradient and loss are summed over ranks,
+replicated on every rank.  The autograd losses return this rank's share
+of the global loss; the caller sums their gradients over ranks.  Local
+energies are per walker and need no mesh.
 """
 
 from __future__ import annotations
@@ -28,6 +36,13 @@ from fermiflow_tpu_torch.ops.hessian_flow import (
     hessian_flow_cm_plain,
 )
 from fermiflow_tpu_torch.ops.reinforce import reinforce_cm, reinforce_cm_plain
+from fermiflow_tpu_torch.parallel.mesh import (
+    all_sum_tree,
+    global_batch,
+    local_mean,
+    walker_mean,
+    walker_std,
+)
 from fermiflow_tpu_torch.ops.slater_vgh import (
     slater_vgh_cm,
     slater_vgh_cm_plain,
@@ -150,16 +165,21 @@ class GSVMC:
                                                        dim=(-2, -1))
         return kinetic + self.potential(x), logp
 
-    def loss_and_metrics(self, params, x: torch.Tensor):
+    def loss_and_metrics(self, params, x: torch.Tensor, mesh=None):
         """REINFORCE surrogate (differentiable in params) and {E, E_std} for
         generated walkers x.  The local energy is computed with the
         parameters detached; only ``log_prob`` carries their gradient."""
         with torch.no_grad():
             eloc, _ = self.local_energy(_detach(params), x)
         logp = self.log_prob(params, x)
-        E = torch.mean(eloc)
-        E_std = torch.std(eloc, correction=0)
-        loss = torch.mean((eloc - E) * logp)
+        return self._reinforce_loss(eloc, logp, mesh)
+
+    @staticmethod
+    def _reinforce_loss(eloc, logp, mesh):
+        """mean[(Eloc - E) logp] (this rank's share) and {E, E_std}."""
+        E = walker_mean(mesh, eloc)
+        E_std = walker_std(mesh, (eloc, E))
+        loss = local_mean(mesh, (eloc - E) * logp)
         return loss, {"E": E, "E_std": E_std}
 
     def local_energy_from_base(self, params, z: torch.Tensor,
@@ -173,7 +193,7 @@ class GSVMC:
             return_grad=return_grad)
 
     def loss_and_metrics_from_base(self, params, z: torch.Tensor,
-                                   chain: bool = False):
+                                   chain: bool = False, mesh=None):
         """REINFORCE surrogate (differentiable in params) and {E, E_std}.
 
         Eloc comes from the plain Hessian flow, or with ``chain`` from
@@ -188,17 +208,13 @@ class GSVMC:
                 x = x_cm.T.reshape(B, n, dim)
             else:
                 x, eloc, _ = self.local_energy_from_base(_detach(params), z)
-        logp = self.log_prob(params, x)
-        E = torch.mean(eloc)
-        E_std = torch.std(eloc, correction=0)
-        loss = torch.mean((eloc - E) * logp)
-        return loss, {"E": E, "E_std": E_std}
+        return self._reinforce_loss(eloc, self.log_prob(params, x), mesh)
 
-    def loss_metrics_grads(self, params, z: torch.Tensor):
+    def loss_metrics_grads(self, params, z: torch.Tensor, mesh=None):
         """(loss, metrics, grads) for walkers z (B, n, dim), no autograd."""
         B, n, dim = z.shape
         return self.loss_metrics_grads_cm(
-            params, z.reshape(B, n * dim).T.contiguous())
+            params, z.reshape(B, n * dim).T.contiguous(), mesh)
 
     @torch.no_grad()
     def local_energy_cm(self, params, z_cm: torch.Tensor):
@@ -213,18 +229,19 @@ class GSVMC:
         return flow_local_energy_cm(self, params, z_cm, y, g0, Hp0)
 
     @torch.no_grad()
-    def loss_metrics_grads_cm(self, params, z_cm: torch.Tensor):
+    def loss_metrics_grads_cm(self, params, z_cm: torch.Tensor, mesh=None):
         """The kernel chain on coordinate-major walkers z_cm (d, B):
-        ``local_energy_cm`` then the REINFORCE adjoint."""
+        ``local_energy_cm`` then the REINFORCE adjoint (with ``mesh``, on
+        this rank's rows; the gradient and loss summed over ranks)."""
         params = _detach(params)
-        B = z_cm.shape[1]
         cnf = self.cnf
         x, eloc, logp, g = self.local_energy_cm(params, z_cm)
-        E = torch.mean(eloc)
-        E_std = torch.std(eloc, correction=0)
-        w = (eloc - E) / B
+        E = walker_mean(mesh, eloc)
+        E_std = walker_std(mesh, (eloc, E))
+        w = (eloc - E) / global_batch(mesh, z_cm.shape[1])
         grads, _ = self.ops.reinforce(params, x, g, w.contiguous(), cnf.t0,
                                       cnf.t1, steps=cnf.steps,
                                       method=cnf.method)
-        loss = torch.sum(w * logp)
-        return loss, {"E": E, "E_std": E_std}, grads
+        summed = all_sum_tree(mesh, {"grads": grads,
+                                     "loss": torch.sum(w * logp)})
+        return summed["loss"], {"E": E, "E_std": E_std}, summed["grads"]

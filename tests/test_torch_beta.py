@@ -10,6 +10,7 @@ the same interpret programs.
 """
 
 import json
+import os
 
 import numpy as np
 import optax
@@ -372,13 +373,34 @@ def test_gs_cli_steps_per_call_1_runs_per_iteration_sampler(tmp_path):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--shard"], ["--shard", "--checkpoint-dir", "ck"],
+    ["--shard"],
+    ["--shard", "--checkpoint-dir", "ck", "--checkpoint-every", "2"],
     ["--coordinator", "localhost:1"], ["--num-processes", "2"],
     ["--process-id", "1"],
 ])
-def test_finite_t_cli_refuses_unported_flags(flags):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        finite_t.main(CLI_BETA + ["--device", "cpu"] + flags)
+def test_finite_t_cli_refuses_unported_flags(tmp_path, monkeypatch, flags):
+    """The mesh's flags at one process in the finite-T driver: ``--shard``
+    is a 1-rank mesh whose rows equal the run's without it (its checkpoint
+    a plain file); ``--process-id`` alone is a no-op; a coordinator without
+    ``--num-processes`` and ``--num-processes 2`` without a coordinator
+    raise before any work."""
+    monkeypatch.chdir(tmp_path)
+    argv = CLI_BETA + ["--device", "cpu"]
+    if "--coordinator" in flags or "--num-processes" in flags:
+        with pytest.raises(ValueError, match="multi-process run needs"):
+            finite_t.main(argv + flags)
+        assert not os.path.exists(tmp_path / "ck")
+        return
+
+    def rows(extra, name):
+        finite_t.main(argv + extra + ["--metrics", name])
+        return [{k: v for k, v in json.loads(line).items()
+                 if k not in ("iter_seconds", "hours_per_100_iters")}
+                for line in (tmp_path / name).read_text().splitlines()]
+
+    assert rows(flags, "m.jsonl") == rows([], "ref.jsonl")
+    if "--checkpoint-dir" in flags:
+        assert sorted(os.listdir(tmp_path / "ck")) == ["ckpt_00000002.pt"]
 
 
 def test_finite_t_entry_points_raise_without_cuda(monkeypatch):

@@ -135,11 +135,13 @@ def test_restore_refuses_another_structure(tmp_path, saved, live):
 
 
 def test_restore_without_checkpoint_and_with_process_shards(tmp_path):
+    """No directory, and an empty per-process ``proc00000`` directory, both
+    restore as "no checkpoint" (step 0, the state unchanged), as the JAX
+    ``_restore_resharded`` does."""
     state = _gs()
     assert restore_checkpoint(str(tmp_path / "none"), state) == (state, 0)
     os.makedirs(tmp_path / "proc00000")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        restore_checkpoint(str(tmp_path), state)
+    assert restore_checkpoint(str(tmp_path), state) == (state, 0)
 
 
 # ---- the restart watchdog against the JAX loop ----

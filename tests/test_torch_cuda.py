@@ -353,3 +353,32 @@ def test_slater_vgh_ms_kernel_matches_plain(cuda, nup, B):
     yb, gb, hb = slater_vgh_ms_cm(z, nx, bad, ks)
     assert torch.isnan(yb[2]) and torch.isnan(hb[:, 2]).all()
     assert torch.isfinite(yb[:2]).all()
+
+
+@pytest.mark.parametrize("entry", ["chains", "single", "multistate"])
+def test_sampler_rows_at_walker0_are_the_full_launchs(cuda, entry):
+    """A launch on rows k.. at walker0 = k (a rank of a walker mesh on its
+    rows) walks bitwise the chains of those rows in the launch over every
+    walker, on the kernels' own Philox stream."""
+    B, k = 1000, 376
+    z, nx, ny, ks, _ = ms_inputs(cuda, 6, B)
+    tau = torch.full((B,), 0.2, device=cuda)
+    rows = lambda t, first: t[..., first:].contiguous()
+
+    def launch(first, walker0):
+        if entry == "chains":
+            return metropolis_chains(
+                rows(z, first), rows(tau, first), 7, steps=5, segments=3,
+                walker0=walker0, **occ(6, 0))
+        if entry == "single":
+            return metropolis_single_cm(rows(z, first), rows(tau, first), 8,
+                                        steps=5, walker0=walker0,
+                                        **occ(6, 0))
+        return metropolis_multistate_cm(
+            rows(z, first), rows(tau, first), 9, steps=5,
+            nx_cm=rows(nx, first), ny_cm=rows(ny, first), num_shells=ks,
+            walker0=walker0)
+
+    full, part = launch(0, 0), launch(k, k)
+    for a, b in zip(full, part):
+        assert torch.equal(a[..., k:], b)

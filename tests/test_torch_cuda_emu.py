@@ -428,6 +428,35 @@ def test_lane_groups_walk_the_same_philox_chains(sampler_emu, entry):
     assert 0.2 < float(outs[0][2].mean()) < 1.0
 
 
+@pytest.mark.parametrize("entry", ["chains", "single", "multistate"])
+def test_walker0_launch_walks_the_full_launchs_rows(sampler_emu, entry):
+    """A launch on rows k.. at walker0 = k (a rank's launch on its rows of
+    a walker mesh) walks, bitwise, the chains of those rows in the launch
+    over every walker: the Philox key is (seed, walker0 + row).  At
+    walker0 = 0 the same rows walk other chains."""
+    n, B, k = 6, 21, 8
+    x0, gen = walkers(n, B, 17)
+    tau = 0.1 + 0.2 * torch.rand((B,), generator=gen)
+    occ = gs_occ(n, 0)
+    q = (occ["nx_occ"], occ["ny_occ"])
+    nx, ny = ms_states(n, B, gen)
+
+    def launch(first, walker0):
+        r = lambda t: t[..., first:].contiguous()
+        args = {"chains": ("_chains_cuda", r(x0), r(tau), 21, 3, 2, *q, n,
+                           0.5, 0.1, False, None, walker0),
+                "single": ("_single_cuda", r(x0), r(tau), 22, 4, *q, n, None,
+                           walker0),
+                "multistate": ("_multistate_cuda", r(x0), r(tau), 23, 4,
+                               r(nx), r(ny), 5, None, walker0)}[entry]
+        return sampler_emu.launch(args[0], 8, *args[1:])[0]
+
+    full, rows, unkeyed = launch(0, 0), launch(k, k), launch(k, 0)
+    for a, b in zip(full, rows):
+        assert torch.equal(a[..., k:], b)
+    assert not torch.equal(full[0][..., k:], unkeyed[0])
+
+
 # ---- the Slater VGH kernels: a group of lanes per walker ----
 
 # chip_smoke.py's VGH_TOLERANCE against the f64 plain version (rtol = atol).

@@ -4,6 +4,8 @@ sampler's distribution, and the rule that no entry point drops quietly to
 the CPU."""
 
 import json
+import os
+import time
 
 import numpy as np
 import optax
@@ -233,20 +235,55 @@ def test_cli_runs_two_iterations_on_cpu(tmp_path, capsys, persistent):
     assert "iter: 002 E:" in capsys.readouterr().out
 
 
+TIMING = ("iter_seconds", "hours_per_100_iters")
+
+
+def cli_rows(main, argv, path):
+    """The metrics rows of ``main(argv)`` but for their wall times."""
+    main(argv + ["--metrics", str(path)])
+    return [{k: v for k, v in json.loads(line).items() if k not in TIMING}
+            for line in path.read_text().splitlines()]
+
+
 @pytest.mark.parametrize("flags", [
     ["--shard"], ["--shard", "--movie", "m.npy"],
-    ["--shard", "--checkpoint-dir", "ck"], ["--coordinator", "localhost:1"],
+    ["--shard", "--checkpoint-dir", "ck", "--checkpoint-every", "2"],
+    ["--coordinator", "localhost:1", "--num-processes", "2", "--process-id",
+     "1", "--init-timeout", "1"],
     ["--num-processes", "2"], ["--process-id", "0"], ["--init-timeout", "60"],
     ["--pallas-interpret"],
 ])
-def test_cli_refuses_unported_flags(flags):
-    """What stays unported: the multi-process mesh's flags, and the Pallas
-    interpreter, which has no CUDA counterpart and says so.  They are
-    refused before any work (no checkpoint directory or movie appears)."""
-    match = ("no CUDA counterpart" if "--pallas-interpret" in flags
-             else "not ported")
-    with pytest.raises(NotImplementedError, match=match):
-        ground_state.main(CLI_SMALL + ["--device", "cpu"] + flags)
+def test_cli_refuses_unported_flags(tmp_path, monkeypatch, flags):
+    """The mesh's flags at one process, and what stays refused.  ``--shard``
+    alone is a 1-rank walker mesh: its rows equal the run's without it, its
+    movie is written, and its checkpoint is a plain file (no ``procNNNNN``
+    directory), as in the JAX package.  ``--process-id`` or
+    ``--init-timeout`` alone changes nothing (the JAX ``init_distributed``
+    is a no-op at one process).  A bring-up that cannot happen raises
+    quickly: ``--num-processes 2`` without a coordinator, and a coordinator
+    nobody answers within ``--init-timeout 1``.  The Pallas interpreter has
+    no CUDA counterpart and stays refused before any work."""
+    monkeypatch.chdir(tmp_path)
+    argv = CLI_SMALL + ["--device", "cpu"]
+    if "--pallas-interpret" in flags:
+        with pytest.raises(NotImplementedError, match="no CUDA counterpart"):
+            ground_state.main(argv + flags)
+        return
+    if "--num-processes" in flags:
+        match = ("needs --coordinator" if "--coordinator" not in flags
+                 else "bring-up of rank 1/2 at tcp://localhost:1 failed")
+        t0 = time.perf_counter()
+        with pytest.raises((ValueError, RuntimeError), match=match):
+            ground_state.main(argv + flags)
+        assert time.perf_counter() - t0 < 60
+        assert not torch.distributed.is_initialized()
+        return
+    rows = cli_rows(ground_state.main, argv + flags, tmp_path / "m.jsonl")
+    assert rows == cli_rows(ground_state.main, argv, tmp_path / "ref.jsonl")
+    if "--movie" in flags:
+        assert np.load(tmp_path / "m.npy").shape == (50, 2000, 3, 2)
+    if "--checkpoint-dir" in flags:
+        assert sorted(os.listdir(tmp_path / "ck")) == ["ckpt_00000002.pt"]
 
 
 @pytest.mark.parametrize("steps_per_call", [1, 2])
