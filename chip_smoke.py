@@ -95,7 +95,21 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      as 2 ranks: F within 1e-6 (first row) and 1e-3 (every row); (d) one
      NCCL rank with --shard against the run without a process group: every
      E within 1e-6; (e) the pair's milliseconds per iteration and rank 0's
-     collectives (count and host ms per iteration).
+     collectives (count and host ms per iteration);
+ 10. converged physics at N=2 (the Taut anchors, docs/VALIDATION.md:195-218):
+     (a) kernels #1-#5 against their plain versions at nup=1, ndown=1,
+     batch 8192, with phase 2's tolerances (acceptance 0.894 at tau=0.1,
+     the JAX sampler's); their rows on a ``phase 10 kernels (1, 1):`` line;
+     (b) the Taut singlet (--nup 1 --ndown 1 --Z 1) and triplet (--nup 2
+     --Z sqrt 3), 1000 iterations each of ``cli.ground_state.main`` at
+     batch 8192, --ode-steps 8, lr 3e-3, K=10 (launch counts reset before
+     each): the mean E of rows 701-1000 in (2.998, 3.03) and (3.999, 4.01),
+     the exact 3 and 4 less ~4 sem above (a wrong Laplacian falls below);
+     (c) ``cli.eval_at_checkpoint`` on the singlet's final checkpoint, both
+     engines, 2 rounds of fresh chains: E within 3 combined sems + 0.005
+     of (b)'s tail, the engines within phase 8's nested-jvp tolerance of
+     each other on the same walkers.  The phase's seconds on a line of
+     their own.
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -157,6 +171,23 @@ ACCEPT_MS_TAU01_N10 = 0.616
 # step 1: F 41.1228 from Gaussian walkers after 30 steps), and the converged
 # F, 37.2113, less a margin: no variational F of the run falls below it.
 F_FIRST_BETA10, F_FLOOR_BETA10 = 41.12, 36.5
+
+# Phase 10: the Taut anchors (docs/VALIDATION.md:195-218) at the
+# production protocol, 1000 iterations each.  The JAX sampler's acceptance
+# at tau=0.1 for nup=1, ndown=1 after 300 steps at tau=0.2 from Gaussians:
+# 0.8944 and 0.8946 over 8192 walkers (tests/test_torch_eval.py recomputes
+# it).  The gates on the mean E of rows 701-1000: the exact energy less
+# about 4 sem below, the JAX records' 3.0086 and 4.0012 over the same rows
+# well inside above.
+ACCEPT_TAU01_11 = 0.894
+TAUT_ITERS, TAUT_TAIL = 1000, 300
+TAUT = {
+    "singlet": dict(argv=["--nup", "1", "--ndown", "1", "--Z", "1.0",
+                          "--divergence-window", "0"], e_range=(2.998, 3.03)),
+    "triplet": dict(argv=["--nup", "2", "--Z", "1.7320508075688772"],
+                    e_range=(3.999, 4.01)),
+}
+EVAL_REPS, EVAL_EQUIL = 2, 600
 
 REPLACES = {
     "metropolis_chains": "fermiflow_tpu/ops/pallas_metropolis.py:461",
@@ -536,11 +567,12 @@ def phase_occupancy_beta10(device):
             {k: v["lanes"] for k, v in launches.items()})
 
 
-def make_model(Z: float, device, n=N, batch=BATCH):
+def make_model(Z: float, device, n=N, batch=BATCH, ndown=0):
+    """The ground-state model of n particles, ndown of them spin down."""
     from fermiflow_tpu_torch.cli import common
     from fermiflow_tpu_torch.config import Config
 
-    cfg = Config(nup=n, ndown=0, Z=Z, d_eta=D_ETA, d_mu=D_MU, batch=batch,
+    cfg = Config(nup=n - ndown, ndown=ndown, Z=Z, d_eta=D_ETA, d_mu=D_MU, batch=batch,
                  ode_steps=ODE_STEPS, ode_method="dopri5", dtype="float32",
                  device=str(device))
     return common.build_gs(cfg)
@@ -559,10 +591,11 @@ def to_f64(params):
 
 
 def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
-                  tag="", std=PARAM_STD):
+                  tag="", std=PARAM_STD, ndown=0):
     """Each ground-state kernel against its plain version at n particles
-    over ``batch`` walkers, rows keyed ``name + tag``; returns equilibrated
-    walkers and Gaussian parameters for the later phases."""
+    (ndown of them spin down) over ``batch`` walkers, rows keyed ``name +
+    tag``; returns equilibrated walkers and Gaussian parameters for the
+    later phases."""
     import torch
 
     from fermiflow_tpu_torch.ops import _build
@@ -585,7 +618,7 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
     )
     from fermiflow_tpu_torch.utils import roofline
 
-    model, _ = make_model(0.5, device, n, batch)
+    model, _ = make_model(0.5, device, n, batch, ndown)
     nx_up, ny_up, nx_dn, ny_dn, ks = model.occ_qnums()
     d = 2 * n
     gen = torch.Generator(device=device).manual_seed(SEED + n - N)
@@ -795,9 +828,10 @@ def shared_stream_agreement(k_out, p_out, what):
 
 
 def phase_single_chain(device, rows, z_eq, gen, n=N, batch=BATCH,
-                       accept=ACCEPT_TAU01, tag=""):
+                       accept=ACCEPT_TAU01, tag="", ndown=0):
     """The per-iteration sampler (kernel 5) against its plain version at n
-    particles, on walkers z_eq that the chains equilibrated."""
+    particles (ndown of them spin down), on walkers z_eq that the chains
+    equilibrated."""
     import torch
 
     from fermiflow_tpu_torch.ops.metropolis import (
@@ -809,7 +843,7 @@ def phase_single_chain(device, rows, z_eq, gen, n=N, batch=BATCH,
     d = 2 * n
     f32 = dict(device=device, dtype=torch.float32)
     tau01 = torch.full((batch,), 0.1, **f32)
-    gs_model, _ = make_model(0.5, device, n, batch)
+    gs_model, _ = make_model(0.5, device, n, batch, ndown)
     nx_up, ny_up, nx_dn, ny_dn, ks = gs_model.occ_qnums()
     occ = dict(nx_occ=nx_up, ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn,
                num_shells=ks)
@@ -1155,7 +1189,8 @@ def phase_gs_single_path(device, n=N, batch=BATCH, lr="1e-3",
     energies = [r["E"] for r in recs]
     lo, hi = e_range
     print(f"per-iteration path N={n}: {SINGLE_ITERS} iterations in {wall:.3f} s "
-          f"wall; ms per iteration {[1e3 * r['iter_seconds'] for r in recs]}; "
+          f"wall; ms per iteration after the first "
+          f"{[1e3 * r['iter_seconds'] for r in recs[1:]]}; "
           f"E {energies}; launches {json.dumps(counts)}")
     check(all(math.isfinite(e) and lo < e < hi for e in energies),
           f"per-iteration path N={n}: every energy is finite and in "
@@ -1533,11 +1568,11 @@ def phase_nested(device, z_eq, params):
           "nested-jvp path: 3 iterations, every E finite and in (17, 21)")
     check(counts["metropolis_chains"] == 1 and sum(counts.values()) == 1,
           "nested-jvp path: one launch of kernel #1 and of no other")
-    _, recs1, counts1, _ = drive_path(
+    _, recs1, counts1, wall1 = drive_path(
         ground_state.main, path_argv(device, 1, 1, batch=batch)
         + ["--local-energy", "nested_jvp"])
     print(f"nested-jvp path K=1: E {recs1[0]['E']:.5f}, "
-          f"{1e3 * recs1[0]['iter_seconds']:.1f} ms; launches "
+          f"{wall1:.3f} s wall; launches "
           f"{json.dumps(counts1)}")
     check(counts1["metropolis_single"] == 1 and sum(counts1.values()) == 1
           and 17.0 < recs1[0]["E"] < 21.0,
@@ -1841,6 +1876,101 @@ def phase_mesh(device, tmp, smi):
                 f_worst=f_worst, nccl_e_worst=d_worst)
 
 
+def phase_taut(device, tmp):
+    """Phase 10 (b): the Taut singlet and triplet, TAUT_ITERS iterations
+    each through ``cli.ground_state.main`` at the production protocol, with
+    checkpoints; returns each one's (tail mean, tail sem, counts, wall)."""
+    from fermiflow_tpu_torch.cli import ground_state
+
+    out = {}
+    for name, spec in TAUT.items():
+        argv = (spec["argv"] + [
+            "--batch", str(BATCH), "--dtype", "float32", "--persistent",
+            "--mcmc-steps", str(MCMC_STEPS), "--steps-per-call",
+            str(SEGMENTS), "--ode-steps", "8", "--lr", "3e-3", "--seed", "42",
+            "--iternum", str(TAUT_ITERS), "--Deta", str(D_ETA), "--Dmu",
+            str(D_MU), "--device", device.type, "--checkpoint-dir",
+            f"{tmp}/{name}", "--checkpoint-every", str(TAUT_ITERS // 2)])
+        state, recs, counts, wall = drive_path(ground_state.main, argv)
+        tail = [r["E"] for r in recs[-TAUT_TAIL:]]
+        mean = sum(tail) / len(tail)
+        sem = math.sqrt(sum((e - mean) ** 2 for e in tail)
+                        / (len(tail) - 1) / len(tail))
+        ms = sorted(1e3 * r["iter_seconds"] for r in recs[::SEGMENTS])
+        lo, hi = spec["e_range"]
+        print(f"taut {name}: {TAUT_ITERS} iterations in {wall:.3f} s wall, "
+              f"median chunk {ms[len(ms) // 2]:.3f} ms per iteration; E of "
+              f"rows {TAUT_ITERS - TAUT_TAIL + 1}-{TAUT_ITERS} {mean:.5f} +- "
+              f"{sem:.5f}; launches {json.dumps(counts)}")
+        check(state.step == TAUT_ITERS and len(recs) == TAUT_ITERS
+              and all(math.isfinite(r["E"]) for r in recs),
+              f"taut {name}: every iteration ran, every E finite")
+        check(lo < mean < hi, f"taut {name}: mean E of rows "
+              f"{TAUT_ITERS - TAUT_TAIL + 1}-{TAUT_ITERS} in ({lo}, {hi})")
+        check(all(counts[k] > 0 for k in GS_KERNELS),
+              f"taut {name}: every kernel of the path was launched")
+        out[name] = (mean, sem, counts, wall)
+    return out
+
+
+def phase_eval(device, ckpt, tail_mean, tail_sem, tmp):
+    """Phase 10 (c): the checkpoint evaluator on the singlet's final
+    checkpoint with both engines on the same fresh walkers."""
+    from fermiflow_tpu_torch.cli import eval_at_checkpoint
+    from fermiflow_tpu_torch.ops import _build
+
+    res = {}
+    for engine in ("hessian_flow", "nested_jvp"):
+        _build.reset_launch_counts()
+        t0 = time.perf_counter()
+        res[engine] = eval_at_checkpoint.main([
+            "--ckpt", ckpt, "--nup", "1", "--ndown", "1", "--Z", "1.0",
+            "--batch", str(BATCH), "--train-batch", str(BATCH), "--equil",
+            str(EVAL_EQUIL), "--reps", str(EVAL_REPS), "--ode-steps", "8",
+            "--Deta", str(D_ETA), "--Dmu", str(D_MU), "--engine", engine, "--device", device.type, "--out",
+            f"{tmp}/eval_{engine}.json"])
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in _build.LAUNCHES.items() if v}
+        r = res[engine]
+        tol = 3.0 * math.hypot(r["E_sem"], tail_sem) + 0.005
+        print(f"eval {engine}: step {r['step']}, E {r['E']:.5f} +- "
+              f"{r['E_sem']:.5f} over {r['n_total']} fresh walkers, tail "
+              f"{tail_mean:.5f}, |d| {abs(r['E'] - tail_mean):.5f} (tol "
+              f"{tol:.5f}); {wall:.3f} s; launches {json.dumps(counts)}")
+        check(math.isfinite(r["E"]) and abs(r["E"] - tail_mean) <= tol,
+              f"eval {engine}: E within 3 combined sems + 0.005 of the "
+              "training tail")
+        if engine == "hessian_flow":
+            check(counts.get("slater_vgh") == EVAL_REPS
+                  and counts.get("hessian_flow") == EVAL_REPS,
+                  "eval hessian_flow: the VGH and Hessian-flow kernels, once "
+                  "a round")
+        else:
+            check(not counts, "eval nested_jvp: no kernel launched")
+    rel = _rel(res["hessian_flow"]["E"], res["nested_jvp"]["E"])
+    print(f"eval engines on the same walkers: E relative {rel:.3e}")
+    check(rel <= E_ENGINES_RTOL, f"eval: the engines' E within "
+          f"{E_ENGINES_RTOL:g} (relative) of each other")
+
+
+def phase_converged(device, tmp):
+    """Phase 10: (a) kernels #1-#5 at nup=1, ndown=1 against their plain
+    versions; (b) the Taut anchors; (c) the evaluator.  Returns the (1, 1)
+    kernel rows."""
+    import torch
+
+    rows11 = {}
+    z11, _ = phase_kernels(device, rows11, 2, BATCH, ACCEPT_TAU01_11, "_11",
+                           ndown=1)
+    phase_single_chain(device, rows11, z11, torch.Generator(
+        device=device).manual_seed(SEED + 31), 2, BATCH, ACCEPT_TAU01_11,
+        "_11", ndown=1)
+    taut = phase_taut(device, tmp)
+    mean, sem, _, _ = taut["singlet"]
+    phase_eval(device, f"{tmp}/singlet", mean, sem, tmp)
+    return rows11
+
+
 def main() -> int:
     try:
         import torch
@@ -1939,6 +2069,11 @@ def main() -> int:
         phase("9: the walker mesh")
         with tempfile.TemporaryDirectory() as tmp9:
             phase_mesh(device, tmp9, smi)
+        phase("10: converged physics at N=2")
+        t10 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp10:
+            rows11 = phase_converged(device, tmp10)
+        print(f"phase 10: {time.perf_counter() - t10:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1973,6 +2108,9 @@ def main() -> int:
             regs, stack, st, ld = ptxas[{**N10_PTXAS, **MS_N10_PTXAS}[base]]
             kernels[-1].update(registers=regs, stack_bytes=stack,
                                spill_bytes=st + ld)
+    for r in rows11.values():
+        r["bound_ms"], r["bound_by"] = roofline.bound_ms(*r.pop("work"))
+    print("phase 10 kernels (1, 1): " + json.dumps(rows11))
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(f"card: {smi}")

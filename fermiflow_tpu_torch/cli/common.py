@@ -422,7 +422,8 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
 
     ``make_chunk(K)`` returns the K-iteration function.  The metrics fetch
     at the end of a chunk waits for the device, so its wall time over K is
-    the per-iteration speed.  Each chunk is checked whole before its rows
+    the per-iteration speed; at K = 1 each row is timed from the previous
+    row (``MetricsLogger.log``), and the first has no time.  Each chunk is checked whole before its rows
     are printed: a non-finite primary metric (F when the records have one,
     else E), or a finite divergence (the metric ``divergence_nsigma``
     window-sigmas above the mean of the trailing ``divergence_window``
@@ -500,7 +501,11 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
                         f"--debug-nans: non-finite "
                         f"{name or 'state tensor on another rank'} after "
                         f"iteration {i + chunk}")
-            rows = logger.log_many(i + 1, stacked, t0)
+            # At K = 1 one record an iteration, timed from the previous
+            # one (the JAX loop's ``log``); else the chunk's rows, timed
+            # from its start.
+            rows = ([logger.log(i + 1, stacked)] if K == 1
+                    else logger.log_many(i + 1, stacked, t0))
             if n_chunk == last_traced:
                 profiling.close()
             reason = _bad(cfg, window, rows)

@@ -18,16 +18,21 @@ alone is a 1-rank mesh.  ``walker_sharding`` and ``replicated_sharding``
 have no tensor counterpart (a rank's tensor is its rows, or the whole
 replicated value), and so are not ported.
 
-Backend: NCCL where every rank of the host has its own card; gloo where
-ranks share a card (or the host has fewer cards than ranks) or run on the
-CPU.  Gloo collectives on CUDA tensors run on a host copy.  A failed
-bring-up raises; no rank continues alone.
+Backend, chosen per host: the ranks on this host are counted from
+``LOCAL_RANK`` and ``LOCAL_WORLD_SIZE`` where a launcher sets both, else by
+an exchange of hostnames through the rendezvous store before the group is
+made.  NCCL where the device is CUDA and this host has no more ranks than
+cards; gloo where ranks share a card or run on the CPU.  Rank r takes card
+(its local rank) mod (cards of the host).  Gloo collectives on CUDA tensors
+run on a host copy.  A failed bring-up raises; no rank continues alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import os
+import socket
 import time
 
 import torch
@@ -50,8 +55,29 @@ def process_index() -> int:
     return dist.get_rank() if dist.is_initialized() else 0
 
 
-def _backend_for(device: torch.device, num_processes: int) -> str:
-    if device.type == "cuda" and torch.cuda.device_count() >= num_processes:
+def _host_ranks(hosts: list, rank: int) -> tuple[int, int]:
+    """(local rank, ranks on this host) of ``rank`` from every rank's
+    hostname: its place among the ranks that share its host, in rank order,
+    however the world numbers the hosts."""
+    mine = [r for r, h in enumerate(hosts) if h == hosts[rank]]
+    return mine.index(rank), len(mine)
+
+
+def _local_ranks(store, rank: int, world: int) -> tuple[int, int]:
+    """(local rank, ranks on this host): ``LOCAL_RANK`` and
+    ``LOCAL_WORLD_SIZE`` where a launcher sets both, else every rank's
+    hostname through the rendezvous ``store``."""
+    if "LOCAL_RANK" in os.environ and "LOCAL_WORLD_SIZE" in os.environ:
+        return int(os.environ["LOCAL_RANK"]), int(os.environ["LOCAL_WORLD_SIZE"])
+    store.set(f"hostname/{rank}", socket.gethostname())
+    hosts = [store.get(f"hostname/{r}").decode() for r in range(world)]
+    return _host_ranks(hosts, rank)
+
+
+def _backend_for(device: torch.device, local_world: int) -> str:
+    """NCCL where every one of the ``local_world`` ranks on this host has a
+    card of its own, else gloo."""
+    if device.type == "cuda" and local_world <= torch.cuda.device_count():
         return "nccl"
     return "gloo"
 
@@ -65,9 +91,12 @@ def init_distributed(coordinator_address: str | None = None,
 
     A no-op without a coordinator at one process or fewer, as the JAX
     ``init_distributed``.  Otherwise every rank calls it with its own
-    ``process_id``; on CUDA rank r takes card r mod (cards of the host).
-    ``initialization_timeout`` (seconds) bounds the bring-up and every
-    later collective.  Returns whether the world has more than one rank.
+    ``process_id``.  Rank 0 serves the rendezvous store at the address;
+    through it the ranks learn which of them share a host (``_local_ranks``)
+    before the backend is chosen, and on CUDA each takes card (local rank)
+    mod (cards of the host).  ``initialization_timeout`` (seconds) bounds
+    the bring-up and every later collective.  Returns whether the world has
+    more than one rank.
     """
     if (num_processes is None or num_processes <= 1) and \
             coordinator_address is None:
@@ -83,18 +112,23 @@ def init_distributed(coordinator_address: str | None = None,
         raise ValueError(f"--process-id {process_id} is not a rank of "
                          f"{num_processes} processes")
     device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "CUDA is not available; pass --device cpu to run the ranks "
-                "on the CPU (gloo)")
-        torch.cuda.set_device(process_id % torch.cuda.device_count())
-    backend = _backend_for(device, num_processes)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass --device cpu to run the ranks "
+            "on the CPU (gloo)")
+    timeout = datetime.timedelta(seconds=initialization_timeout)
     try:
-        dist.init_process_group(
-            backend, init_method=f"tcp://{coordinator_address}",
-            world_size=num_processes, rank=process_id,
-            timeout=datetime.timedelta(seconds=initialization_timeout))
+        host, port = coordinator_address.rsplit(":", 1)
+        store = dist.TCPStore(host, int(port), num_processes,
+                              is_master=process_id == 0, timeout=timeout)
+        local_rank, local_world = _local_ranks(store, process_id,
+                                               num_processes)
+        backend = _backend_for(device, local_world)
+        if device.type == "cuda":
+            torch.cuda.set_device(local_rank % torch.cuda.device_count())
+        dist.init_process_group(backend, store=store,
+                                world_size=num_processes, rank=process_id,
+                                timeout=timeout)
     except Exception as e:
         raise RuntimeError(
             f"torch.distributed bring-up of rank {process_id}/"
@@ -103,7 +137,8 @@ def init_distributed(coordinator_address: str | None = None,
     where = (f"cuda:{torch.cuda.current_device()}" if device.type == "cuda"
              else "cpu")
     print(f"torch.distributed: process {process_id}/{num_processes}, "
-          f"backend {backend}, device {where}", flush=True)
+          f"backend {backend}, device {where}, local rank {local_rank} of "
+          f"{local_world} on this host", flush=True)
     return num_processes > 1
 
 

@@ -125,8 +125,12 @@ class BetaVMC:
         return (self.basedist.log_prob_multstates(self.occ_table, state_idx, z)
                 - delta_logp)
 
-    # The same potential as the ground state's (pair + one-body terms).
-    potential = GSVMC.potential
+    def potential(self, x: torch.Tensor) -> torch.Tensor:
+        """Pair plus single-particle potential at x (batch, n, dim), the
+        ground state's (``GSVMC.potential``)."""
+        return GSVMC.potential(self, x)
+
+    # The same potential from coordinate-major rows as the ground state's.
     potential_rows = GSVMC.potential_rows
 
     def _qnum_tables(self):

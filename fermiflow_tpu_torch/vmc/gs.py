@@ -183,8 +183,17 @@ class GSVMC:
         return loss, {"E": E, "E_std": E_std}
 
     def local_energy_from_base(self, params, z: torch.Tensor,
-                               return_grad: bool = False):
-        """(x, eloc, logp[, g]) by the plain Hessian flow from z (B, n, dim)."""
+                               return_grad: bool = False,
+                               chain: bool = False):
+        """(x, eloc, logp[, g]) by the Hessian flow from z (B, n, dim): the
+        plain one, or with ``chain`` ``local_energy_cm`` (the VGH and
+        Hessian-flow kernels of ``self.ops``) in the same layout."""
+        if chain:
+            B, n, dim = z.shape
+            x, eloc, logp, g = self.local_energy_cm(
+                params, z.reshape(B, n * dim).T.contiguous())
+            out = (x.T.reshape(B, n, dim), eloc, logp)
+            return out + (g.T.contiguous(),) if return_grad else out
         return local_energy_flow(
             self.cnf.field_tensors,
             lambda z_: self.basedist.log_prob_vgh(self.occ_up, self.occ_down, z_),
@@ -201,13 +210,8 @@ class GSVMC:
         ``self.ops``); either way autograd of ``log_prob`` gives the
         gradient in place of the REINFORCE adjoint."""
         with torch.no_grad():
-            if chain:
-                B, n, dim = z.shape
-                x_cm, eloc, _, _ = self.local_energy_cm(
-                    params, z.reshape(B, n * dim).T.contiguous())
-                x = x_cm.T.reshape(B, n, dim)
-            else:
-                x, eloc, _ = self.local_energy_from_base(_detach(params), z)
+            x, eloc, _ = self.local_energy_from_base(_detach(params), z,
+                                                     chain=chain)
         return self._reinforce_loss(eloc, self.log_prob(params, x), mesh)
 
     def loss_metrics_grads(self, params, z: torch.Tensor, mesh=None):

@@ -1,0 +1,112 @@
+#!/bin/bash
+# Converged physics of the PyTorch/CUDA port (fermiflow_tpu_torch) on one
+# NVIDIA GPU: the JAX package's six converged training records, retrained
+# with the port's CLIs under the protocol of validation/r5_flagship_ode4.sh
+# and validation/sweep_beta_crossover.sh (persistent walkers with per-walker
+# tau, 30 Metropolis steps an iteration, steps-per-call 10, float32, seed 42,
+# a checkpoint every 500 iterations; the polish resumes the same checkpoint
+# directory at a lower lr and a larger --iternum).  Then the port's
+# checkpoint evaluator (fermiflow_tpu_torch.cli.eval_at_checkpoint) at the
+# three converged ground-state checkpoints, both engines, fresh chains.
+#
+#   bash validation/torch_converged.sh [ROW ...]
+#
+# ROW: gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet eval
+# (default: all of them, in that order).  Records go to $OUT
+# (validation/runs), each run's wall seconds to
+# $OUT/torch_converged_wall.jsonl, checkpoints to $CK (validation/ck), logs
+# to $LOGS ($OUT/logs).  A row's training starts from an empty checkpoint directory.
+# Summarise with `python validation/torch_converged_summary.py`.
+set -u
+OUT=${OUT:-validation/runs}
+CK=${CK:-validation/ck}
+LOGS=${LOGS:-$OUT/logs}
+mkdir -p "$OUT" "$CK" "$LOGS"
+nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
+status=0
+
+proto="--dtype float32 --seed 42 --persistent --mcmc-steps 30 \
+  --steps-per-call 10 --checkpoint-every 500"
+
+wall () {  # wall <record> <rc> <t0> <t1>: print and keep a run's wall time
+  local line
+  line="{\"record\": \"$1\", \"rc\": $2, \"wall_s\": $(python -c "print($4 - $3)")}"
+  echo "$line"
+  echo "$line" >> "$OUT/torch_converged_wall.jsonl"
+}
+
+seg () {  # seg <cli> <record> <row flags...>: one training segment
+  local cli=$1 rec=$2 t0 t1 rc; shift 2
+  rm -f "$OUT/$rec.jsonl"
+  t0=$(date +%s.%N)
+  python -u -m "fermiflow_tpu_torch.cli.$cli" $proto "$@" \
+    --metrics "$OUT/$rec.jsonl" > "$LOGS/$rec.log" 2>&1
+  rc=$?
+  t1=$(date +%s.%N)
+  wall "$rec" $rc "$t0" "$t1"
+  tail -n 1 "$LOGS/$rec.log"
+  [ $rc -eq 0 ] || status=1
+}
+
+train () {  # train <cli> <record> <iters> <polish iters|0> <row flags...>
+  local cli=$1 rec=$2 it=$3 pol=$4 ck; shift 4
+  ck="$CK/torch_$rec"
+  rm -rf "$ck"
+  seg "$cli" "torch_$rec" --checkpoint-dir "$ck" --iternum "$it" \
+    --lr 3e-3 "$@"
+  if [ "$pol" -gt 0 ]; then
+    seg "$cli" "torch_${rec}_polish" --checkpoint-dir "$ck" \
+      --iternum $((it + pol)) --lr 1e-3 "$@"
+  fi
+}
+
+evaluate () {  # evaluate <record> <row flags...>: both engines
+  local rec=$1 engine t0 t1 rc; shift
+  for engine in hessian_flow nested_jvp; do
+    t0=$(date +%s.%N)
+    python -u -m fermiflow_tpu_torch.cli.eval_at_checkpoint \
+      --ckpt "$CK/torch_$rec" --engine $engine --reps 8 --equil 600 "$@" \
+      --out "$OUT/torch_eval_${rec}_$engine.json" \
+      > "$LOGS/torch_eval_${rec}_$engine.log" 2>&1
+    rc=$?
+    t1=$(date +%s.%N)
+    wall "torch_eval_${rec}_$engine" $rc "$t0" "$t1"
+    tail -n 1 "$LOGS/torch_eval_${rec}_$engine.log"
+    [ $rc -eq 0 ] || status=1
+  done
+}
+
+rows=${*:-gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet eval}
+for row in $rows; do
+  case $row in
+    gs_n6) train ground_state gs_n6_z05_ode4 3000 1000 \
+      --nup 6 --Z 0.5 --batch 8192 --ode-steps 4 ;;
+    beta_n6) train finite_t beta_n6_z05 3000 1000 \
+      --nup 6 --Z 0.5 --beta 2.0 --deltaE 2.0 --boltzmann --batch 8192 \
+      --ode-steps 8 ;;
+    gs_n10) train ground_state gs_n10_z05 3000 2000 \
+      --nup 10 --Z 0.5 --batch 4096 --ode-steps 8 ;;
+    beta_n10) train finite_t beta_n10_de4 1000 0 \
+      --nup 10 --Z 0.5 --beta 1.0 --deltaE 4.0 --boltzmann --batch 2048 \
+      --ode-steps 8 ;;
+    # The singlet's opposite spins meet at the Coulomb cusp: single
+    # iterations' E and E_std jump far beyond the divergence watchdog's
+    # defaults (the JAX record gs_n2_taut_singlet.jsonl has five such rows,
+    # its run unbroken), so the watchdog is off there.
+    taut_singlet) train ground_state gs_n2_taut_singlet 3000 0 \
+      --nup 1 --ndown 1 --Z 1.0 --batch 8192 --ode-steps 8 \
+      --divergence-window 0 ;;
+    taut_triplet) train ground_state gs_n2_taut_triplet 3000 0 \
+      --nup 2 --Z 1.7320508075688772 --batch 8192 --ode-steps 8 ;;
+    eval)
+      evaluate gs_n6_z05_ode4 --nup 6 --Z 0.5 --batch 8192 \
+        --train-batch 8192 --ode-steps 4
+      evaluate gs_n10_z05 --nup 10 --Z 0.5 --batch 4096 --train-batch 4096 \
+        --ode-steps 8
+      evaluate gs_n2_taut_singlet --nup 1 --ndown 1 --Z 1.0 --batch 8192 \
+        --train-batch 8192 --ode-steps 8 ;;
+    *) echo "unknown row $row"; exit 2 ;;
+  esac
+done
+echo "TORCH CONVERGED DONE status=$status"
+exit $status
