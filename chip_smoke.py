@@ -109,7 +109,17 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      engines, 2 rounds of fresh chains: E within 3 combined sems + 0.005
      of (b)'s tail, the engines within phase 8's nested-jvp tolerance of
      each other on the same walkers.  The phase's seconds on a line of
-     their own.
+     their own;
+ 11. strong coupling (the crossover, docs/VALIDATION.md:23-96): (a)
+     ``FreeFermion.sample(use_pallas=True)`` at 32768 walkers, 600 steps at
+     tau=0.1, through kernel #5 (one launch) against the plain sampler on
+     the card by distribution (<sum x^2> within 5 standard errors,
+     acceptance within 0.01), both times printed; (b) the ground-state path
+     at N=6, Z=8, batch 8192, ode 4, K=10, lr 3e-3, 300 iterations (launch
+     counts reset before): the mean E of rows 281-300 in [60.9, 61.8]; (c)
+     ``cli.crossover_analysis`` at (b)'s checkpoint (32768 walkers):
+     2 pi sum r n(r) dr = N x (share inside rmax) to 1e-6 and V_int against
+     a float64 recomputation on the same walkers to rtol 1e-5.
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -188,6 +198,17 @@ TAUT = {
                     e_range=(3.999, 4.01)),
 }
 EVAL_REPS, EVAL_EQUIL = 2, 600
+
+# Phase 11: strong coupling, the paper's crossover (docs/VALIDATION.md:23-96).
+# (a) fresh draws at the crossover analysis' size and length; (b) the GS
+# path at Z = 8 under the r3 protocol (lr 3e-3) at ode 4: the JAX r3 record
+# (validation/runs/gs_n6_z80_r3.jsonl, ode 8) has a mean E of 61.31 over
+# rows 281-300, the identity flow ~85.7; (c) the structure at (b)'s
+# checkpoint, its V_int against a float64 recomputation on the same walkers.
+XOVER_Z, XOVER_ITERS, XOVER_TAIL = 8.0, 300, 20
+XOVER_E_RANGE = (60.9, 61.8)
+XOVER_WALKERS, XOVER_EQUIL = 32768, 600
+XOVER_NORM_TOL, XOVER_VINT_RTOL = 1e-6, 1e-5
 
 REPLACES = {
     "metropolis_chains": "fermiflow_tpu/ops/pallas_metropolis.py:461",
@@ -1971,6 +1992,109 @@ def phase_converged(device, tmp):
     return rows11
 
 
+def phase_strong_coupling(device, tmp):
+    """Phase 11: (a) the kernel route of ``FreeFermion.sample`` against the
+    plain sampler; (b) the GS path at Z = 8; (c) the crossover structure at
+    (b)'s checkpoint.  Returns the seconds of (a)'s two draws."""
+    import numpy as np
+    import torch
+
+    from fermiflow_tpu_torch.cli import crossover_analysis, ground_state
+    from fermiflow_tpu_torch.cli.eval_at_checkpoint import restore_model
+    from fermiflow_tpu_torch.ops import _build
+    from fermiflow_tpu_torch.physics import HO2D, FreeFermion
+
+    fb = FreeFermion(HO2D())
+    up, dn = np.arange(N), np.arange(0)
+    draws = {}
+    for name, use in (("kernel", True), ("plain", False)):
+        gen = torch.Generator(device=device).manual_seed(SEED + 41)
+        before = _build.LAUNCHES["metropolis_single"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x, acc = fb.sample(up, dn, gen, (XOVER_WALKERS,),
+                           equilibrium_steps=XOVER_EQUIL, tau=0.1,
+                           dtype=torch.float32, use_pallas=use,
+                           return_accept=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = _build.LAUNCHES["metropolis_single"] - before
+        check(launched == (1 if use else 0), f"sample {name}: kernel #5 "
+              f"launched {int(use)} time(s)")
+        r2 = (x.double()**2).sum((-2, -1))
+        draws[name] = (r2, float(acc.mean()), secs)
+    (r2k, acck, sk), (r2p, accp, sp) = draws["kernel"], draws["plain"]
+    se = float(torch.hypot(r2k.std(), r2p.std())) / math.sqrt(XOVER_WALKERS)
+    dr2 = float(r2k.mean() - r2p.mean())
+    print(f"sample {XOVER_WALKERS} walkers x {XOVER_EQUIL} steps: kernel "
+          f"route {sk:.4f} s, plain {sp:.4f} s; <sum x^2> {float(r2k.mean()):.5f}"
+          f" against {float(r2p.mean()):.5f} (diff {dr2:+.5f}, se {se:.5f}); "
+          f"acceptance {acck:.4f} against {accp:.4f}")
+    check(abs(dr2) < 5 * se and abs(acck - accp) < 0.01,
+          "sample: kernel route against the plain sampler by distribution")
+
+    ckpt = f"{tmp}/z8"
+    argv = ["--nup", str(N), "--Z", str(XOVER_Z), "--batch", str(BATCH),
+            "--dtype", "float32", "--persistent", "--mcmc-steps",
+            str(MCMC_STEPS), "--steps-per-call", str(SEGMENTS), "--ode-steps",
+            str(ODE_STEPS), "--lr", "3e-3", "--seed", "42", "--iternum",
+            str(XOVER_ITERS), "--Deta", str(D_ETA), "--Dmu", str(D_MU),
+            "--device", device.type, "--checkpoint-dir", ckpt,
+            "--checkpoint-every", str(XOVER_ITERS)]
+    state, recs, counts, wall = drive_path(ground_state.main, argv)
+    tail = [r["E"] for r in recs[-XOVER_TAIL:]]
+    mean = sum(tail) / len(tail)
+    ms = sorted(1e3 * r["iter_seconds"] for r in recs[::SEGMENTS])
+    lo, hi = XOVER_E_RANGE
+    print(f"Z={XOVER_Z:g}: {XOVER_ITERS} iterations in {wall:.3f} s wall, "
+          f"median chunk {ms[len(ms) // 2]:.3f} ms per iteration; E first "
+          f"{recs[0]['E']:.4f}, rows {XOVER_ITERS - XOVER_TAIL + 1}-"
+          f"{XOVER_ITERS} {mean:.5f}; launches {json.dumps(counts)}")
+    check(state.step == XOVER_ITERS and len(recs) == XOVER_ITERS
+          and all(math.isfinite(r["E"]) for r in recs),
+          f"Z={XOVER_Z:g}: every iteration ran, every E finite")
+    check(lo <= mean <= hi, f"Z={XOVER_Z:g}: mean E of rows "
+          f"{XOVER_ITERS - XOVER_TAIL + 1}-{XOVER_ITERS} in [{lo}, {hi}]")
+    check(all(counts[k] > 0 for k in GS_KERNELS),
+          f"Z={XOVER_Z:g}: every kernel of the path was launched")
+
+    flags = ["--ckpt", ckpt, "--nup", str(N), "--Z", str(XOVER_Z),
+             "--walkers", str(XOVER_WALKERS), "--train-batch", str(BATCH),
+             "--equil", str(XOVER_EQUIL), "--ode-steps", str(ODE_STEPS),
+             "--Deta", str(D_ETA), "--Dmu", str(D_MU), "--device",
+             device.type, "--out", f"{tmp}/xover.json"]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = crossover_analysis.main(flags)
+    secs = time.perf_counter() - t0
+    check(_build.LAUNCHES["metropolis_single"] == 1,
+          "crossover: the walkers drawn through kernel #5")
+    norm_err = abs(rec["norm_integral"] - N * rec["inside_fraction"])
+    # The same walkers again (the same seed; the kernel and the flow are
+    # deterministic), and V_int summed pair by pair in float64.
+    model, params, _ = restore_model(ckpt, N, 0, XOVER_Z, BATCH, "float32",
+                                     ODE_STEPS, device.type, D_ETA, D_MU)
+    gen = torch.Generator(device=device).manual_seed(7)
+    _, x, _ = crossover_analysis.draw(model, params, gen, XOVER_WALKERS,
+                                      XOVER_EQUIL)
+    xd = x.double()
+    v_int = sum(XOVER_Z / torch.linalg.norm(xd[:, i] - xd[:, j], dim=-1)
+                for i in range(N) for j in range(i + 1, N))
+    v_plain = float(v_int.mean())
+    rel = abs(rec["V_int"] - v_plain) / v_plain
+    print(f"crossover at Z={XOVER_Z:g} ({secs:.3f} s): rms r "
+          f"{rec['rms_r']:.5f}, mean pair distance "
+          f"{rec['mean_pair_distance']:.5f}, n(0) {rec['n0']:.5f}, V_int "
+          f"{rec['V_int']:.5f} (float64 pair sum {v_plain:.5f}, relative "
+          f"{rel:.2e}), V_trap {rec['V_trap']:.5f}; normalisation "
+          f"{norm_err:.2e}")
+    check(norm_err <= XOVER_NORM_TOL, "crossover: 2 pi sum r n(r) dr = N x "
+          f"(share inside rmax) to {XOVER_NORM_TOL:g}")
+    check(rel <= XOVER_VINT_RTOL, f"crossover: V_int within "
+          f"{XOVER_VINT_RTOL:g} of the float64 recomputation")
+    return {"kernel_s": sk, "plain_s": sp}
+
+
 def main() -> int:
     try:
         import torch
@@ -2074,6 +2198,11 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp10:
             rows11 = phase_converged(device, tmp10)
         print(f"phase 10: {time.perf_counter() - t10:.1f} s")
+        phase("11: strong coupling")
+        t11 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp11:
+            phase_strong_coupling(device, tmp11)
+        print(f"phase 11: {time.perf_counter() - t11:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -3,8 +3,10 @@ of ``validation/eval_at_checkpoint.py``).
 
 Restores a checkpoint of the port's ground-state CLI, starts FRESH chains
 (Gaussian walkers, ``--equil`` fixed-tau Metropolis steps at tau = 0.1 on
-the base density, by the plain ``mcmc.metropolis``: no persistent chain, no
-sampler kernel) and estimates E on them with one of two engines:
+the base density, by ``FreeFermion.sample(use_pallas=True)``: the
+single-chain sampler kernel for a polarized float32 run, else the plain
+``mcmc.metropolis``; no persistent chain) and estimates E on them with one
+of two engines:
 
 * ``hessian_flow``: ``GSVMC.local_energy_from_base`` on the kernel route
   (the Slater-VGH and Hessian-flow kernels on the card);
@@ -36,7 +38,6 @@ import time
 import numpy as np
 import torch
 
-from fermiflow_tpu_torch import mcmc
 from fermiflow_tpu_torch.cli import common
 from fermiflow_tpu_torch.config import Config
 from fermiflow_tpu_torch.train import init_gs_state
@@ -104,14 +105,13 @@ def fresh_walkers(model, generator: torch.Generator, batch: int, equil: int,
                   dtype=torch.float32):
     """Gaussian walkers (batch, n, dim) after ``equil`` Metropolis steps at
     tau = 0.1 on the base density, every draw from ``generator`` (on its
-    device); returns (walkers, mean acceptance)."""
-    z0 = torch.randn((batch, model.n, model.basedist.dim),
-                     generator=generator, dtype=dtype,
-                     device=generator.device)
-    ms = mcmc.metropolis(
-        lambda zz: model.basedist.log_prob(model.occ_up, model.occ_down, zz),
-        generator, z0, equil, TAU)
-    return ms.x, float(ms.accept_rate.mean())
+    device), through ``FreeFermion.sample``'s kernel route; returns
+    (walkers, mean acceptance)."""
+    z, acc = model.basedist.sample(
+        model.occ_up, model.occ_down, generator, (batch,),
+        equilibrium_steps=equil, tau=TAU, dtype=dtype, use_pallas=True,
+        return_accept=True)
+    return z, float(acc.mean())
 
 
 def local_energies(model, params, z: torch.Tensor, engine: str):

@@ -60,16 +60,40 @@ class FreeFermion:
 
     def sample(self, occ_up, occ_down, generator: torch.Generator,
                sample_shape: tuple, equilibrium_steps: int = 100,
-               tau: float = 0.1, dtype=torch.float64) -> torch.Tensor:
+               tau: float = 0.1, dtype=torch.float64,
+               use_pallas: bool = False, return_accept: bool = False):
         """Metropolis-sample the Slater density from a fresh Gaussian init;
-        draws from ``generator`` on its device."""
+        draws from ``generator`` on its device.
+
+        ``use_pallas=True`` routes the polarized float32 case through the
+        single-chain sampler kernel (``ops/metropolis.py``
+        ``metropolis_free_fermion``, kernel #5): on a CUDA generator the
+        kernel or an exception, on the CPU its plain version.  Its stream is
+        Philox keyed by a seed drawn from ``generator``.  With
+        ``return_accept`` also each walker's acceptance rate."""
         n = len(occ_up) + len(occ_down)
         x0 = torch.randn((*sample_shape, n, self.dim), dtype=dtype,
                          device=generator.device, generator=generator)
-        state = mcmc.metropolis(
-            lambda x: self.log_prob(occ_up, occ_down, x),
-            generator, x0, equilibrium_steps, tau)
-        return state.x
+        if use_pallas and len(occ_down) == 0 and dtype == torch.float32:
+            from fermiflow_tpu_torch.ops.metropolis import (
+                metropolis_free_fermion,
+            )
+
+            seed = int(torch.randint(0, 2**31 - 1, (), generator=generator,
+                                     device=generator.device))
+            nx = tuple(int(v) for v in self.orbitals.nx[list(occ_up)])
+            ny = tuple(int(v) for v in self.orbitals.ny[list(occ_up)])
+            flat = x0.reshape(-1, n, self.dim)
+            x, _, acc = metropolis_free_fermion(
+                flat, seed, tau, equilibrium_steps, nx, ny,
+                max(nx + ny) + 1)
+            x, acc = x.reshape(x0.shape), acc.reshape(x0.shape[:-2])
+        else:
+            state = mcmc.metropolis(
+                lambda x: self.log_prob(occ_up, occ_down, x),
+                generator, x0, equilibrium_steps, tau)
+            x, acc = state.x, state.accept_rate
+        return (x, acc) if return_accept else x
 
     # ---- mixed-state (finite-temperature) path, spin-polarized ----
 

@@ -128,7 +128,8 @@ def _jax_beta(cfg):
     return jmodel
 
 
-def test_beta_loss_and_grads_match_jax_autodiff_f64():
+@pytest.mark.parametrize("Z", [0.5, 8.0])
+def test_beta_loss_and_grads_match_jax_autodiff_f64(Z):
     """``loss_and_metrics_from_base`` + autograd against the JAX package's
     + ``jax.value_and_grad`` on the same walkers, states and parameters:
     the same math in f64, so every metric, the loss and every gradient leaf
@@ -136,8 +137,9 @@ def test_beta_loss_and_grads_match_jax_autodiff_f64():
     (plain versions, f64) gives the same metrics and the same logits
     gradient; its flow gradient is the continuous adjoint, which differs
     from autodiff through the discrete solve at the ODE's error, and is
-    held to the JAX Pallas path in tests/test_torch_kernels.py."""
-    cfg, jcfg = cfg_beta()
+    held to the JAX Pallas path in tests/test_torch_kernels.py.  At
+    Z = 0.5 and at the sweep's strongest coupling, Z = 8."""
+    cfg, jcfg = cfg_beta(Z=Z)
     model, _ = common.build_beta(cfg)
     jmodel = _jax_beta(jcfg)
     idx = states(43, B)

@@ -38,7 +38,7 @@ from fermiflow_tpu_torch.ops.slater_vgh import (
     slater_vgh_ms_cm,
     slater_vgh_ms_cm_plain,
 )
-from fermiflow_tpu_torch.physics import HO2D
+from fermiflow_tpu_torch.physics import HO2D, FreeFermion
 
 torch.set_num_threads(1)
 
@@ -382,3 +382,33 @@ def test_sampler_rows_at_walker0_are_the_full_launchs(cuda, entry):
     full, part = launch(0, 0), launch(k, k)
     for a, b in zip(full, part):
         assert torch.equal(a[..., k:], b)
+
+
+def test_sample_use_pallas_launches_kernel_5(cuda):
+    """``FreeFermion.sample(use_pallas=True)`` on a CUDA generator: one
+    launch of kernel #5 for a polarized float32 draw, none for float64 (the
+    plain sampler, as in the JAX package); the kernel's draw against the
+    plain sampler's by distribution (<sum x^2> within 5 standard errors,
+    acceptance within 0.01); a float32 occupation the kernels lack raises."""
+    fb = FreeFermion(ORB)
+    up, dn = np.arange(6), np.arange(0)
+    kw = dict(equilibrium_steps=200, tau=0.1, return_accept=True)
+    before = _build.LAUNCHES["metropolis_single"]
+    x, acc = fb.sample(up, dn, torch.Generator(device=cuda).manual_seed(1),
+                       (8192,), dtype=torch.float32, use_pallas=True, **kw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["metropolis_single"] == before + 1
+    assert x.device.type == "cuda" and torch.isfinite(x).all()
+    xp, accp = fb.sample(up, dn, torch.Generator(device=cuda).manual_seed(2),
+                         (8192,), dtype=torch.float32, **kw)
+    assert _build.LAUNCHES["metropolis_single"] == before + 1
+    r2, r2p = ((a.double()**2).sum((-2, -1)) for a in (x, xp))
+    se = float(torch.hypot(r2.std(), r2p.std())) / 8192**0.5
+    assert abs(float(r2.mean() - r2p.mean())) < 5 * se
+    assert abs(float(acc.mean() - accp.mean())) < 0.01
+    fb.sample(up, dn, torch.Generator(device=cuda).manual_seed(3), (64,),
+              dtype=torch.float64, use_pallas=True, **kw)
+    assert _build.LAUNCHES["metropolis_single"] == before + 1
+    with pytest.raises(ValueError):
+        fb.sample(np.arange(11), dn, torch.Generator(device=cuda).manual_seed(4),
+                  (64,), dtype=torch.float32, use_pallas=True, **kw)

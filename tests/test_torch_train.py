@@ -84,20 +84,23 @@ def make_model(nup, ndown, Z):
 # ---- the update with Adam, float64, against the JAX autodiff path ----
 
 
-def test_update_and_adam_match_jax_autodiff_f64():
+@pytest.mark.parametrize("Z", [0.5, 8.0])
+def test_update_and_adam_match_jax_autodiff_f64(Z):
     """Two iterations of the reference update (``loss_and_metrics_from_base``
     + ``jax.grad`` + ``optax.adam``) against the port's
     (``loss_and_metrics_from_base`` + autograd + ``torch.optim.Adam``) on the
     same walkers and Gaussian parameters.  Same math in f64: E, E_std, loss
     and every gradient leaf to 1e-9 relative (of the largest entry), the
     parameters after each Adam step to 1e-9 relative.  The port's
-    no-autograd kernel chain gives the same E and E_std."""
+    no-autograd kernel chain gives the same E and E_std.  At Z = 0.5 and at
+    the sweep's strongest coupling, Z = 8, where the Coulomb term dominates
+    the local energy."""
     z_cm = equilibrated(3, 0, B, 30)
     z = z_cm.T.reshape(B, 3, 2)
     p = np_params(31)
-    model = make_model(3, 0, 0.5)
+    model = make_model(3, 0, Z)
     jcnf = JCNF(j_apply, j_div, j_ft, steps=STEPS, method=METHOD)
-    jmodel = JGSVMC(3, 0, JFreeFermion(JHO2D()), jcnf, JCoulomb(0.5), JHO())
+    jmodel = JGSVMC(3, 0, JFreeFermion(JHO2D()), jcnf, JCoulomb(Z), JHO())
     jcfg = JConfig(nup=3, batch=B, dtype="float64", ode_steps=STEPS, lr=LR)
     jopt = optax.adam(LR)
     jparams = jax_params(p)

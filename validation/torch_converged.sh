@@ -1,19 +1,29 @@
 #!/bin/bash
 # Converged physics of the PyTorch/CUDA port (fermiflow_tpu_torch) on one
-# NVIDIA GPU: the JAX package's six converged training records, retrained
-# with the port's CLIs under the protocol of validation/r5_flagship_ode4.sh
-# and validation/sweep_beta_crossover.sh (persistent walkers with per-walker
+# NVIDIA GPU: the JAX package's converged training records, retrained with
+# the port's CLIs under the protocol of validation/r5_flagship_ode4.sh and
+# validation/sweep_beta_crossover.sh (persistent walkers with per-walker
 # tau, 30 Metropolis steps an iteration, steps-per-call 10, float32, seed 42,
 # a checkpoint every 500 iterations; the polish resumes the same checkpoint
-# directory at a lower lr and a larger --iternum).  Then the port's
+# directory at a lower lr and a larger --iternum): the six rows of the
+# flagship, N = 10 and Taut configurations, then the N = 6 coupling sweep
+# (Z = 1, 2, 4, 8) at T = 0 (the r3 protocol, docs/VALIDATION.md:33-37) and
+# at beta = 2 (validation/sweep_beta_crossover.sh:19-33), and the beta = 10
+# zero-temperature-limit row (docs/VALIDATION.md:21).  Then the port's
 # checkpoint evaluator (fermiflow_tpu_torch.cli.eval_at_checkpoint) at the
-# three converged ground-state checkpoints, both engines, fresh chains.
+# converged ground-state checkpoints, both engines, fresh chains; the
+# crossover structure (fermiflow_tpu_torch.cli.crossover_analysis) at the
+# five N = 6 ground-state checkpoints; and the ODE-steps study
+# (fermiflow_tpu_torch.cli.ode_steps_study) at Z = 0.5 and Z = 8.
 #
 #   bash validation/torch_converged.sh [ROW ...]
 #
-# ROW: gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet eval
-# (default: all of them, in that order).  Records go to $OUT
-# (validation/runs), each run's wall seconds to
+# ROW: gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet
+# gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20
+# beta_n6_z40 beta_n6_z80 beta_n3_b10 xover odesteps eval (default: all of
+# them, in that order); eval_z80 is eval at the Z = 8 checkpoint alone.
+# xover and odesteps retrain gs_n6 first when $CK lacks its checkpoint.
+# Records go to $OUT (validation/runs), each run's wall seconds to
 # $OUT/torch_converged_wall.jsonl, checkpoints to $CK (validation/ck), logs
 # to $LOGS ($OUT/logs).  A row's training starts from an empty checkpoint directory.
 # Summarise with `python validation/torch_converged_summary.py`.
@@ -60,6 +70,37 @@ train () {  # train <cli> <record> <iters> <polish iters|0> <row flags...>
   fi
 }
 
+tool () {  # tool <module> <record> <flags...>: one analysis run
+  local mod=$1 rec=$2 t0 t1 rc; shift 2
+  t0=$(date +%s.%N)
+  python -u -m "fermiflow_tpu_torch.cli.$mod" "$@" --out "$OUT/$rec.json" \
+    > "$LOGS/$rec.log" 2>&1
+  rc=$?
+  t1=$(date +%s.%N)
+  wall "$rec" $rc "$t0" "$t1"
+  tail -n 1 "$LOGS/$rec.log"
+  [ $rc -eq 0 ] || status=1
+}
+
+need_gs_n6 () {  # the Z = 0.5 checkpoint, retrained when $CK lacks it
+  ls "$CK/torch_gs_n6_z05_ode4"/ckpt_*.pt > /dev/null 2>&1 || train \
+    ground_state gs_n6_z05_ode4 3000 1000 --nup 6 --Z 0.5 --batch 8192 \
+    --ode-steps 4
+}
+
+gs_sweep () {  # gs_sweep <tag> <Z>: the r3 protocol at N = 6
+  train ground_state "gs_n6_$1" 3000 2000 --nup 6 --Z "$2" --batch 8192 \
+    --ode-steps 8
+}
+
+beta_sweep () {  # beta_sweep <tag> <Z>: beta = 2, deltaE = 2 at N = 6
+  train finite_t "beta_n6_$1" 3000 1000 --nup 6 --Z "$2" --beta 2.0 \
+    --deltaE 2.0 --boltzmann --batch 8192 --ode-steps 8
+}
+
+# Z of each N = 6 ground-state checkpoint and its --ode-steps.
+XOVER="z05_ode4:0.5:4 z10:1.0:8 z20:2.0:8 z40:4.0:8 z80:8.0:8"
+
 evaluate () {  # evaluate <record> <row flags...>: both engines
   local rec=$1 engine t0 t1 rc; shift
   for engine in hessian_flow nested_jvp; do
@@ -76,7 +117,9 @@ evaluate () {  # evaluate <record> <row flags...>: both engines
   done
 }
 
-rows=${*:-gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet eval}
+rows=${*:-gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet \
+  gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20 \
+  beta_n6_z40 beta_n6_z80 beta_n3_b10 xover odesteps eval}
 for row in $rows; do
   case $row in
     gs_n6) train ground_state gs_n6_z05_ode4 3000 1000 \
@@ -98,13 +141,42 @@ for row in $rows; do
       --divergence-window 0 ;;
     taut_triplet) train ground_state gs_n2_taut_triplet 3000 0 \
       --nup 2 --Z 1.7320508075688772 --batch 8192 --ode-steps 8 ;;
+    gs_n6_z10) gs_sweep z10 1.0 ;;
+    gs_n6_z20) gs_sweep z20 2.0 ;;
+    gs_n6_z40) gs_sweep z40 4.0 ;;
+    gs_n6_z80) gs_sweep z80 8.0 ;;
+    beta_n6_z10) beta_sweep z10 1.0 ;;
+    beta_n6_z20) beta_sweep z20 2.0 ;;
+    beta_n6_z40) beta_sweep z40 4.0 ;;
+    beta_n6_z80) beta_sweep z80 8.0 ;;
+    beta_n3_b10) train finite_t beta_n3_b10_z2 1000 0 \
+      --nup 3 --Z 2.0 --beta 10.0 --deltaE 2.0 --boltzmann --batch 2048 \
+      --ode-steps 8 ;;
+    xover)
+      need_gs_n6
+      for spec in $XOVER; do
+        IFS=: read -r tag z ode <<< "$spec"
+        tool crossover_analysis "torch_xover_${tag%_ode4}" \
+          --ckpt "$CK/torch_gs_n6_$tag" --nup 6 --Z "$z" --walkers 32768 \
+          --train-batch 8192 --equil 600 --rmax 6.0 --bins 120 \
+          --ode-steps "$ode"
+      done ;;
+    odesteps)
+      need_gs_n6
+      tool ode_steps_study torch_ode_steps_z05 \
+        --ckpt "$CK/torch_gs_n6_z05_ode4" --nup 6 --Z 0.5 --batch 256
+      tool ode_steps_study torch_ode_steps_z80 \
+        --ckpt "$CK/torch_gs_n6_z80" --nup 6 --Z 8.0 --batch 256 ;;
     eval)
       evaluate gs_n6_z05_ode4 --nup 6 --Z 0.5 --batch 8192 \
         --train-batch 8192 --ode-steps 4
       evaluate gs_n10_z05 --nup 10 --Z 0.5 --batch 4096 --train-batch 4096 \
         --ode-steps 8
       evaluate gs_n2_taut_singlet --nup 1 --ndown 1 --Z 1.0 --batch 8192 \
-        --train-batch 8192 --ode-steps 8 ;;
+        --train-batch 8192 --ode-steps 8 ;&  # and on into eval_z80
+    eval_z80)
+      evaluate gs_n6_z80 --nup 6 --Z 8.0 --batch 8192 --train-batch 8192 \
+        --ode-steps 8 ;;
     *) echo "unknown row $row"; exit 2 ;;
   esac
 done
