@@ -37,7 +37,10 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      --dtype float32 --persistent --steps-per-call 10); the finite-T path
      (``cli.finite_t.main``, 20 iterations, --beta 2.0 --deltaE 2.0
      --boltzmann, otherwise alike); the ground-state per-iteration path
-     (--steps-per-call 1, 3 iterations);
+     (--steps-per-call 1, 3 iterations).  Each CLI runs its default, one
+     captured CUDA graph a chunk (``train.py``), and each path's line
+     prints the ms per iteration of the same run with every chunk eager
+     beside it (phases 6 and 7 too);
   5. one ground-state and one finite-T update against the plain-PyTorch
      updates on the card;
   6. the ground state at N=10 (docs/VALIDATION.md:19): each ground-state
@@ -67,7 +70,8 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      line (resident warps, and whether the batch-2048 grids fit in one
      wave).
 
-  8. restartable runs, the nested-jvp engine and the solvers (N=6): the GS
+  8. restartable runs, the nested-jvp engine and the solvers (N=6), the
+     runs through captured chunks, made anew after each restore: the GS
      path (batch 8192, K=10) for 30 iterations with checkpoints every 10,
      and again cut at 20, its checkpoint restored in this process bitwise
      (every tensor, Adam and both generators; the save and restore seconds
@@ -120,6 +124,25 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      ``cli.crossover_analysis`` at (b)'s checkpoint (32768 walkers):
      2 pi sum r n(r) dr = N x (share inside rmax) to 1e-6 and V_int against
      a float64 recomputation on the same walkers to rtol 1e-5.
+ 12. the compiled chunk (``train.py``): (a) the captured chunk against the
+     eager one from the same seed, 3 chunks each (the first eager, then two
+     replays): GS N=6 at K=10 (30 iterations) and K=1 (3), finite T N=6 at
+     K=10 (30); after every chunk the walkers, tau, the flow's parameters
+     and logits, the states and their probabilities, Adam's step and both
+     moments, both generators and every metric bitwise equal; (b) ms per
+     iteration of the captured and the eager chunk in turns (eager,
+     captured, captured, eager; 12 chunks of K=10 a turn, timed as the CLI
+     times them) at GS N=6, GS N=10 (batch 4096), finite T N=6 and finite
+     T N=10 (batch 2048): median, min and max over 24 chunks each, the
+     capture's seconds and graph pool bytes; (c) the CLI's
+     ``--profile-dir`` trace of chunk 2 of each path, replayed and eager:
+     the kernels the card ran, ``cudaGraphLaunch``, ``cudaLaunchKernel``
+     and ``cudaStreamSynchronize`` calls, the device's idle share, the
+     port's kernels' ms and PyTorch's (its five largest by name), and the
+     kernels run more or fewer times replayed than eager; the
+     GS N=6 replay must be one graph launch, at most 10 launches and no
+     wait for the card before the replay's end.  Lines ``phase 12
+     timing:`` and ``phase 12 traces:`` hold (b) and (c) as JSON.
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -130,6 +153,7 @@ repository beside it, the script exits non-zero before printing any of them.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -703,7 +727,10 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
     check(lp_bad <= 1e-3, "sampler: logp = log_prob (f64) within 1e-3 "
           "relative on >= 99.9% of walkers")
 
-    k_ms = cuda_ms(lambda: metropolis_chains(z_eq, tau_eq, 5, **chain), 20)
+    # The kernel timed alone: its seed in a device word made once, as the
+    # captured chunk hands it (an int seed costs a fill launch a call).
+    word = torch.full((1,), 5, dtype=torch.int32, device=z_eq.device)
+    k_ms = cuda_ms(lambda: metropolis_chains(z_eq, tau_eq, word, **chain), 20)
     p_ms = cuda_ms(lambda: metropolis_chains_plain(z_eq, tau_eq, 5, **chain), 1)
     flops, nbytes = roofline.metropolis_work(batch, n, ks, MCMC_STEPS, SEGMENTS)
     rows["metropolis_chains" + tag] = dict(
@@ -887,9 +914,10 @@ def phase_single_chain(device, rows, z_eq, gen, n=N, batch=BATCH,
     check(abs(float(acc1.mean()) - accept) < 0.03 and lp_bad <= 1e-3,
           f"{what}: acceptance {accept} +- 0.03 at tau=0.1; "
           "logp = log_prob (f64) within 1e-3 relative on >= 99.9% of walkers")
+    word = torch.full((1,), 5, dtype=torch.int32, device=z_eq.device)
     rows[what] = dict(
         max_abs_err=err, diverged_frac=frac,
-        ms=cuda_ms(lambda: metropolis_single_cm(z_eq, tau01, 5,
+        ms=cuda_ms(lambda: metropolis_single_cm(z_eq, tau01, word,
                                                 steps=MCMC_STEPS, **occ), 20),
         plain_ms=cuda_ms(lambda: metropolis_single_cm_plain(
             z_eq, tau01, 5, steps=MCMC_STEPS, **occ), 1),
@@ -968,10 +996,11 @@ def phase_kernels_ms(device, rows, z_eq=None, n=N, beta=BETA, deltaE=DELTA_E,
           "tau=0.1 (the JAX mixed-state sampler's figure)")
     check(lp_bad <= 1e-3, f"{what}: logp = log_prob_multstates (f64) within "
           "1e-3 relative on >= 99.9% of walkers")
+    word = torch.full((1,), 5, dtype=torch.int32, device=z_ms.device)
     rows[what] = dict(
         max_abs_err=err, diverged_frac=frac,
         ms=cuda_ms(lambda: metropolis_multistate_cm(
-            z_ms, tau01, 5, steps=MCMC_STEPS, **ms), 20),
+            z_ms, tau01, word, steps=MCMC_STEPS, **ms), 20),
         plain_ms=cuda_ms(lambda: metropolis_multistate_cm_plain(
             z_ms, tau01, 5, steps=MCMC_STEPS, **ms), 1),
         work=roofline.metropolis_ms_work(batch, n, kms, MCMC_STEPS),
@@ -1097,6 +1126,41 @@ def drive_path(main, argv):
     return state, recs, counts, wall
 
 
+@contextlib.contextmanager
+def eager_chunks():
+    """The CLIs with every chunk eager (``graph=False``), as before the
+    captured chunk: the timing beside the default's."""
+    from fermiflow_tpu_torch.cli import finite_t, ground_state
+
+    patched = [(ground_state, "make_gs_fused_multi_step"),
+               (ground_state, "make_gs_train_step"),
+               (finite_t, "make_beta_train_step")]
+    saved = [getattr(mod, name) for mod, name in patched]
+    for (mod, name), fn in zip(patched, saved):
+        setattr(mod, name, lambda *a, fn=fn, **k: fn(*a, **{**k,
+                                                            "graph": False}))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
+
+
+def chunk_ms(recs, steps_per_call):
+    """Each chunk's ms per iteration from a CLI run's rows (at K = 1 each
+    row after the first, timed from the one before)."""
+    if steps_per_call == 1:
+        return [1e3 * r["iter_seconds"] for r in recs[1:]]
+    return [1e3 * r["iter_seconds"] for r in recs[::steps_per_call]]
+
+
+def eager_path_ms(main, argv, steps_per_call):
+    """``chunk_ms`` of the same CLI run with every chunk eager."""
+    with eager_chunks():
+        _, recs, _, _ = drive_path(main, argv)
+    return chunk_ms(recs, steps_per_call)
+
+
 def path_argv(device, iters, steps_per_call, n=N, batch=BATCH, lr="1e-3"):
     return ["--nup", str(n), "--Z", "0.5", "--batch", str(batch), "--dtype",
             "float32", "--persistent", "--steps-per-call", str(steps_per_call),
@@ -1112,15 +1176,16 @@ GS_KERNELS = ("metropolis_chains", "slater_vgh", "hessian_flow",
 def phase_main_path(device):
     from fermiflow_tpu_torch.cli import ground_state
 
-    state, recs, counts, wall = drive_path(
-        ground_state.main, path_argv(device, MAIN_ITERS, SEGMENTS))
+    argv = path_argv(device, MAIN_ITERS, SEGMENTS)
+    state, recs, counts, wall = drive_path(ground_state.main, argv)
     # Each chunk's wall time (one sampler launch + K updates, ended by the
-    # metrics fetch) over K; the first chunk also pays the first-call costs.
-    chunk_ms = [1e3 * r["iter_seconds"] for r in recs[::SEGMENTS]]
+    # metrics fetch) over K; the first chunk also pays the first-call costs
+    # (and the capture).
     energies = [r["E"] for r in recs]
     print(f"main path: {MAIN_ITERS} iterations in {wall:.3f} s wall (setup "
-          f"included); ms per iteration by chunk {chunk_ms}; launches "
-          f"{json.dumps(counts)}")
+          f"included); ms per iteration by chunk {chunk_ms(recs, SEGMENTS)} "
+          f"(eager: {eager_path_ms(ground_state.main, argv, SEGMENTS)}); "
+          f"launches {json.dumps(counts)}")
     check(state.step == MAIN_ITERS and len(recs) == MAIN_ITERS,
           "main path: all iterations ran")
     # Variational: above the true ground state (~18.16 at N=6, Z=0.5) and
@@ -1138,15 +1203,15 @@ def phase_n10_path(device):
     float32 --persistent --steps-per-call 10, 20 iterations."""
     from fermiflow_tpu_torch.cli import ground_state
 
-    state, recs, counts, wall = drive_path(
-        ground_state.main, path_argv(device, MAIN_ITERS, SEGMENTS, N10,
-                                     BATCH10, LR10))
-    chunk_ms = [1e3 * r["iter_seconds"] for r in recs[::SEGMENTS]]
+    argv = path_argv(device, MAIN_ITERS, SEGMENTS, N10, BATCH10, LR10)
+    state, recs, counts, wall = drive_path(ground_state.main, argv)
+    ms = chunk_ms(recs, SEGMENTS)
+    eager = eager_path_ms(ground_state.main, argv, SEGMENTS)
     energies = [r["E"] for r in recs]
     lo = E_RANGE_N10[0]
     print(f"N=10 path: {MAIN_ITERS} iterations in {wall:.3f} s wall (setup "
-          f"included); ms per iteration by chunk {chunk_ms} (steady: "
-          f"{chunk_ms[1]:.3f}); E first/last {energies[0]:.5f}/"
+          f"included); ms per iteration by chunk {ms} (steady: "
+          f"{ms[1]:.3f}; eager {eager[1]:.3f}); E first/last {energies[0]:.5f}/"
           f"{energies[-1]:.5f}, E_std last {recs[-1]['E_std']:.4f}, accept "
           f"{recs[-1]['accept_rate']:.4f}; launches {json.dumps(counts)}")
     check(state.step == MAIN_ITERS and len(recs) == MAIN_ITERS,
@@ -1159,24 +1224,31 @@ def phase_n10_path(device):
     return counts
 
 
+def beta_argv(device, iters, n=N, beta=BETA, deltaE=DELTA_E, batch=BATCH,
+              lr="1e-3"):
+    return ["--beta", str(beta), "--nup", str(n), "--Z", "0.5", "--deltaE",
+            str(deltaE), "--boltzmann", "--batch", str(batch), "--dtype",
+            "float32", "--persistent", "--steps-per-call", str(SEGMENTS),
+            "--iternum", str(iters), "--lr", lr, "--mcmc-steps",
+            str(MCMC_STEPS), "--device", device.type]
+
+
 def phase_beta_path(device, n=N, beta=BETA, deltaE=DELTA_E, batch=BATCH,
                     lr="1e-3", f_range=(16.0, 21.0), f_first=None):
     """The finite-T training path through the port's CLI; every F in
     f_range and, where given, the first within 1.0 of f_first."""
     from fermiflow_tpu_torch.cli import finite_t
 
-    argv = ["--beta", str(beta), "--nup", str(n), "--Z", "0.5", "--deltaE",
-            str(deltaE), "--boltzmann", "--batch", str(batch), "--dtype",
-            "float32", "--persistent", "--steps-per-call", str(SEGMENTS),
-            "--iternum", str(MAIN_ITERS), "--lr", lr, "--mcmc-steps",
-            str(MCMC_STEPS), "--device", device.type]
+    argv = beta_argv(device, MAIN_ITERS, n, beta, deltaE, batch, lr)
     state, recs, counts, wall = drive_path(finite_t.main, argv)
-    chunk_ms = [1e3 * r["iter_seconds"] for r in recs[::SEGMENTS]]
+    ms = chunk_ms(recs, SEGMENTS)
+    eager = eager_path_ms(finite_t.main, argv, SEGMENTS)
     frees = [r["F"] for r in recs]
     what = "finite-T path" + (f" N={n}" if n != N else "")
     print(f"{what}: {MAIN_ITERS} iterations in {wall:.3f} s wall "
-          f"(setup included); ms per iteration by chunk {chunk_ms} (steady: "
-          f"{chunk_ms[1]:.3f}); F first/last {frees[0]:.5f}/{frees[-1]:.5f}; "
+          f"(setup included); ms per iteration by chunk {ms} (steady: "
+          f"{ms[1]:.3f}; eager {eager[1]:.3f}); F first/last "
+          f"{frees[0]:.5f}/{frees[-1]:.5f}; "
           f"S {recs[-1]['S']:.4f}, accept {recs[-1]['accept_rate']:.4f}; "
           f"launches {json.dumps(counts)}")
     if n != N:
@@ -1205,13 +1277,13 @@ def phase_gs_single_path(device, n=N, batch=BATCH, lr="1e-3",
     """The ground-state per-iteration path (--steps-per-call 1)."""
     from fermiflow_tpu_torch.cli import ground_state
 
-    state, recs, counts, wall = drive_path(
-        ground_state.main, path_argv(device, SINGLE_ITERS, 1, n, batch, lr))
+    argv = path_argv(device, SINGLE_ITERS, 1, n, batch, lr)
+    state, recs, counts, wall = drive_path(ground_state.main, argv)
     energies = [r["E"] for r in recs]
     lo, hi = e_range
     print(f"per-iteration path N={n}: {SINGLE_ITERS} iterations in {wall:.3f} s "
-          f"wall; ms per iteration after the first "
-          f"{[1e3 * r['iter_seconds'] for r in recs[1:]]}; "
+          f"wall; ms per iteration after the first {chunk_ms(recs, 1)} "
+          f"(eager: {eager_path_ms(ground_state.main, argv, 1)}); "
           f"E {energies}; launches {json.dumps(counts)}")
     check(all(math.isfinite(e) and lo < e < hi for e in energies),
           f"per-iteration path N={n}: every energy is finite and in "
@@ -2095,6 +2167,247 @@ def phase_strong_coupling(device, tmp):
     return {"kernel_s": sk, "plain_s": sp}
 
 
+# ---- phase 12: the compiled chunk (train.py) ----
+
+GRAPH_CHUNKS = 3  # (a): the warm-up chunk, then two replays
+GRAPH_TURN_CHUNKS = 12  # (b): chunks per turn; two turns each way
+GRAPH_TRACE_ITERS = 30  # (c): the CLI traces chunk 2, a replay
+# The port's kernels by name in a trace (csrc/*.cu); every other kernel is
+# PyTorch's.
+PORT_KERNEL = re.compile(r"metropolis|slater_vgh|hessian_flow|reinforce")
+
+
+def _graph_configs(device):
+    """(name, CLI argv at ``iters``, finite T) of the four paths phase 12
+    times and traces."""
+    return [
+        ("GS N=6", lambda it: path_argv(device, it, SEGMENTS), False),
+        ("GS N=10", lambda it: path_argv(device, it, SEGMENTS, N10, BATCH10,
+                                         LR10), False),
+        ("finite T N=6", lambda it: beta_argv(device, it), True),
+        ("finite T N=10", lambda it: beta_argv(
+            device, it, N10, BETA10, DELTA_E10, BATCH_BETA10, LR_BETA10),
+         True),
+    ]
+
+
+def _path_chunk(argv, finite, steps_per_call, graph):
+    """A fresh state of the CLI run ``argv`` and its chunk of
+    ``steps_per_call`` iterations, captured or eager."""
+    import argparse
+
+    import torch
+
+    from fermiflow_tpu_torch.cli import common
+    from fermiflow_tpu_torch.train import (
+        init_beta_state,
+        init_gs_state,
+        make_beta_train_step,
+        make_gs_fused_multi_step,
+        make_gs_train_step,
+        make_multi_step,
+    )
+
+    parser = argparse.ArgumentParser()
+    common.add_flags(parser, finite_t=finite)
+    cfg = common.config_from_args(parser.parse_args(argv), finite_t=finite)
+    device = torch.device(cfg.device, 0)
+    if finite:
+        model, params = common.build_beta(cfg)
+        state = init_beta_state(model, params, cfg, device)
+        chunk = make_multi_step(make_beta_train_step(model, cfg, graph=graph),
+                                steps_per_call)
+    else:
+        model, params = common.build_gs(cfg)
+        state = init_gs_state(model, params, cfg, device)
+        chunk = (make_gs_fused_multi_step(model, cfg, steps_per_call,
+                                          graph=graph)
+                 if steps_per_call > 1 else
+                 make_multi_step(make_gs_train_step(model, cfg, graph=graph),
+                                 1))
+    return state, chunk
+
+
+def _state_snapshot(state):
+    """Copies of every tensor a chunk changes: the state's, Adam's step and
+    both moments, and both generators' states."""
+    from fermiflow_tpu_torch.utils.checkpointing import named_tensors
+
+    out = {k: v.detach().clone() for k, v in named_tensors(state).items()}
+    for i, st in enumerate(state.optimizer.state.values()):
+        out.update({f"adam{i}.{k}": v.clone() for k, v in st.items()})
+    out["generator"] = state.generator.get_state()
+    if state.device_generator is not None:
+        out["device_generator"] = state.device_generator.get_state()
+    return out
+
+
+def phase_graph_bitwise(device):
+    """Phase 12 (a): the captured chunk against the eager one from the same
+    seed, GRAPH_CHUNKS chunks each: after every chunk every state tensor,
+    Adam's step and moments, the generators and every metric bitwise
+    equal; GS N=6 at K=10 and K=1, finite T N=6 at K=10."""
+    import torch
+
+    cases = [("GS N=6 K=10", path_argv(device, 0, SEGMENTS), False,
+              SEGMENTS),
+             ("GS N=6 K=1", path_argv(device, 0, 1), False, 1),
+             ("finite T N=6 K=10", beta_argv(device, 0), True, SEGMENTS)]
+    for what, argv, finite, K in cases:
+        runs = {}
+        for graph in (True, False):
+            state, chunk = _path_chunk(argv, finite, K, graph)
+            snaps = []
+            for _ in range(GRAPH_CHUNKS):
+                state, m = chunk(state)
+                snaps.append(dict(_state_snapshot(state),
+                                  **{"metric." + k: v.clone()
+                                     for k, v in m.items()}))
+            torch.cuda.synchronize()
+            runs[graph] = (state, snaps, chunk)
+        bad = sorted({f"{k} (chunk {i + 1})"
+                      for i, (a, b) in enumerate(zip(runs[True][1],
+                                                     runs[False][1]))
+                      for k in a if not torch.equal(a[k].cpu(), b[k].cpu())})
+        chunk = runs[True][2]
+        print(f"phase 12 (a) {what}: {GRAPH_CHUNKS} chunks "
+              f"({GRAPH_CHUNKS * K} iterations; the first eager, then "
+              f"replays), captured against eager: "
+              f"{'bitwise equal' if not bad else bad[:8]}; capture "
+              f"{chunk.capture_seconds:.4f} s, graph pool "
+              f"{chunk.pool_bytes} bytes", flush=True)
+        check(chunk._replay is not None and runs[True][0].step
+              == runs[False][0].step == GRAPH_CHUNKS * K and not bad,
+              f"phase 12 (a) {what}: the captured chunk's state, Adam, "
+              "generators and metrics equal the eager chunk's bitwise")
+
+
+def phase_graph_timing(device):
+    """Phase 12 (b): ms per iteration of the captured and the eager chunk
+    (K=10) in turns, eager, captured, captured, eager, GRAPH_TURN_CHUNKS
+    chunks a turn, each timed as the CLI times it (the chunk and its
+    metrics fetch, over K), after one untimed chunk each (the warm-up and
+    capture).  Returns {path: row}, with the capture's seconds and pool."""
+    import statistics
+
+    import torch
+
+    from fermiflow_tpu_torch.utils import MetricsLogger
+
+    rows = {}
+    for what, argv, finite in _graph_configs(device):
+        runs = {}
+        for graph in (False, True):
+            state, chunk = _path_chunk(argv(0), finite, SEGMENTS, graph)
+            state, m = chunk(state)
+            MetricsLogger(None).log_many(1, m, time.time())
+            runs[graph] = [state, chunk, []]
+        key, finite_rows = ("F" if finite else "E"), True
+        for graph in (False, True, True, False):
+            state, chunk, times = runs[graph]
+            logger = MetricsLogger(None)
+            for _ in range(GRAPH_TURN_CHUNKS):
+                t0 = time.perf_counter()
+                state, m = chunk(state)
+                recs = logger.log_many(1, m, time.time())
+                times.append(1e3 * (time.perf_counter() - t0) / SEGMENTS)
+                finite_rows &= all(math.isfinite(r[key]) for r in recs)
+            runs[graph][0] = state
+        check(finite_rows, f"phase 12 (b) {what}: every {key} finite")
+        stats = {}
+        for graph, name in ((True, "graphed"), (False, "eager")):
+            t = sorted(runs[graph][2])
+            stats[name] = dict(median=statistics.median(t), min=t[0],
+                               max=t[-1], p10=t[len(t) // 10],
+                               p90=t[-1 - len(t) // 10], chunks=len(t))
+        chunk = runs[True][1]
+        rows[what] = dict(stats, capture_s=chunk.capture_seconds,
+                          pool_bytes=chunk.pool_bytes,
+                          replay_launches=chunk.launches)
+        g, e = stats["graphed"], stats["eager"]
+        print(f"phase 12 (b) {what}: ms per iteration over {g['chunks']} "
+              f"chunks each, captured median {g['median']:.4f} (min "
+              f"{g['min']:.4f}, max {g['max']:.4f}), eager median "
+              f"{e['median']:.4f} (min {e['min']:.4f}, max {e['max']:.4f}); "
+              f"capture {chunk.capture_seconds:.4f} s, graph pool "
+              f"{chunk.pool_bytes} bytes", flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_graph_traces(device, tmp, timing):
+    """Phase 12 (c): the CLI's ``--profile-dir`` trace of chunk 2 (K=10) of
+    each path, a replay, and of the same chunk eager: kernels the card
+    ran, ``cudaGraphLaunch``, ``cudaLaunchKernel`` and
+    ``cudaStreamSynchronize`` calls, the device's idle share, and the
+    capture's seconds and pool (phase 12 (b)'s chunk).  The GS N=6 replay
+    must be one graph launch, at most 10 launches (the metrics' clone) and
+    no wait for the card before the replay's end."""
+    from fermiflow_tpu_torch.cli import finite_t, ground_state
+
+    out = {}
+    for what, argv, finite in _graph_configs(device):
+        main = finite_t.main if finite else ground_state.main
+        row, names = {}, {}
+        for name in ("graphed", "eager"):
+            prof = f"{tmp}/{what.replace(' ', '_')}_{name}"
+            with (eager_chunks() if name == "eager"
+                  else contextlib.nullcontext()):
+                drive_path(main, argv(GRAPH_TRACE_ITERS)
+                           + ["--profile-dir", prof])
+            with open(f"{prof}/summary.json") as fh:
+                summ = json.load(fh)
+            calls = summ["runtime_calls"]
+            row[name] = dict(
+                kernels=summ.get("kernels"),
+                graph_launches=calls["cudaGraphLaunch"],
+                launches=calls["cudaLaunchKernel"]
+                + calls["cudaLaunchKernelExC"],
+                syncs=calls["cudaStreamSynchronize"],
+                idle_share=summ.get("device_idle_share"),
+                busy_ms=summ.get("device_busy_ms"),
+                window_ms=summ["window_ms"])
+            with open(f"{prof}/trace.json") as fh:
+                evs = [e for e in json.load(fh)["traceEvents"]
+                       if e.get("ph") == "X"]
+            names[name], other = {}, {}
+            for e in evs:
+                if e.get("cat") == "kernel":
+                    names[name][e["name"]] = names[name].get(e["name"], 0) + 1
+                    if not PORT_KERNEL.search(e["name"]):
+                        other[e["name"][:60]] = (other.get(e["name"][:60], 0.0)
+                                                 + float(e["dur"]) / 1e3)
+            row[name]["port_kernels_ms"] = sum(
+                float(e["dur"]) / 1e3 for e in evs if e.get("cat") == "kernel"
+                and PORT_KERNEL.search(e["name"]))
+            row[name]["other_kernels_ms"] = sum(other.values())
+            row[name]["other_kernels_top"] = dict(sorted(
+                other.items(), key=lambda kv: -kv[1])[:5])
+            if name == "graphed":
+                ends = [float(e["ts"]) + float(e["dur"]) for e in evs
+                        if e["name"] == "cudaGraphLaunch"]
+                row[name]["syncs_before_replay_end"] = sum(
+                    1 for e in evs if e["name"] == "cudaStreamSynchronize"
+                    and ends and float(e["ts"]) < max(ends))
+        # Kernels the replay ran more or fewer times than the eager chunk.
+        row["kernel_count_differences"] = {
+            k[:60]: [names["graphed"].get(k, 0), names["eager"].get(k, 0)]
+            for k in sorted(set(names["graphed"]) | set(names["eager"]))
+            if names["graphed"].get(k, 0) != names["eager"].get(k, 0)}
+        row.update(capture_s=timing[what]["capture_s"],
+                   pool_bytes=timing[what]["pool_bytes"])
+        out[what] = row
+        print(f"phase 12 (c) {what}: traced chunk 2 (10 iterations): "
+              f"{json.dumps(row)}", flush=True)
+    g = out["GS N=6"]["graphed"]
+    check(g["graph_launches"] == 1 and g["launches"] <= 10
+          and g["syncs_before_replay_end"] == 0 and g["kernels"] > 0,
+          "phase 12 (c): the GS N=6 replay is one graph launch, at most 10 "
+          "launches and no wait for the card before its end")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -2203,6 +2516,15 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as tmp11:
             phase_strong_coupling(device, tmp11)
         print(f"phase 11: {time.perf_counter() - t11:.1f} s")
+        phase("12: the compiled chunk")
+        t12 = time.perf_counter()
+        phase_graph_bitwise(device)
+        timing = phase_graph_timing(device)
+        with tempfile.TemporaryDirectory() as tmp12:
+            traces = phase_graph_traces(device, tmp12, timing)
+        print("phase 12 timing: " + json.dumps(timing))
+        print("phase 12 traces: " + json.dumps(traces))
+        print(f"phase 12: {time.perf_counter() - t12:.1f} s")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -420,7 +420,9 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
     """Drive iterations ``start_step`` + 1 .. ``cfg.iternum`` in chunks of
     ``cfg.steps_per_call``, clipped to the checkpoint cadence.
 
-    ``make_chunk(K)`` returns the K-iteration function.  The metrics fetch
+    ``make_chunk(K)`` returns the K-iteration function, made once per chunk
+    length (a captured CUDA graph, ``train.py``) and made anew after a
+    restore.  The metrics fetch
     at the end of a chunk waits for the device, so its wall time over K is
     the per-iteration speed; at K = 1 each row is timed from the previous
     row (``MetricsLogger.log``), and the first has no time.  Each chunk is checked whole before its rows
@@ -433,7 +435,7 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
     ``FloatingPointError`` with the JAX CLI's message.  After the rows are
     printed, a chunk that ends on the cadence saves a checkpoint.  With
     ``profile_dir`` it traces chunks 2-4 at K = 1 (the JAX CLI's iterations
-    2-4), else chunk 2.  ``debug_nans`` turns on autograd's anomaly
+    2-4), else chunk 2: replays, on a captured path.  ``debug_nans`` turns on autograd's anomaly
     detection and raises ``FloatingPointError`` naming the first non-finite
     state tensor after a chunk.
 
@@ -464,9 +466,11 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
                 f"{reason} at iteration {at_iter} before the first "
                 f"checkpoint was written (nothing to restore)")
         # A new stream, so the retried trajectory differs from the one that
-        # blew up; the window restarts from the restored point.
+        # blew up; the window restarts from the restored point.  The restore
+        # replaced Adam's state tensors: captured chunks are made anew.
         _reseed(state, 7919 + restarts)
         window.clear()
+        chunk_fns.clear()
         if primary:
             print(f"WATCHDOG: {reason} at iteration {at_iter}; restored "
                   f"checkpoint step {step} with reseeded chains (restart "

@@ -66,11 +66,14 @@ def _run(args, cfg, primary: bool):
             f"{rec.get('hours_per_100_iters', float('nan'))}"
         )
 
+    # One captured CUDA graph a chunk where the path allows (train.py), but
+    # under --debug-nans.
+    graph = False if args.debug_nans else None
     try:
         state = common.run_training_loop(
             state, cfg,
-            lambda chunk: make_multi_step(make_beta_train_step(model, cfg,
-                                                               mesh), chunk),
+            lambda chunk: make_multi_step(
+                make_beta_train_step(model, cfg, mesh, graph=graph), chunk),
             logger, print_row, args.profile_dir, start_step, args.debug_nans,
             primary, mesh,
         )

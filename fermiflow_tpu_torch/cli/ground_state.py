@@ -63,12 +63,15 @@ def _run(args, cfg, primary: bool):
     # With K > 1 every chunk is the fused multi-step (one multi-segment
     # sampler launch per chunk); with K = 1 each iteration is one
     # single-chain sampler launch, as the JAX driver's per-iteration step.
+    # Each is one captured CUDA graph where the path allows (train.py),
+    # but under --debug-nans.
+    graph = False if args.debug_nans else None
     if cfg.steps_per_call > 1:
-        make_chunk = lambda chunk: make_gs_fused_multi_step(model, cfg, chunk,
-                                                            mesh)
+        make_chunk = lambda chunk: make_gs_fused_multi_step(
+            model, cfg, chunk, mesh, graph=graph)
     else:
         make_chunk = lambda chunk: make_multi_step(
-            make_gs_train_step(model, cfg, mesh), chunk)
+            make_gs_train_step(model, cfg, mesh, graph=graph), chunk)
     try:
         state = common.run_training_loop(state, cfg, make_chunk, logger,
                                          print_row, args.profile_dir,

@@ -26,7 +26,10 @@
 // lane then holds the same log p and accept uniform, so all decide alike.
 // The arithmetic and the Philox stream are one thread's: counter (draw,
 // step, segment) keyed by (seed, walker0 + walker), so no generator state
-// is kept.  walker0 is the launch's first global walker: a rank of a
+// is kept.  The seed is read from one word of device memory at the
+// kernel's start, not passed by value: a captured CUDA graph replays the
+// launch with the word its host side rewrote, and so draws a new stream
+// each replay.  walker0 is the launch's first global walker: a rank of a
 // multi-process run launching on its rows (walker0 = its first row) walks
 // exactly the chains of those rows in a one-process launch, whatever the
 // process count (walker0 = 0 gives the one-process stream).
@@ -75,7 +78,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
     const float* __restrict__ x0, const float* __restrict__ tau0,
     float* __restrict__ xs, float* __restrict__ logps, float* __restrict__ rates,
     float* __restrict__ tau_out, const float* __restrict__ normals,
-    const float* __restrict__ uniforms, int B, Occ occ, uint32_t seed,
+    const float* __restrict__ uniforms, int B, Occ occ, const uint32_t* __restrict__ seed_word,
     uint32_t walker0, int steps, int segments, float target, float gain, int reinit) {
   constexpr int G = kSamplerLanes;
   using L = Group<N, G>;
@@ -85,6 +88,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
   const bool live = wr < B;
   const int w = min(wr, B - 1);
   const size_t Bs = (size_t)B;
+  const uint32_t seed = *seed_word;
 
   float x[L::S][2];
 #pragma unroll
@@ -160,7 +164,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
 template <int N>
 cudaError_t launch(const float* x0, const float* tau0, float* xs, float* logps,
                    float* rates, float* tau_out, const float* normals,
-                   const float* uniforms, int B, Occ occ, uint32_t seed,
+                   const float* uniforms, int B, Occ occ, const uint32_t* seed,
                    uint32_t walker0, int steps,
                    int segments, float target, float gain, int reinit,
                    cudaStream_t stream) {
@@ -182,12 +186,13 @@ cudaError_t occupancy(int* warps) {
 }  // namespace
 
 // x0 (d, B), tau0 (B,) -> xs (segments, d, B), logps and rates
-// (segments, B), tau_out (B,) when not null.  Injected noise, when given,
+// (segments, B), tau_out (B,) when not null.  seed points at one word of
+// device memory.  Injected noise, when given,
 // is normals (segments, steps + 1, d, B) and uniforms (segments, steps, B).
 extern "C" int ff_metropolis_chains(
     const float* x0, const float* tau0, float* xs, float* logps, float* rates,
     float* tau_out, const float* normals, const float* uniforms, int B, int n,
-    int nup, const int* nx, const int* ny, unsigned int seed,
+    int nup, const int* nx, const int* ny, const unsigned int* seed,
     unsigned int walker0, int steps, int segments, float target, float gain,
     int reinit, void* stream) {
   const Occ occ = make_occ(nx, ny, n, nup);
@@ -215,7 +220,7 @@ extern "C" int ff_metropolis_chains(
 extern "C" int ff_metropolis_free_fermion(
     const float* x0, const float* tau, float* x, float* logp, float* acc,
     const float* normals, const float* uniforms, int B, int n, int nup,
-    const int* nx, const int* ny, unsigned int seed, unsigned int walker0,
+    const int* nx, const int* ny, const unsigned int* seed, unsigned int walker0,
     int steps, void* stream) {
   return ff_metropolis_chains(x0, tau, x, logp, acc, nullptr, normals,
                               uniforms, B, n, nup, nx, ny, seed, walker0,

@@ -20,7 +20,8 @@
 // shares (sampler.cuh): a group of G = kSamplerLanes lanes walks one chain,
 // lane l owning particles l, l + G, ...; Philox4x32-10 keyed by
 // (seed, walker0 + walker) with counter (draw, step, 0), walker0 the
-// launch's first global walker (0 in a one-process run).  Every lane of the group
+// launch's first global walker (0 in a one-process run), the seed read
+// from one word of device memory (metropolis.cu says why).  Every lane of the group
 // reads the walker's N (nx, ny) pairs once before the chain and keeps them
 // in registers (WalkerQnums, common.cuh: the counterpart of the TPU
 // kernel's one-hot masks hoisted out of its loop).  Orbital values are
@@ -62,8 +63,8 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
     const int* __restrict__ nx, const int* __restrict__ ny,
     float* __restrict__ x_out, float* __restrict__ logp_out,
     float* __restrict__ acc_out, const float* __restrict__ normals,
-    const float* __restrict__ uniforms, int B, uint32_t seed, uint32_t walker0,
-    int steps) {
+    const float* __restrict__ uniforms, int B, const uint32_t* __restrict__ seed_word,
+    uint32_t walker0, int steps) {
   constexpr int G = kSamplerLanes;
   using L = Group<N, G>;
   constexpr int D = L::D;
@@ -72,6 +73,7 @@ __global__ void __launch_bounds__(kSamplerThreads, kSamplerMinBlocks) metropolis
   const bool live = wr < B;
   const int w = min(wr, B - 1);
   const size_t Bs = (size_t)B;
+  const uint32_t seed = *seed_word;
 
   WalkerQnums<N, K> q;
   const bool ok = q.load(nx, ny, Bs, w);
@@ -130,7 +132,7 @@ template <int N, int K>
 cudaError_t launch(const float* x0, const float* tau, const int* nx,
                    const int* ny, float* x, float* logp, float* acc,
                    const float* normals, const float* uniforms, int B,
-                   uint32_t seed, uint32_t walker0, int steps, cudaStream_t stream) {
+                   const uint32_t* seed, uint32_t walker0, int steps, cudaStream_t stream) {
   metropolis_ms_kernel<N, K><<<sampler_blocks(B), kSamplerThreads, 0, stream>>>(
       x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps);
   return cudaGetLastError();
@@ -151,7 +153,7 @@ template <int N>
 cudaError_t dispatch_k(int kdepth, const float* x0, const float* tau,
                        const int* nx, const int* ny, float* x, float* logp,
                        float* acc, const float* normals, const float* uniforms,
-                       int B, uint32_t seed, uint32_t walker0, int steps,
+                       int B, const uint32_t* seed, uint32_t walker0, int steps,
                        cudaStream_t st, int* warps) {
   switch (kdepth) {
 #define FF_MS_DEPTH(KD)                                                           \
@@ -170,7 +172,7 @@ cudaError_t dispatch_k(int kdepth, const float* x0, const float* tau,
 
 int dispatch(int n, int kdepth, const float* x0, const float* tau,
              const int* nx, const int* ny, float* x, float* logp, float* acc,
-             const float* normals, const float* uniforms, int B, uint32_t seed,
+             const float* normals, const float* uniforms, int B, const uint32_t* seed,
              uint32_t walker0, int steps, cudaStream_t st, int* warps) {
   switch (n) {
     case 2: return (int)dispatch_k<2>(kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms, B, seed, walker0, steps, st, warps);
@@ -190,11 +192,12 @@ int dispatch(int n, int kdepth, const float* x0, const float* tau,
 
 // x0 (d, B), tau (B,), nx/ny (n, B) int32 -> x (d, B), logp (B,), acc (B,),
 // for 2 <= n <= 10.  kdepth is the compiled Hermite depth (4, 5, 6 or 8).  Injected noise,
-// when given, is normals (steps, d, B) and uniforms (steps, B).
+// when given, is normals (steps, d, B) and uniforms (steps, B).  seed points
+// at one word of device memory.
 extern "C" int ff_metropolis_multistate(
     const float* x0, const float* tau, const int* nx, const int* ny, float* x,
     float* logp, float* acc, const float* normals, const float* uniforms,
-    int B, int n, int kdepth, unsigned int seed, unsigned int walker0,
+    int B, int n, int kdepth, const unsigned int* seed, unsigned int walker0,
     int steps, void* stream) {
   return dispatch(n, kdepth, x0, tau, nx, ny, x, logp, acc, normals, uniforms,
                   B, seed, walker0, steps, (cudaStream_t)stream, nullptr);
@@ -208,6 +211,6 @@ extern "C" int ff_metropolis_ms_occupancy(int n, int kdepth, int B,
   *grid_warps = sampler_grid_warps(B);
   *lanes = kSamplerLanes;
   return dispatch(n, kdepth, nullptr, nullptr, nullptr, nullptr, nullptr,
-                  nullptr, nullptr, nullptr, nullptr, 0, 0u, 0u, 0, nullptr,
+                  nullptr, nullptr, nullptr, nullptr, 0, nullptr, 0u, 0, nullptr,
                   warps_per_sm);
 }

@@ -7,7 +7,10 @@ Libraries are cached under ``fermiflow_tpu_torch/build/`` by a hash of the
 sources and flags, so a rebuild happens only when a source changes.
 
 ``LAUNCHES`` counts kernel launches per wrapper; each wrapper adds one where
-it launches its kernel and nowhere else.
+it launches its kernel and nowhere else.  Under a CUDA-graph capture a
+wrapper's call records its launch without running it: a captured chunk
+(``train.py``) takes back the counts its capture added and adds them again
+at each replay, so that the counts say what ran.
 """
 
 from __future__ import annotations

@@ -30,6 +30,13 @@ package's ``_per_shard_seed`` (seed + shard << 16), whose streams depend on
 the shard count (the port's streams never matched JAX's).  The
 ``*_sharded`` entry points take a rank's rows in the JAX layout.
 
+``seed`` is an ``int`` or a one-element int32 tensor on the walkers'
+device holding the seed's 32 bits.  The kernels read it from device memory
+at launch (an ``int`` is written to a new device word first), so a
+captured CUDA graph that rewrites the word between replays draws a new
+stream each time (``train.py``); a plain version reads its value.  Either
+form of one value gives bitwise the same output.
+
 Each takes an optional ``noise = (normals, uniforms)`` so that a kernel and
 its plain version can be compared on one random stream: for the chains
 normals (segments, steps + 1, d, B) (slot ``steps`` feeds the ``reinit``
@@ -159,6 +166,29 @@ def _chain_plain(x, logp, tau, logp_fn, steps, draws):
     return x, logp, acc / max(steps, 1)
 
 
+def _seed_value(seed) -> int:
+    """A plain version's generator seed from an ``int`` or a one-element
+    int32 tensor (its 32 bits, read on the host)."""
+    if isinstance(seed, torch.Tensor):
+        return int(seed.reshape(-1)[0]) & 0xFFFFFFFF
+    return int(seed)
+
+
+def _seed_word(seed, device: torch.device) -> torch.Tensor:
+    """The kernels' seed: the one-element int32 tensor the caller gave (on
+    ``device``), or a new one holding an ``int``'s low 32 bits."""
+    if isinstance(seed, torch.Tensor):
+        if (seed.dtype != torch.int32 or seed.numel() != 1
+                or seed.device != device or not seed.is_contiguous()):
+            raise ValueError(f"seed must be a one-element contiguous int32 "
+                             f"tensor on {device}, got {seed.dtype} "
+                             f"{tuple(seed.shape)} on {seed.device}")
+        return seed
+    word = int(seed) & 0xFFFFFFFF
+    return torch.full((1,), word - (1 << 32) if word >> 31 else word,
+                      dtype=torch.int32, device=device)
+
+
 def _global_rows(B: int, walker0: int, global_batch: int | None):
     """(global batch, slice of this launch's rows) of a plain sampler."""
     Bg = B if global_batch is None else int(global_batch)
@@ -168,7 +198,8 @@ def _global_rows(B: int, walker0: int, global_batch: int | None):
     return Bg, slice(walker0, walker0 + B)
 
 
-def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
+def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
+                            seed: int | torch.Tensor,
                             *, steps: int, segments: int, nx_occ: tuple,
                             ny_occ: tuple, nx_dn: tuple = (), ny_dn: tuple = (),
                             num_shells: int = 3, target: float = 0.5,
@@ -185,7 +216,8 @@ def metropolis_chains_plain(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int,
     ny = tuple(ny_occ) + tuple(ny_dn)
     nup = len(nx_occ)
     if noise is None and generator is None:
-        generator = torch.Generator(x0_cm.device).manual_seed(int(seed))
+        generator = torch.Generator(x0_cm.device).manual_seed(
+            _seed_value(seed))
     d, B = x0_cm.shape
     n = d // 2
     Bg, rows = _global_rows(B, walker0, global_batch)
@@ -240,6 +272,7 @@ def _chains_cuda(x0_cm, tau, seed, steps, segments, nx, ny, nup, target, gain,
     logps = torch.empty((segments, B), **out)
     rates = torch.empty((segments, B), **out)
     tau_out = torch.empty((B,), **out)
+    seed_word = _seed_word(seed, x0_cm.device)
     lib = _build.library("metropolis")
     fn = lib.ff_metropolis_chains
     fn.restype = ctypes.c_int
@@ -248,7 +281,7 @@ def _chains_cuda(x0_cm, tau, seed, steps, segments, nx, ny, nup, target, gain,
             _build.ptr(logps), _build.ptr(rates), _build.ptr(tau_out),
             _build.ptr(normals), _build.ptr(uniforms), ctypes.c_int(B),
             ctypes.c_int(n), ctypes.c_int(nup), ints(*nx), ints(*ny),
-            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_uint(walker0),
+            _build.ptr(seed_word), ctypes.c_uint(walker0),
             ctypes.c_int(steps), ctypes.c_int(segments), ctypes.c_float(target),
             ctypes.c_float(gain), ctypes.c_int(int(reinit)),
             _build.stream_ptr(x0_cm.device))
@@ -257,7 +290,8 @@ def _chains_cuda(x0_cm, tau, seed, steps, segments, nx, ny, nup, target, gain,
     return xs, logps, rates, tau_out
 
 
-def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
+def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor,
+                      seed: int | torch.Tensor, *,
                       steps: int, segments: int, nx_occ: tuple, ny_occ: tuple,
                       nx_dn: tuple = (), ny_dn: tuple = (), num_shells: int = 3,
                       target: float = 0.5, gain: float = 0.1,
@@ -269,7 +303,8 @@ def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
     Args:
       x0_cm: (d, B) walker coordinates, walkers contiguous.
       tau: (B,) per-walker proposal scale.
-      seed: stream seed (Philox key on the GPU; generator seed on the CPU).
+      seed: stream seed (Philox key on the GPU; generator seed on the CPU),
+        an ``int`` or a one-element int32 tensor (module docstring).
       nx_occ/ny_occ (+ nx_dn/ny_dn): occupied orbitals' 1D quantum numbers
         of the spin-up (and spin-down) sector.
       target, gain: tau adaptation between segments (ignored with reinit).
@@ -295,11 +330,12 @@ def metropolis_chains(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
             target=target, gain=gain, reinit=reinit, noise=noise,
             generator=generator, walker0=walker0, global_batch=global_batch)
     check_gs_occupation("sampler", nx, ny)
-    return _chains_cuda(x0_cm, tau, int(seed), steps, segments, nx, ny, nup,
+    return _chains_cuda(x0_cm, tau, seed, steps, segments, nx, ny, nup,
                         target, gain, reinit, noise, int(walker0))
 
 
-def metropolis_free_fermion_chains(x0: torch.Tensor, seed: int, tau, steps: int,
+def metropolis_free_fermion_chains(x0: torch.Tensor,
+                                   seed: int | torch.Tensor, tau, steps: int,
                                    segments: int, nx_occ: tuple, ny_occ: tuple,
                                    num_shells: int = 3, nx_dn: tuple = (),
                                    ny_dn: tuple = (), target: float = 0.5,
@@ -324,7 +360,9 @@ def metropolis_free_fermion_chains(x0: torch.Tensor, seed: int, tau, steps: int,
 
 
 def metropolis_single_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
-                               seed: int, *, steps: int, nx_occ: tuple,
+
+                               seed: int | torch.Tensor, *, steps: int,
+                               nx_occ: tuple,
                                ny_occ: tuple, nx_dn: tuple = (),
                                ny_dn: tuple = (), num_shells: int = 3,
                                noise=None,
@@ -358,20 +396,23 @@ def _single_cuda(x0_cm, tau, seed, steps, nx, ny, nup, noise, walker0=0):
     x = torch.empty((d, B), **out)
     logp = torch.empty((B,), **out)
     acc = torch.empty((B,), **out)
+    seed_word = _seed_word(seed, x0_cm.device)
     fn = _build.library("metropolis").ff_metropolis_free_fermion
     fn.restype = ctypes.c_int
     ints = ctypes.c_int * n
     rc = fn(_build.ptr(x0_cm), _build.ptr(tau), _build.ptr(x), _build.ptr(logp),
             _build.ptr(acc), _build.ptr(normals), _build.ptr(uniforms),
             ctypes.c_int(B), ctypes.c_int(n), ctypes.c_int(nup), ints(*nx),
-            ints(*ny), ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_uint(walker0),
+            ints(*ny), _build.ptr(seed_word),
+            ctypes.c_uint(walker0),
             ctypes.c_int(steps), _build.stream_ptr(x0_cm.device))
     _build.check_rc(rc, "metropolis_single")
     _build.LAUNCHES["metropolis_single"] += 1
     return x, logp, acc
 
 
-def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
+def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
+                         seed: int | torch.Tensor, *,
                          steps: int, nx_occ: tuple, ny_occ: tuple,
                          nx_dn: tuple = (), ny_dn: tuple = (),
                          num_shells: int = 3, noise=None,
@@ -393,11 +434,12 @@ def metropolis_single_cm(x0_cm: torch.Tensor, tau: torch.Tensor, seed: int, *,
             nx_dn=nx_dn, ny_dn=ny_dn, num_shells=num_shells, noise=noise,
             generator=generator, walker0=walker0, global_batch=global_batch)
     check_gs_occupation("sampler", nx, ny)
-    return _single_cuda(x0_cm, tau, int(seed), steps, nx, ny, len(nx_occ),
+    return _single_cuda(x0_cm, tau, seed, steps, nx, ny, len(nx_occ),
                         noise, int(walker0))
 
 
-def metropolis_free_fermion(x0: torch.Tensor, seed: int, tau, steps: int,
+def metropolis_free_fermion(x0: torch.Tensor,
+                            seed: int | torch.Tensor, tau, steps: int,
                             nx_occ: tuple, ny_occ: tuple, num_shells: int = 8,
                             nx_dn: tuple = (), ny_dn: tuple = (), noise=None,
                             generator=None, walker0=0, global_batch=None):
@@ -429,7 +471,7 @@ def slater_logp_ms(x: torch.Tensor, nx: torch.Tensor, ny: torch.Tensor,
 
 
 def metropolis_multistate_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
-                                   seed: int, *, steps: int,
+                                   seed: int | torch.Tensor, *, steps: int,
                                    nx_cm: torch.Tensor, ny_cm: torch.Tensor,
                                    num_shells: int, noise=None,
                                    generator: torch.Generator | None = None,
@@ -438,7 +480,8 @@ def metropolis_multistate_cm_plain(x0_cm: torch.Tensor, tau: torch.Tensor,
     """Plain PyTorch version of ``metropolis_multistate_cm`` (same arguments
     and returns), on any device."""
     if noise is None and generator is None:
-        generator = torch.Generator(x0_cm.device).manual_seed(int(seed))
+        generator = torch.Generator(x0_cm.device).manual_seed(
+            _seed_value(seed))
     d, B = x0_cm.shape
     n = d // 2
     Bg, rows = _global_rows(B, walker0, global_batch)
@@ -478,13 +521,14 @@ def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise,
     x = torch.empty((d, B), **out)
     logp = torch.empty((B,), **out)
     acc = torch.empty((B,), **out)
+    seed_word = _seed_word(seed, x0_cm.device)
     fn = _build.library("metropolis_ms").ff_metropolis_multistate
     fn.restype = ctypes.c_int
     P = _build.ptr
     rc = fn(P(x0_cm), P(tau), P(nx_cm), P(ny_cm), P(x), P(logp), P(acc),
             P(normals), P(uniforms), ctypes.c_int(B), ctypes.c_int(n),
             ctypes.c_int(ms_depth(num_shells)),
-            ctypes.c_uint(seed & 0xFFFFFFFF), ctypes.c_uint(walker0),
+            P(seed_word), ctypes.c_uint(walker0),
             ctypes.c_int(steps), _build.stream_ptr(x0_cm.device))
     _build.check_rc(rc, "metropolis_multistate")
     _build.LAUNCHES["metropolis_multistate"] += 1
@@ -492,7 +536,9 @@ def _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm, num_shells, noise,
 
 
 def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
-                             seed: int, *, steps: int, nx_cm: torch.Tensor,
+
+                             seed: int | torch.Tensor, *, steps: int,
+                             nx_cm: torch.Tensor,
                              ny_cm: torch.Tensor, num_shells: int, noise=None,
                              generator: torch.Generator | None = None,
                              walker0: int = 0, global_batch: int | None = None):
@@ -501,7 +547,8 @@ def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
     Args:
       x0_cm: (d, B) walker coordinates, walkers contiguous.
       tau: (B,) per-walker proposal scale.
-      seed: stream seed (Philox key on the GPU; generator seed on the CPU).
+      seed: stream seed (Philox key on the GPU; generator seed on the CPU),
+        an ``int`` or a one-element int32 tensor (module docstring).
       nx_cm, ny_cm: (n, B) int32 quantum numbers of each walker's occupied
         orbitals (one spin sector), all below ``num_shells``.
       num_shells: Hermite depth covering the quantum numbers.
@@ -520,11 +567,12 @@ def metropolis_multistate_cm(x0_cm: torch.Tensor, tau: torch.Tensor,
             num_shells=num_shells, noise=noise, generator=generator,
             walker0=walker0, global_batch=global_batch)
     check_ms_occupation("sampler", nx_cm.shape[0], num_shells)
-    return _multistate_cuda(x0_cm, tau, int(seed), steps, nx_cm, ny_cm,
+    return _multistate_cuda(x0_cm, tau, seed, steps, nx_cm, ny_cm,
                             num_shells, noise, int(walker0))
 
 
-def metropolis_free_fermion_multistate(x0: torch.Tensor, seed: int, tau,
+def metropolis_free_fermion_multistate(x0: torch.Tensor,
+                                       seed: int | torch.Tensor, tau,
                                        steps: int, nx: torch.Tensor,
                                        ny: torch.Tensor, num_shells: int = 8,
                                        noise=None, generator=None, walker0=0,
@@ -547,7 +595,8 @@ def metropolis_free_fermion_multistate(x0: torch.Tensor, seed: int, tau,
 # ---- over a walker mesh: one launch per rank on its rows ----
 
 
-def metropolis_free_fermion_chains_sharded(mesh, x0: torch.Tensor, seed: int,
+def metropolis_free_fermion_chains_sharded(mesh, x0: torch.Tensor,
+                                           seed: int | torch.Tensor,
                                            tau, steps: int, segments: int,
                                            nx_occ: tuple, ny_occ: tuple,
                                            num_shells: int = 3,
@@ -563,7 +612,8 @@ def metropolis_free_fermion_chains_sharded(mesh, x0: torch.Tensor, seed: int,
         ny_dn, target, gain, reinit, **sampler_rows(mesh, x0.shape[0]))
 
 
-def metropolis_free_fermion_sharded(mesh, x0: torch.Tensor, seed: int, tau,
+def metropolis_free_fermion_sharded(mesh, x0: torch.Tensor,
+                                    seed: int | torch.Tensor, tau,
                                     steps: int, nx_occ: tuple, ny_occ: tuple,
                                     num_shells: int = 8, nx_dn: tuple = (),
                                     ny_dn: tuple = ()):
@@ -574,7 +624,9 @@ def metropolis_free_fermion_sharded(mesh, x0: torch.Tensor, seed: int, tau,
 
 
 def metropolis_free_fermion_multistate_sharded(mesh, x0: torch.Tensor,
-                                               seed: int, tau, steps: int,
+
+                                               seed: int | torch.Tensor, tau,
+                                               steps: int,
                                                nx: torch.Tensor,
                                                ny: torch.Tensor,
                                                num_shells: int = 8):

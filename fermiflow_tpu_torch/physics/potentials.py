@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["pairwise_distances", "HOPotential", "CoulombPairPotential"]
@@ -35,20 +36,25 @@ class CoulombPairPotential:
 
     def __init__(self, Z: float):
         self.Z = Z
+        self._pairs = {}  # (n, device) -> (2, n(n-1)/2) i<j indices
 
     def V(self, x: torch.Tensor) -> torch.Tensor:
         dij, mask = pairwise_distances(x)
         return 0.5 * self.Z * torch.sum(mask / dij, dim=(-2, -1))
 
     def V_rows(self, xd: torch.Tensor, n: int, dim: int) -> torch.Tensor:
-        """Coordinate-major variant: unrolled i<j pair sum over rows of xd."""
-        V = torch.zeros(xd.shape[-1], dtype=xd.dtype, device=xd.device)
-        for i in range(n):
-            for j in range(i + 1, n):
-                r2 = sum(
-                    (xd[i * dim + a] - xd[j * dim + a]) ** 2 for a in range(dim)
-                )
-                V = V + self.Z / torch.sqrt(r2)
-        return V
+        """Coordinate-major variant: xd (n*dim, B) -> (B,), the i<j pair sum
+        as one expression (six launches: the pairs' gather, their
+        difference, its norm over dim, the reciprocal, the sum over pairs,
+        the factor Z), where the JAX function unrolls the pairs and XLA
+        fuses them.  The pair indices are built once per (n, device)."""
+        key = (n, xd.device)
+        pairs = self._pairs.get(key)
+        if pairs is None:
+            pairs = self._pairs[key] = torch.as_tensor(
+                np.stack(np.triu_indices(n, 1)), device=xd.device)
+        ends = xd.view(n, dim, xd.shape[-1])[pairs]  # (2, pairs, dim, B)
+        r = torch.linalg.vector_norm(ends[0] - ends[1], dim=1)
+        return torch.sum(torch.reciprocal(r), dim=0) * self.Z
 
     __call__ = V

@@ -22,6 +22,24 @@ x = flow(z) and autograd of the nested-jvp ``loss_and_metrics``; and with
 the kernel chain or the plain Hessian flow.  ``cfg.pallas_sampler`` off
 runs the plain samplers.  The sampler kernels draw z on every other path.
 
+Every builder takes ``graph``, the counterpart of the JAX builders' ``jit``
+(with ``donate_argnums=0``): a chunk of K iterations becomes ONE CUDA graph
+per chunk length, captured over the state's own tensors and replayed for
+every later chunk of that length.  The chunk's body updates the state in
+place (walkers, tau, states and their probabilities by ``copy_``, the
+kernel chain's gradients into the parameters' ``.grad`` tensors, Adam with
+``capturable=True`` on the card, eager or captured alike), so a replayed
+chunk and an eager one leave the same bits.  Between replays the host
+draws the chunk's sampler seeds from the host generator, as the eager
+chunk does and in its order, and copies them into the static seed buffer
+the sampler kernels read (``ops/metropolis.py``).  The first chunk of each
+length runs eagerly, on a side stream, as the trajectory's own chunk; the
+capture that follows records and runs nothing.  ``graph=None`` captures
+where the state lies on the card and the path can be: the kernel chain,
+persistent walkers, no mesh, the fixed-grid solver.  ``graph=True`` raises
+``ValueError`` elsewhere; those paths stay eager.  The kernels' launch
+counts (``ops/_build.py``) are taken at capture and added once per replay.
+
 Every builder takes ``mesh`` (``parallel/mesh.py``): the state then holds
 this rank's rows of the global ``cfg.batch`` walkers.  Every walker-axis
 draw (the initial Gaussians and states, fresh chain starts, the state
@@ -37,12 +55,15 @@ rank takes the same decisions and the same Adam step.
 from __future__ import annotations
 
 import dataclasses
+import time
+import warnings
 
 import torch
 
 from fermiflow_tpu_torch.config import Config
 from fermiflow_tpu_torch.mcmc import MCMCState, adapt_tau
 from fermiflow_tpu_torch.nn.backflow import Backflow
+from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
     metropolis_chains_plain,
@@ -58,6 +79,7 @@ from fermiflow_tpu_torch.parallel.mesh import (
     shard_walkers,
     walker_mean,
 )
+from fermiflow_tpu_torch.utils.checkpointing import named_tensors
 from fermiflow_tpu_torch.vmc.beta import BetaVMC
 from fermiflow_tpu_torch.vmc.gs import GSVMC, _detach
 
@@ -98,11 +120,20 @@ class TrainState:
         return self.walkers_cm.T.reshape(B, d // 2, 2)
 
 
+# Eager chunks on the card step the same capturable Adam as captured ones
+# (make_adam), which PyTorch warns about once per optimizer.
+warnings.filterwarnings("ignore", message="This instance was constructed with "
+                        "capturable=True")
+
+
 def make_adam(flow: Backflow, lr: float, extra=()) -> torch.optim.Adam:
     """Adam with ``optax.adam``'s defaults (b1=0.9, b2=0.999, eps=1e-8) over
-    the flow's parameters and any ``extra`` ones."""
-    return torch.optim.Adam(list(flow.parameters()) + list(extra), lr=lr,
-                            betas=(0.9, 0.999), eps=1e-8)
+    the flow's parameters and any ``extra`` ones; ``capturable`` (its step
+    count a tensor on the card) where they lie on the card, so that an
+    eager and a captured chunk take the same arithmetic."""
+    params = list(flow.parameters()) + list(extra)
+    return torch.optim.Adam(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            capturable=params[0].device.type == "cuda")
 
 
 def _flow_on(params: dict, device, dtype) -> Backflow:
@@ -135,6 +166,14 @@ def init_gs_state(model: GSVMC, params: dict, cfg: Config,
     )
 
 
+def _set_grad(p: torch.Tensor, g: torch.Tensor) -> None:
+    """Copy g into p.grad, the tensor Adam reads (made at the first call,
+    kept after it: a captured chunk writes and reads that one)."""
+    if p.grad is None:
+        p.grad = torch.empty_like(p)
+    p.grad.copy_(g)
+
+
 def _apply_grads(state: TrainState, grads: dict) -> None:
     """Hand the kernel chain's gradients to the optimizer and step it."""
     flow_grads = grads.get("flow", grads)
@@ -142,10 +181,9 @@ def _apply_grads(state: TrainState, grads: dict) -> None:
         if mod is None:
             continue
         for k, p in mod.items():
-            p.grad = flow_grads[name][k].to(p.dtype)
+            _set_grad(p, flow_grads[name][k])
     if state.log_state_weights is not None:
-        state.log_state_weights.grad = grads["log_state_weights"].to(
-            state.log_state_weights.dtype)
+        _set_grad(state.log_state_weights, grads["log_state_weights"])
     state.optimizer.step()
 
 
@@ -236,34 +274,199 @@ def _new_seed(state: TrainState) -> int:
 
 def _end_iteration(state: TrainState, cfg: Config, z: torch.Tensor,
                    acc: torch.Tensor) -> None:
-    """Persist the chains; adapt tau per walker when they persist."""
-    state.walkers_cm = z
+    """Persist the chains in place; adapt tau per walker when they
+    persist."""
+    state.walkers_cm.copy_(z)
     if cfg.persistent_walkers:
-        state.tau = adapt_tau(MCMCState(None, None, state.tau, acc),
-                              cfg.tau_target_accept, cfg.tau_gain)
-    state.step += 1
+        state.tau.copy_(adapt_tau(MCMCState(None, None, state.tau, acc),
+                                  cfg.tau_target_accept, cfg.tau_gain))
+
+
+# ---- chunks: eager, or one captured CUDA graph ----
+
+
+def _capture_refusal(cfg: Config, cnf, mesh) -> str | None:
+    """Why the chunks of ``cfg``'s path cannot be captured as a CUDA graph
+    (they stay eager), or None."""
+    if torch.device(cfg.device).type != "cuda":
+        return f"--device {cfg.device}: a CUDA graph needs the card"
+    if mesh is not None:
+        return ("a walker mesh: its collectives run between the launches "
+                "(gloo waits for the card)")
+    if not cfg.persistent_walkers:
+        return ("fresh walkers: every iteration draws them on the host and "
+                "copies them to the card")
+    if not (cfg.pallas_sampler and cfg.pallas_local_energy
+            and cfg.pallas_reinforce):
+        return "--no-pallas-*: the plain versions and autograd stay eager"
+    if not _use_hessian_flow(cfg, cnf):
+        return "the nested-jvp engine (autograd) stays eager"
+    if cfg.ode_solver != "fixed":
+        return (f"the {cfg.ode_solver} solver: its launches depend on the "
+                "data")
+    return None
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def _on_side_stream(fn, device: torch.device):
+    """fn() run eagerly on the capture's side stream, ordered after the
+    work already queued and before the work queued after it (PyTorch's
+    warm-up before a capture)."""
+    side, main = _side_stream(device), torch.cuda.current_stream(device)
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        out = fn()
+    main.wait_stream(side)
+    return out
+
+
+def _capture(fn, device: torch.device, generators=()):
+    """fn's launches captured as one CUDA graph on the side stream, which
+    records them and runs nothing.  Returns (replay, capture seconds, the
+    bytes the graph's memory pool took): ``replay()`` runs them again and
+    returns fn's outputs, rewritten.  ``generators`` are the device
+    generators fn draws from, registered so that each replay draws where
+    the eager calls would have."""
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved()
+        graph = torch.cuda.CUDAGraph()
+        for gen in generators:
+            graph.register_generator_state(gen)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, stream=_side_stream(device)):
+            out = fn()
+        seconds = time.perf_counter() - t0
+        pool = torch.cuda.memory_reserved() - reserved
+
+    def replay():
+        graph.replay()
+        return out
+
+    return replay, seconds, pool
+
+
+def _pointers(state: TrainState) -> list:
+    """Where every tensor a captured chunk reads or writes lives: the
+    state's, the gradients' and Adam's."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    tensors = list(named_tensors(state).values()) + [p.grad for p in params]
+    tensors += [v for st in state.optimizer.state.values()
+                for v in st.values() if isinstance(v, torch.Tensor)]
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+class _Chunk:
+    """``chunk(state) -> (state, metrics)``: ``iters`` training iterations
+    with their metrics stacked to (iters,) (one iteration: unstacked).
+
+    ``body(state, seed)`` runs them, in place on the state's tensors (the
+    step count aside); ``seed(k)`` gives its k-th sampler seed: an ``int``
+    drawn from the host generator when the body asks (eager), or a view of
+    the static seed buffer.  ``refusal`` says why the chunk cannot be
+    captured (None: it can), ``graph`` is the builder's argument and
+    ``generators(state)`` the device generators the body draws from.
+    Captured (module docstring), ``capture_seconds``, ``pool_bytes`` and
+    ``launches`` (per kernel, one replay) describe the graph.
+    """
+
+    def __init__(self, body, n_seeds: int, iters: int, refusal, graph,
+                 generators=lambda state: ()):
+        if graph and refusal:
+            raise ValueError(f"graph=True, but this path cannot be "
+                             f"captured: {refusal}")
+        self.body, self.n_seeds, self.iters = body, n_seeds, iters
+        self.refusal, self.graph, self.generators = refusal, graph, generators
+        self._replay = None
+        self.capture_seconds = self.pool_bytes = self.launches = None
+
+    def _captured(self, state: TrainState) -> bool:
+        if self.graph is False:
+            return False
+        why = self.refusal or (None if state.walkers_cm.is_cuda else
+                               "the state lies on the CPU")
+        if why and self.graph:
+            raise ValueError(f"graph=True, but this chunk cannot be "
+                             f"captured: {why}")
+        return why is None
+
+    def __call__(self, state: TrainState):
+        if self._captured(state):
+            metrics = self._run_captured(state)
+        else:
+            metrics = self.body(state, lambda k: _new_seed(state))
+        state.step += self.iters
+        return state, metrics
+
+    def _run_captured(self, state: TrainState) -> dict:
+        """The captured chunk's host side: its seeds drawn and copied into
+        the static buffer, then the eager warm-up and capture (first call)
+        or a replay; the metrics cloned out of the graph's output (the
+        step count is the caller's)."""
+        device = state.walkers_cm.device
+        host = torch.tensor([_new_seed(state) for _ in range(self.n_seeds)],
+                            dtype=torch.int32, pin_memory=device.type == "cuda")
+        if self._replay is None:
+            self._seeds = torch.empty(self.n_seeds, dtype=torch.int32,
+                                      device=device)
+            self._seeds.copy_(host, non_blocking=True)
+
+            def run():
+                metrics = self.body(state, lambda k: self._seeds[k:k + 1])
+                self._keys = list(metrics)
+                return torch.stack([metrics[k] for k in self._keys])
+
+            packed = _on_side_stream(run, device)
+            before = dict(_build.LAUNCHES)
+            self._replay, self.capture_seconds, self.pool_bytes = _capture(
+                run, device, self.generators(state))
+            self.launches = {k: v - before[k]
+                             for k, v in _build.LAUNCHES.items()}
+            _build.LAUNCHES.update(before)
+            self._pointers = _pointers(state)
+        else:
+            if _pointers(state) != self._pointers:
+                raise RuntimeError(
+                    "a state tensor was replaced since this chunk was "
+                    "captured (a restore?): make the chunk anew")
+            self._seeds.copy_(host, non_blocking=True)
+            packed = self._replay().clone()
+            for k, v in self.launches.items():
+                _build.LAUNCHES[k] += v
+        return dict(zip(self._keys, packed.unbind(0)))
 
 
 def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,
-                             mesh=None):
+                             mesh=None, graph: bool | None = None):
     """K training iterations per call with ONE multi-segment sampler launch.
 
     Persistent walkers continue their chains for ``cfg.mcmc_steps`` per
     segment with per-walker tau adaptation; otherwise every segment starts
     from fresh Gaussians and runs ``cfg.equilibrium_steps`` at fixed tau.
     Returns ``multi(state) -> (state, metrics)`` with each metric stacked to
-    shape (K,) on the state's device.
+    shape (K,) on the state's device; one CUDA graph per call where
+    ``graph`` (module docstring).
     """
     nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
     update = _make_gs_update(model, cfg, mesh)
     chains = metropolis_chains if cfg.pallas_sampler else metropolis_chains_plain
     K = steps_per_call
 
-    def multi(state: TrainState):
-        seed = _new_seed(state)
+    def body(state: TrainState, seed):
+        s = seed(0)
         z0, n_steps, tau = _chain_start(state, cfg, mesh)
         zs, _, rates, tau_out = chains(
-            z0, tau, seed, steps=n_steps, segments=K, nx_occ=nx_up,
+            z0, tau, s, steps=n_steps, segments=K, nx_occ=nx_up,
             ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
             target=cfg.tau_target_accept, gain=cfg.tau_gain,
             reinit=not cfg.persistent_walkers,
@@ -273,51 +476,55 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,
         for k in range(K):
             loss, metrics = update(state, zs[k])
             rows.append(dict(metrics, accept_rate=accept[k], loss=loss))
-            state.step += 1
-        state.walkers_cm = zs[-1]
+        state.walkers_cm.copy_(zs[-1])
         if cfg.persistent_walkers:
-            state.tau = tau_out
-        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+            state.tau.copy_(tau_out)
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
-    return multi
+    return _Chunk(body, 1, K, _capture_refusal(cfg, model.cnf, mesh), graph)
 
 
-def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None):
+def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None,
+                       graph: bool | None = None):
     """One ground-state iteration: a single-chain sampler launch (the
     per-iteration kernel), the kernel-chain update and Adam.  Returns
-    ``step(state) -> (state, metrics)``."""
+    ``step(state) -> (state, metrics)``, a one-iteration chunk
+    (``make_multi_step`` chains its body; ``graph`` as there)."""
     nx_up, ny_up, nx_dn, ny_dn, kshells = model.occ_qnums()
     update = _make_gs_update(model, cfg, mesh)
     single = (metropolis_single_cm if cfg.pallas_sampler
               else metropolis_single_cm_plain)
 
-    def step(state: TrainState):
-        seed = _new_seed(state)
+    def body(state: TrainState, seed):
+        s = seed(0)
         z0, n_steps, tau = _chain_start(state, cfg, mesh)
         z, _, acc = single(
-            z0, tau, seed, steps=n_steps, nx_occ=nx_up, ny_occ=ny_up,
+            z0, tau, s, steps=n_steps, nx_occ=nx_up, ny_occ=ny_up,
             nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
             **sampler_rows(mesh, z0.shape[1]))
         loss, metrics = update(state, z)
         _end_iteration(state, cfg, z, acc)
-        return state, dict(metrics, accept_rate=walker_mean(mesh, acc),
-                           loss=loss)
+        return dict(metrics, accept_rate=walker_mean(mesh, acc), loss=loss)
 
-    return step
+    return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph)
 
 
-def make_multi_step(step_fn, steps_per_call: int):
-    """K calls of a one-iteration ``step_fn``, metrics stacked to (K,) on the
-    device, so that the caller fetches them once per chunk."""
+def make_multi_step(step_fn: _Chunk, steps_per_call: int,
+                    graph: bool | None = None):
+    """K iterations of a one-iteration step (``make_gs_train_step``,
+    ``make_beta_train_step``) as one chunk, metrics stacked to (K,) on the
+    device, so that the caller fetches them once per chunk; one CUDA graph
+    where ``graph`` (default: the step's own)."""
+    K = steps_per_call
+    one = step_fn.body
 
-    def multi(state: TrainState):
-        rows = []
-        for _ in range(steps_per_call):
-            state, metrics = step_fn(state)
-            rows.append(metrics)
-        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+    def body(state: TrainState, seed):
+        rows = [one(state, lambda _, k=k: seed(k)) for k in range(K)]
+        return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
-    return multi
+    return _Chunk(body, K, K, step_fn.refusal,
+                  step_fn.graph if graph is None else graph,
+                  step_fn.generators)
 
 
 # ---- finite temperature ----
@@ -399,11 +606,15 @@ def init_beta_state(model: BetaVMC, params: dict, cfg: Config,
     )
 
 
-def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None):
+def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None,
+                         graph: bool | None = None):
     """One finite-T iteration: the state refresh (maximal coupling with
     persistent walkers, a fresh Categorical draw otherwise), one mixed-state
     sampler launch, the kernel-chain update, Adam over the flow and the
-    logits, and tau adaptation.  Returns ``step(state) -> (state, metrics)``."""
+    logits, and tau adaptation.  Returns ``step(state) -> (state, metrics)``,
+    a one-iteration chunk (``make_multi_step`` chains its body; ``graph``
+    as there; a captured chunk draws the refresh from the state's device
+    generator, registered with the graph)."""
     _, _, kshells = model._qnum_tables()
     sampler = (metropolis_multistate_cm if cfg.pallas_sampler
                else metropolis_multistate_cm_plain)
@@ -427,7 +638,7 @@ def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None):
                                                    mesh)
         return _autograd_step(state, loss, mesh), metrics
 
-    def step(state: TrainState):
+    def body(state: TrainState, seed):
         logits = state.log_state_weights.detach()
         if cfg.persistent_walkers:
             # Chains continue; states refresh by maximal coupling so almost
@@ -440,18 +651,20 @@ def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None):
             state_idx = shard_walkers(mesh, _categorical(
                 state.device_generator, probs,
                 global_batch(mesh, state.state_idx.shape[0])), 0)
-        seed = _new_seed(state)
+        s = seed(0)
         z0, n_steps, tau = _chain_start(state, cfg, mesh)
         nx_cm, ny_cm = model.qnums_cm(state_idx)
         z, _, acc = sampler(
-            z0, tau, seed, steps=n_steps, nx_cm=nx_cm, ny_cm=ny_cm,
+            z0, tau, s, steps=n_steps, nx_cm=nx_cm, ny_cm=ny_cm,
             num_shells=kshells, **sampler_rows(mesh, z0.shape[1]))
         loss, metrics = update(state, state_idx, z)
-        state.state_idx, state.sample_probs = state_idx, probs
+        state.state_idx.copy_(state_idx)
+        state.sample_probs.copy_(probs)
         _end_iteration(state, cfg, z, acc)
         metrics = dict(metrics, accept_rate=walker_mean(mesh, acc), loss=loss)
         if cfg.persistent_walkers:
             metrics["state_switch_frac"] = switch_frac
-        return state, metrics
+        return metrics
 
-    return step
+    return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph,
+                  lambda state: (state.device_generator,))

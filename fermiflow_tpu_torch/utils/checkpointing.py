@@ -4,7 +4,9 @@
 A checkpoint is one ``torch.save`` file, ``ckpt_{step:08d}.pt``, written to
 a temporary name and moved into place with ``os.replace`` (atomic, as
 orbax's save).  It holds the whole ``TrainState``: the flow's parameters,
-``optimizer.state_dict()`` (Adam's step and both moments), the chains
+``optimizer.state_dict()`` (Adam's step and both moments; a capturable
+Adam's step, on the card, is saved to the CPU and restored beside the
+parameters), the chains
 (``walkers_cm``, ``tau``), at finite T the logits, ``state_idx`` and
 ``sample_probs``, both generators' states and the step, with a structure
 fingerprint (names, shapes and dtypes, as the JAX ``_fingerprint``).  The
@@ -158,6 +160,13 @@ def _load_into(state, payload: dict, tensors: dict):
     state.optimizer.load_state_dict(payload["optimizer"])
     for g, h in zip(state.optimizer.param_groups, hyper):
         g.update(h)
+        if g.get("capturable"):
+            # A capturable Adam keeps its step count beside the parameters;
+            # a checkpoint of one that was not holds it on the CPU.
+            for p in g["params"]:
+                st = state.optimizer.state.get(p, {})
+                if "step" in st:
+                    st["step"] = st["step"].to(p.device)
     for gname in _GENERATORS:
         g = getattr(state, gname)
         if g is not None:

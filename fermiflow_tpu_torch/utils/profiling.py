@@ -9,8 +9,9 @@ kernels, copies and fills (through CUPTI).  On exit it writes into
 * ``summary.json`` (``summarize``): the window's wall time; the device's
   busy time, kernel time by name and idle time, split into short gaps
   between back-to-back work (< ``SHORT_GAP_US``: launch latency) and longer
-  ones (the device waiting on the host); and the host operators and
-  runtime calls by self time.
+  ones (the device waiting on the host); the kernels the device ran (those
+  inside a replayed CUDA graph included); the host operators and runtime
+  calls by self time; and the count of each of ``RUNTIME_CALLS``.
 
 ``PhaseTimer`` sums wall-clock time per named phase, waiting for the
 devices of the tensors it is given before it stops the clock.
@@ -25,9 +26,14 @@ import time
 
 import torch
 
-__all__ = ["trace", "summarize", "PhaseTimer", "SHORT_GAP_US"]
+__all__ = ["trace", "summarize", "PhaseTimer", "SHORT_GAP_US",
+           "RUNTIME_CALLS"]
 
 SHORT_GAP_US = 10.0  # device gaps up to this long count as launch gaps
+# Runtime calls counted on their own: graph replays, single launches (a
+# replayed CUDA graph's kernels need none), and host waits for the card.
+RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
+                 "cudaStreamSynchronize")
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
@@ -113,6 +119,7 @@ def summarize(trace_events: dict) -> dict:
             or str(e.get("cat", "")).startswith("cuda_")]  # CUDA API calls
     totals, counts = _self_times(host)
     out["host_self"] = _top(totals, counts)
+    out["runtime_calls"] = {name: counts.get(name, 0) for name in RUNTIME_CALLS}
     if dev:
         busy = _union((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
                       for e in dev)
@@ -125,6 +132,7 @@ def summarize(trace_events: dict) -> dict:
             k_cnt[e["name"]] = k_cnt.get(e["name"], 0) + 1
         busy_us = sum(e - s for s, e in busy)
         out.update(
+            kernels=sum(1 for e in dev if e.get("cat") == "kernel"),
             device_busy_ms=busy_us / 1e3,
             device_idle_ms=(t1 - t0 - busy_us) / 1e3,
             device_idle_share=1.0 - busy_us / (t1 - t0),

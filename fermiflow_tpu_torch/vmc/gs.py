@@ -80,6 +80,20 @@ def _detach(params):
             for k, v in params.items()}
 
 
+_DIAG_ROWS = {}  # (d, device) -> the packed Hessian's diagonal rows
+
+
+def _diag_rows(d: int, device) -> torch.Tensor:
+    """Rows of the diagonal (p, p) of a packed upper triangle, p*d - p(p-1)/2,
+    as an index tensor on ``device``, made once (indexing by a Python list
+    copies it to the card, and waits for the copy, at every call)."""
+    rows = _DIAG_ROWS.get((d, device))
+    if rows is None:
+        rows = _DIAG_ROWS[(d, device)] = torch.as_tensor(
+            [p * d - p * (p - 1) // 2 for p in range(d)], device=device)
+    return rows
+
+
 def flow_local_energy_cm(model, params, z_cm: torch.Tensor, y: torch.Tensor,
                          g0: torch.Tensor, Hp0: torch.Tensor):
     """Hessian flow from base samples z_cm (d, B) and their base (y, g0, Hp0)
@@ -89,9 +103,7 @@ def flow_local_energy_cm(model, params, z_cm: torch.Tensor, y: torch.Tensor,
     x, logp, g, Hp = model.ops.hessian_flow(params, z_cm, y, g0, Hp0, cnf.t0,
                                             cnf.t1, steps=cnf.steps,
                                             method=cnf.method)
-    # Diagonal (p, p) of the packed upper triangle sits at row p*d - p(p-1)/2.
-    diag = [p * d - p * (p - 1) // 2 for p in range(d)]
-    lap = Hp[diag].sum(0)
+    lap = Hp.index_select(0, _diag_rows(d, Hp.device)).sum(0)
     eloc = -0.25 * lap - 0.125 * torch.sum(g * g, dim=0) \
         + model.potential_rows(x)
     return x, eloc, logp, g

@@ -412,3 +412,119 @@ def test_sample_use_pallas_launches_kernel_5(cuda):
     with pytest.raises(ValueError):
         fb.sample(np.arange(11), dn, torch.Generator(device=cuda).manual_seed(4),
                   (64,), dtype=torch.float32, use_pallas=True, **kw)
+
+
+# ---- the captured chunk (train.py): replays against eager chunks ----
+
+
+def _graph_cfg(finite, K, **kw):
+    from fermiflow_tpu_torch.config import Config
+
+    cfg = Config(nup=3, batch=256, d_eta=8, d_mu=8, ode_steps=2, mcmc_steps=5,
+                 dtype="float32", persistent_walkers=True, steps_per_call=K,
+                 lr=1e-3, device="cuda", **kw)
+    if finite:
+        cfg.beta, cfg.deltaE, cfg.boltzmann = 2.0, 2.0, True
+    return cfg
+
+
+def _graph_run(finite, K, graph, chunks, state=None, cfg=None):
+    """``chunks`` chunks of K iterations from a fresh state (or ``state``)
+    at N = 3, B = 256: the GS fused chunk (K > 1), the GS K = 1 step or
+    the finite-T multi-step, captured or eager.  (state, metrics, chunk)."""
+    from fermiflow_tpu_torch.cli import common
+    from fermiflow_tpu_torch.train import (
+        init_beta_state,
+        init_gs_state,
+        make_beta_train_step,
+        make_gs_fused_multi_step,
+        make_gs_train_step,
+        make_multi_step,
+    )
+
+    cfg = cfg or _graph_cfg(finite, K)
+    if finite:
+        model, params = common.build_beta(cfg)
+        state = state or init_beta_state(model, params, cfg,
+                                         torch.device("cuda"))
+        chunk = make_multi_step(make_beta_train_step(model, cfg, graph=graph),
+                                K)
+    else:
+        model, params = common.build_gs(cfg)
+        state = state or init_gs_state(model, params, cfg,
+                                       torch.device("cuda"))
+        chunk = (make_gs_fused_multi_step(model, cfg, K, graph=graph) if K > 1
+                 else make_multi_step(make_gs_train_step(model, cfg,
+                                                         graph=graph), 1))
+    metrics = []
+    for _ in range(chunks):
+        state, m = chunk(state)
+        metrics.append({k: v.clone() for k, v in m.items()})
+    torch.cuda.synchronize()
+    return state, metrics, chunk
+
+
+def _state_tensors(state):
+    """Every tensor a chunk changes: the state's, Adam's step and moments
+    and the generators' states."""
+    from fermiflow_tpu_torch.utils.checkpointing import named_tensors
+
+    out = dict(named_tensors(state))
+    for i, st in enumerate(state.optimizer.state.values()):
+        out.update({f"adam{i}.{k}": v for k, v in st.items()})
+    out["generator"] = state.generator.get_state()
+    if state.device_generator is not None:
+        out["device_generator"] = state.device_generator.get_state()
+    return out
+
+
+def _bitwise(a: dict, b: dict):
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k].cpu(), b[k].cpu()), k
+
+
+@pytest.mark.parametrize("finite,K", [(False, 3), (False, 1), (True, 3)])
+def test_captured_chunk_replays_the_eager_chunk_bitwise(cuda, finite, K):
+    """Three chunks (the eager warm-up, then two replays) against three
+    eager chunks from the same seed: the state, Adam and the generators,
+    and every metric, bitwise; each replay counts the kernels it ran."""
+    _build.reset_launch_counts()
+    s_g, m_g, chunk = _graph_run(finite, K, True, 3)
+    counts = dict(_build.LAUNCHES)
+    _build.reset_launch_counts()
+    s_e, m_e, _ = _graph_run(finite, K, False, 3)
+    assert counts == _build.LAUNCHES
+    assert chunk.capture_seconds > 0 and chunk.pool_bytes >= 0
+    assert s_g.step == s_e.step == 3 * K
+    _bitwise(_state_tensors(s_g), _state_tensors(s_e))
+    for a, b in zip(m_g, m_e):
+        _bitwise(a, b)
+
+
+def test_eager_checkpoint_restores_into_the_captured_chunk(cuda, tmp_path):
+    """A checkpoint of an eager run, once as saved and once with Adam's step
+    count on the CPU (as a non-capturable Adam saves it), restored into a
+    fresh state and continued by captured chunks: bitwise the eager run
+    that never stopped."""
+    from fermiflow_tpu_torch.utils.checkpointing import (
+        restore_checkpoint,
+        save_checkpoint,
+    )
+
+    cfg = _graph_cfg(False, 3)
+    s_e, _, _ = _graph_run(False, 3, False, 2, cfg=cfg)
+    save_checkpoint(str(tmp_path / "a"), s_e.step, s_e)
+    payload = torch.load(tmp_path / "a" / "ckpt_00000006.pt",
+                         weights_only=True)
+    for g in payload["optimizer"]["param_groups"]:
+        g["capturable"] = False
+    (tmp_path / "b").mkdir()
+    torch.save(payload, tmp_path / "b" / "ckpt_00000006.pt")
+    s_e, _, _ = _graph_run(False, 3, False, 2, state=s_e, cfg=cfg)
+    for d in ("a", "b"):
+        fresh, _, _ = _graph_run(False, 3, True, 0, cfg=cfg)
+        fresh, step = restore_checkpoint(str(tmp_path / d), fresh)
+        assert step == 6
+        s_g, _, _ = _graph_run(False, 3, True, 2, state=fresh, cfg=cfg)
+        _bitwise(_state_tensors(s_g), _state_tensors(s_e))

@@ -21,7 +21,10 @@
 # ROW: gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet
 # gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20
 # beta_n6_z40 beta_n6_z80 beta_n3_b10 xover odesteps eval (default: all of
-# them, in that order); eval_z80 is eval at the Z = 8 checkpoint alone.
+# them, in that order); eval_z80 is eval at the Z = 8 checkpoint alone;
+# gs_n6_graph (not in the default) is gs_n6 again into records of its own,
+# torch_gs_n6_z05_ode4_graph*: the row retrained through the CLI's
+# captured chunks, beside the eager chunks' records of gs_n6.
 # xover and odesteps retrain gs_n6 first when $CK lacks its checkpoint.
 # Records go to $OUT (validation/runs), each run's wall seconds to
 # $OUT/torch_converged_wall.jsonl, checkpoints to $CK (validation/ck), logs
@@ -123,6 +126,8 @@ rows=${*:-gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet \
 for row in $rows; do
   case $row in
     gs_n6) train ground_state gs_n6_z05_ode4 3000 1000 \
+      --nup 6 --Z 0.5 --batch 8192 --ode-steps 4 ;;
+    gs_n6_graph) train ground_state gs_n6_z05_ode4_graph 3000 1000 \
       --nup 6 --Z 0.5 --batch 8192 --ode-steps 4 ;;
     beta_n6) train finite_t beta_n6_z05 3000 1000 \
       --nup 6 --Z 0.5 --beta 2.0 --deltaE 2.0 --boltzmann --batch 8192 \

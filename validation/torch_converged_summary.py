@@ -65,6 +65,10 @@ def _within(centre: float, lo: float, hi: float) -> tuple:
 ROWS = [
     Row("GS N=6", _port("gs_n6_z05_ode4"), "gs_n6_z05_r5_ode4_polish", "E",
         _within(18.1605, 0.002, 0.002)),
+    # The same row retrained through captured chunks (one CUDA graph a
+    # chunk), under the same bound.
+    Row("GS N=6 captured", _port("gs_n6_z05_ode4_graph"),
+        "gs_n6_z05_r5_ode4_polish", "E", _within(18.1605, 0.002, 0.002)),
     Row("finite T N=6", _port("beta_n6_z05"), "beta_n6_z05_r4_polish", "F",
         _within(17.4998, 0.002, 0.002), 0.02),
     Row("GS N=10", _port("gs_n10_z05"), "gs_n10_z05_r3_polish", "E",
