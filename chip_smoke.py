@@ -97,8 +97,11 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      (b) (a)'s step-10 shards resumed in one process, its step-20 walkers
      bitwise the one-process run's; (c) the finite-T path (10 iterations)
      as 2 ranks: F within 1e-6 (first row) and 1e-3 (every row); (d) one
-     NCCL rank with --shard against the run without a process group: every
-     E within 1e-6; (e) the pair's milliseconds per iteration and rank 0's
+     NCCL rank with --shard, 40 iterations (the warm-up chunk and three
+     replays), its chunks captured (the collectives inside the graph,
+     counted once per replay) against the same rank eager: rows and state
+     bitwise, ms per iteration by chunk; against the run without a process
+     group: the first 20 E within 1e-6; (e) the pair's milliseconds per iteration and rank 0's
      collectives (count and host ms per iteration);
  10. converged physics at N=2 (the Taut anchors, docs/VALIDATION.md:195-218):
      (a) kernels #1-#5 against their plain versions at nup=1, ndown=1,
@@ -127,22 +130,30 @@ Phases; any failure ends the run with a non-zero exit code and no result:
  12. the compiled chunk (``train.py``): (a) the captured chunk against the
      eager one from the same seed, 3 chunks each (the first eager, then two
      replays): GS N=6 at K=10 (30 iterations) and K=1 (3), finite T N=6 at
-     K=10 (30); after every chunk the walkers, tau, the flow's parameters
+     K=10 (30), each with persistent walkers and with fresh ones (the CLIs'
+     default: every iteration 100 steps at tau 0.1 from Gaussians drawn on
+     the card); after every chunk the walkers, tau, the flow's parameters
      and logits, the states and their probabilities, Adam's step and both
      moments, both generators and every metric bitwise equal; (b) ms per
      iteration of the captured and the eager chunk in turns (eager,
-     captured, captured, eager; 12 chunks of K=10 a turn, timed as the CLI
-     times them) at GS N=6, GS N=10 (batch 4096), finite T N=6 and finite
-     T N=10 (batch 2048): median, min and max over 24 chunks each, the
-     capture's seconds and graph pool bytes; (c) the CLI's
-     ``--profile-dir`` trace of chunk 2 of each path, replayed and eager:
-     the kernels the card ran, ``cudaGraphLaunch``, ``cudaLaunchKernel``
-     and ``cudaStreamSynchronize`` calls, the device's idle share, the
-     port's kernels' ms and PyTorch's (its five largest by name), and the
-     kernels run more or fewer times replayed than eager; the
-     GS N=6 replay must be one graph launch, at most 10 launches and no
-     wait for the card before the replay's end.  Lines ``phase 12
-     timing:`` and ``phase 12 traces:`` hold (b) and (c) as JSON.
+     captured, captured, eager; 12 chunks of K=10 a turn, or 120 of K=1,
+     timed as the CLI times them) at GS N=6, GS N=10 (batch 4096), finite
+     T N=6 and finite T N=10 (batch 2048), and with fresh walkers at GS
+     N=6 (K=10 and K=1) and finite T N=6: median, min and max over 24
+     chunks each (240 at K=1), the capture's seconds and graph pool bytes;
+     (c) the CLI's ``--profile-dir`` trace of chunk 2 of the four
+     persistent paths and the fresh GS N=6 path, replayed and eager: the
+     kernels the card ran, ``cudaGraphLaunch``, ``cudaLaunchKernel`` and
+     ``cudaStreamSynchronize`` calls, the kernels launched outside a graph,
+     the host-to-card copies' bytes, the device's idle share, the port's
+     kernels' ms and PyTorch's (its five largest by name), the kernels run
+     more or fewer times replayed than eager, and the run's launches per
+     kernel; the GS N=6 replay must be one graph launch, at most 10
+     launches and no wait for the card before the replay's end, the fresh
+     one the same with no launch of its own but the registered device
+     generator's two fills and no host-to-card copy beyond the seed word.
+     Lines ``phase 12 timing:`` and ``phase 12 traces:`` hold (b) and (c)
+     as JSON.
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -1161,9 +1172,13 @@ def eager_path_ms(main, argv, steps_per_call):
     return chunk_ms(recs, steps_per_call)
 
 
-def path_argv(device, iters, steps_per_call, n=N, batch=BATCH, lr="1e-3"):
+def path_argv(device, iters, steps_per_call, n=N, batch=BATCH, lr="1e-3",
+              persistent=True):
+    """The GS CLI's argv: persistent walkers (MCMC_STEPS an iteration), or
+    the CLI's default, fresh walkers (100 steps at tau 0.1)."""
     return ["--nup", str(n), "--Z", "0.5", "--batch", str(batch), "--dtype",
-            "float32", "--persistent", "--steps-per-call", str(steps_per_call),
+            "float32", *(["--persistent"] if persistent else []),
+            "--steps-per-call", str(steps_per_call),
             "--iternum", str(iters), "--lr", lr, "--Deta", str(D_ETA),
             "--Dmu", str(D_MU), "--ode-steps", str(ODE_STEPS), "--mcmc-steps",
             str(MCMC_STEPS), "--device", device.type]
@@ -1225,10 +1240,11 @@ def phase_n10_path(device):
 
 
 def beta_argv(device, iters, n=N, beta=BETA, deltaE=DELTA_E, batch=BATCH,
-              lr="1e-3"):
+              lr="1e-3", persistent=True):
     return ["--beta", str(beta), "--nup", str(n), "--Z", "0.5", "--deltaE",
             str(deltaE), "--boltzmann", "--batch", str(batch), "--dtype",
-            "float32", "--persistent", "--steps-per-call", str(SEGMENTS),
+            "float32", *(["--persistent"] if persistent else []),
+            "--steps-per-call", str(SEGMENTS),
             "--iternum", str(iters), "--lr", lr, "--mcmc-steps",
             str(MCMC_STEPS), "--device", device.type]
 
@@ -1778,7 +1794,10 @@ def phase_no_pallas(device, z_eq, params):
 
 # ---- phase 9: the walker mesh (parallel/mesh.py) ----
 
-MESH_ITERS = 20  # (a), (b), (d): checkpoints every CKPT_EVERY
+MESH_ITERS = 20  # (a), (b): checkpoints every CKPT_EVERY
+# (d): the warm-up chunk and three replays; its first MESH_ITERS rows are
+# held to the run without a process group.
+MESH_NCCL_ITERS = 40
 MESH_BETA_ITERS = 10  # (c)
 # f32 sums in another order: the first row's E and F (walkers bitwise, the
 # parameters still equal) to 1e-6; later rows after that many Adam steps on
@@ -1858,6 +1877,42 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
 
 
+@contextlib.contextmanager
+def counting_captures(calls: list):
+    """Every capture of a chunk (``train._capture``) appended to
+    ``calls``."""
+    from fermiflow_tpu_torch import train
+
+    capture = train._capture
+    train._capture = lambda *a, **k: (calls.append(1), capture(*a, **k))[1]
+    try:
+        yield
+    finally:
+        train._capture = capture
+
+
+def _nccl_rank(device, graph: bool) -> dict:
+    """Phase 9 (d)'s run: the GS path as one NCCL rank with --shard,
+    captured (the default) or eager: its rows, launch counts, state
+    tensors, captures and the CLI's mesh line."""
+    import io
+
+    from fermiflow_tpu_torch.cli import ground_state
+
+    captures, out = [], io.StringIO()
+    with counting_captures(captures), (
+            contextlib.nullcontext() if graph else eager_chunks()), \
+            contextlib.redirect_stdout(out):
+        state, recs, counts, _ = drive_path(
+            ground_state.main, path_argv(device, MESH_NCCL_ITERS, SEGMENTS)
+            + _dist_argv(1, 0, _free_port()) + ["--shard"])
+    mesh_line = [ln for ln in out.getvalue().splitlines()
+                 if ln.startswith("mesh:")]
+    return dict(rows=recs, counts=counts, captures=len(captures),
+                tensors=_state_snapshot(state),
+                mesh_line=mesh_line[0] if mesh_line else "(no mesh line)")
+
+
 def phase_mesh(device, tmp, smi):
     """(a) the GS production command (batch 8192 global, K=10, 20
     iterations, checkpoints every 10) as 2 ranks sharing the card over
@@ -1910,9 +1965,7 @@ def phase_mesh(device, tmp, smi):
                                 if n != f"ckpt_{CKPT_EVERY:08d}.pt"])
         drive_path(ground_state.main, _ckpt_argv(device, MESH_ITERS, resumed,
                                                  False))
-        _, recs_d, counts_d, _ = drive_path(
-            ground_state.main, path_argv(device, MESH_ITERS, SEGMENTS)
-            + _dist_argv(1, 0, _free_port()) + ["--shard"])
+        nccl = {graph: _nccl_rank(device, graph) for graph in (True, False)}
         _, recs_b1, _, _ = drive_path(finite_t.main, beta_argv)
     except BaseException:
         for p in beta_procs:
@@ -1954,17 +2007,39 @@ def phase_mesh(device, tmp, smi):
           and f_first <= MESH_FIRST_RTOL and f_worst <= MESH_BETA_RTOL,
           f"mesh (c): F finite, within rtol {MESH_FIRST_RTOL:g} on the first "
           f"row and {MESH_BETA_RTOL:g} on every row")
+    recs_d, counts_d = nccl[True]["rows"], nccl[True]["counts"]
     d_worst = max(_rel(a["E"], b["E"]) for a, b in zip(recs_d, recs1))
-    print(f"mesh (d): one NCCL rank with --shard against no process group: "
-          f"E largest rel. diff {d_worst:.3e}; launches "
-          f"{json.dumps(counts_d)}")
-    check(len(recs_d) == MESH_ITERS and d_worst <= MESH_NCCL_RTOL,
+    same_d = _bitwise_dicts(nccl[True]["tensors"], nccl[False]["tensors"])
+    rows_d = [{k: v for k, v in r.items() if k not in TIMING_KEYS}
+              for r in recs_d]
+    rows_e = [{k: v for k, v in r.items() if k not in TIMING_KEYS}
+              for r in nccl[False]["rows"]]
+    print(f"mesh (d): one NCCL rank with --shard, captured ("
+          f"{nccl[True]['captures']} captures) against the same rank eager "
+          f"({nccl[False]['captures']}): rows "
+          f"{'bitwise equal' if rows_d == rows_e else 'DIFFERENT'}, state "
+          f"{'bitwise equal' if not same_d else same_d[:8]}; against no "
+          f"process group: E largest rel. diff {d_worst:.3e} over "
+          f"{MESH_ITERS} rows; ms per iteration by chunk, captured "
+          f"{chunk_ms(recs_d, SEGMENTS)}, eager "
+          f"{chunk_ms(nccl[False]['rows'], SEGMENTS)}; captured "
+          f"{nccl[True]['mesh_line']}; eager {nccl[False]['mesh_line']}; "
+          f"launches {json.dumps(counts_d)}")
+    check(nccl[True]["captures"] > 0 and nccl[False]["captures"] == 0
+          and "replayed" in nccl[True]["mesh_line"]
+          and "(0 of them in replayed" not in nccl[True]["mesh_line"],
+          "mesh (d): the NCCL rank's chunks were captured and replayed, "
+          "its collectives counted per replay")
+    check(rows_d == rows_e and not same_d,
+          "mesh (d): the captured NCCL rank's rows and state bitwise its "
+          "eager run's")
+    check(len(recs_d) == MESH_NCCL_ITERS and d_worst <= MESH_NCCL_RTOL,
           f"mesh (d): every E within rtol {MESH_NCCL_RTOL:g}")
-    chunk_ms = [1e3 * s for s in secs2[::SEGMENTS]]
+    pair_ms = [1e3 * s for s in secs2[::SEGMENTS]]
     print(f"mesh (e): 2 ranks sharing one card (their SMs too: not a "
-          f"scaling figure), ms per iteration by chunk {chunk_ms}; rank 0 "
+          f"scaling figure), ms per iteration by chunk {pair_ms}; rank 0 "
           f"{mesh_line[0]} ({smi})")
-    return dict(pair_wall_s=wall2, chunk_ms=chunk_ms, collectives=mesh_line[0],
+    return dict(pair_wall_s=wall2, chunk_ms=pair_ms, collectives=mesh_line[0],
                 e_first=e_first, e_worst=e_worst, f_first=f_first,
                 f_worst=f_worst, nccl_e_worst=d_worst)
 
@@ -2178,16 +2253,29 @@ PORT_KERNEL = re.compile(r"metropolis|slater_vgh|hessian_flow|reinforce")
 
 
 def _graph_configs(device):
-    """(name, CLI argv at ``iters``, finite T) of the four paths phase 12
-    times and traces."""
+    """(name, CLI argv at ``iters``, finite T, K, traced) of the paths phase
+    12 times, and traces where ``traced``: the four persistent-walker paths
+    and the fresh-walker protocol (the CLIs' default) at GS N=6, K=10 and
+    K=1, and finite T N=6."""
     return [
-        ("GS N=6", lambda it: path_argv(device, it, SEGMENTS), False),
+        ("GS N=6", lambda it: path_argv(device, it, SEGMENTS), False,
+         SEGMENTS, True),
         ("GS N=10", lambda it: path_argv(device, it, SEGMENTS, N10, BATCH10,
-                                         LR10), False),
-        ("finite T N=6", lambda it: beta_argv(device, it), True),
+                                         LR10), False, SEGMENTS, True),
+        ("finite T N=6", lambda it: beta_argv(device, it), True, SEGMENTS,
+         True),
         ("finite T N=10", lambda it: beta_argv(
             device, it, N10, BETA10, DELTA_E10, BATCH_BETA10, LR_BETA10),
-         True),
+         True, SEGMENTS, True),
+        ("GS N=6 fresh", lambda it: path_argv(device, it, SEGMENTS,
+                                              persistent=False), False,
+         SEGMENTS, True),
+        ("GS N=6 K=1 fresh", lambda it: path_argv(device, it, 1,
+                                                  persistent=False), False,
+         1, False),
+        ("finite T N=6 fresh", lambda it: beta_argv(device, it,
+                                                    persistent=False), True,
+         SEGMENTS, False),
     ]
 
 
@@ -2246,13 +2334,21 @@ def phase_graph_bitwise(device):
     """Phase 12 (a): the captured chunk against the eager one from the same
     seed, GRAPH_CHUNKS chunks each: after every chunk every state tensor,
     Adam's step and moments, the generators and every metric bitwise
-    equal; GS N=6 at K=10 and K=1, finite T N=6 at K=10."""
+    equal; GS N=6 at K=10 and K=1, finite T N=6 at K=10, each with
+    persistent and with fresh walkers."""
     import torch
 
-    cases = [("GS N=6 K=10", path_argv(device, 0, SEGMENTS), False,
-              SEGMENTS),
-             ("GS N=6 K=1", path_argv(device, 0, 1), False, 1),
-             ("finite T N=6 K=10", beta_argv(device, 0), True, SEGMENTS)]
+    cases = [(what + (" fresh" if not persistent else ""), argv, finite, K)
+             for persistent in (True, False)
+             for what, argv, finite, K in (
+                 ("GS N=6 K=10", path_argv(device, 0, SEGMENTS,
+                                           persistent=persistent), False,
+                  SEGMENTS),
+                 ("GS N=6 K=1", path_argv(device, 0, 1, persistent=persistent),
+                  False, 1),
+                 ("finite T N=6 K=10", beta_argv(device, 0,
+                                                 persistent=persistent),
+                  True, SEGMENTS))]
     for what, argv, finite, K in cases:
         runs = {}
         for graph in (True, False):
@@ -2284,10 +2380,11 @@ def phase_graph_bitwise(device):
 
 def phase_graph_timing(device):
     """Phase 12 (b): ms per iteration of the captured and the eager chunk
-    (K=10) in turns, eager, captured, captured, eager, GRAPH_TURN_CHUNKS
-    chunks a turn, each timed as the CLI times it (the chunk and its
-    metrics fetch, over K), after one untimed chunk each (the warm-up and
-    capture).  Returns {path: row}, with the capture's seconds and pool."""
+    (K=10, or K=1 with ten times the chunks) in turns, eager, captured,
+    captured, eager, GRAPH_TURN_CHUNKS chunks of K=10 a turn, each timed
+    as the CLI times it (the chunk and its metrics fetch, over K), after
+    one untimed chunk each (the warm-up and capture).  Returns {path: row},
+    with the capture's seconds and pool and one replay's launches."""
     import statistics
 
     import torch
@@ -2295,10 +2392,10 @@ def phase_graph_timing(device):
     from fermiflow_tpu_torch.utils import MetricsLogger
 
     rows = {}
-    for what, argv, finite in _graph_configs(device):
+    for what, argv, finite, K, _ in _graph_configs(device):
         runs = {}
         for graph in (False, True):
-            state, chunk = _path_chunk(argv(0), finite, SEGMENTS, graph)
+            state, chunk = _path_chunk(argv(0), finite, K, graph)
             state, m = chunk(state)
             MetricsLogger(None).log_many(1, m, time.time())
             runs[graph] = [state, chunk, []]
@@ -2306,11 +2403,12 @@ def phase_graph_timing(device):
         for graph in (False, True, True, False):
             state, chunk, times = runs[graph]
             logger = MetricsLogger(None)
-            for _ in range(GRAPH_TURN_CHUNKS):
+            for _ in range(GRAPH_TURN_CHUNKS * SEGMENTS // K):
                 t0 = time.perf_counter()
                 state, m = chunk(state)
-                recs = logger.log_many(1, m, time.time())
-                times.append(1e3 * (time.perf_counter() - t0) / SEGMENTS)
+                recs = (logger.log_many(1, m, time.time()) if K > 1
+                        else [logger.log(1, m)])
+                times.append(1e3 * (time.perf_counter() - t0) / K)
                 finite_rows &= all(math.isfinite(r[key]) for r in recs)
             runs[graph][0] = state
         check(finite_rows, f"phase 12 (b) {what}: every {key} finite")
@@ -2338,24 +2436,31 @@ def phase_graph_timing(device):
 
 def phase_graph_traces(device, tmp, timing):
     """Phase 12 (c): the CLI's ``--profile-dir`` trace of chunk 2 (K=10) of
-    each path, a replay, and of the same chunk eager: kernels the card
-    ran, ``cudaGraphLaunch``, ``cudaLaunchKernel`` and
-    ``cudaStreamSynchronize`` calls, the device's idle share, and the
-    capture's seconds and pool (phase 12 (b)'s chunk).  The GS N=6 replay
-    must be one graph launch, at most 10 launches (the metrics' clone) and
-    no wait for the card before the replay's end."""
+    each traced path, a replay, and of the same chunk eager: kernels the
+    card ran, ``cudaGraphLaunch``, ``cudaLaunchKernel`` and
+    ``cudaStreamSynchronize`` calls, the kernels launched outside a graph,
+    the host-to-card copies and their bytes, the device's idle share, the
+    run's kernel launch counts (GRAPH_TRACE_ITERS iterations), and the
+    capture's seconds and pool (phase 12 (b)'s chunk).  The GS N=6 replay,
+    persistent and fresh, must be one graph launch, no wait for the card
+    before the replay's end, at most 10 launches (persistent) or only the
+    registered device generator's two fills of its seed and offset
+    (fresh), and the fresh one no host-to-card copy beyond the seed
+    word."""
     from fermiflow_tpu_torch.cli import finite_t, ground_state
 
     out = {}
-    for what, argv, finite in _graph_configs(device):
+    for what, argv, finite, _, traced in _graph_configs(device):
+        if not traced:
+            continue
         main = finite_t.main if finite else ground_state.main
         row, names = {}, {}
         for name in ("graphed", "eager"):
             prof = f"{tmp}/{what.replace(' ', '_')}_{name}"
             with (eager_chunks() if name == "eager"
                   else contextlib.nullcontext()):
-                drive_path(main, argv(GRAPH_TRACE_ITERS)
-                           + ["--profile-dir", prof])
+                _, _, counts, _ = drive_path(
+                    main, argv(GRAPH_TRACE_ITERS) + ["--profile-dir", prof])
             with open(f"{prof}/summary.json") as fh:
                 summ = json.load(fh)
             calls = summ["runtime_calls"]
@@ -2367,10 +2472,21 @@ def phase_graph_traces(device, tmp, timing):
                 syncs=calls["cudaStreamSynchronize"],
                 idle_share=summ.get("device_idle_share"),
                 busy_ms=summ.get("device_busy_ms"),
-                window_ms=summ["window_ms"])
+                window_ms=summ["window_ms"],
+                kernel_launches={k: v for k, v in counts.items() if v})
             with open(f"{prof}/trace.json") as fh:
                 evs = [e for e in json.load(fh)["traceEvents"]
                        if e.get("ph") == "X"]
+            # Kernels launched on their own (by cudaLaunchKernel, not by
+            # the graph), and the host-to-card copies with their bytes.
+            own = {e.get("args", {}).get("correlation") for e in evs
+                   if e["name"].startswith("cudaLaunchKernel")}
+            row[name]["own_launch_kernels"] = [
+                e["name"][:80] for e in evs if e.get("cat") == "kernel"
+                and e.get("args", {}).get("correlation") in own]
+            row[name]["htod_bytes"] = [
+                e.get("args", {}).get("bytes") for e in evs
+                if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
             names[name], other = {}, {}
             for e in evs:
                 if e.get("cat") == "kernel":
@@ -2405,6 +2521,17 @@ def phase_graph_traces(device, tmp, timing):
           and g["syncs_before_replay_end"] == 0 and g["kernels"] > 0,
           "phase 12 (c): the GS N=6 replay is one graph launch, at most 10 "
           "launches and no wait for the card before its end")
+    f = out["GS N=6 fresh"]["graphed"]
+    fills = f["own_launch_kernels"]
+    check(f["graph_launches"] == 1 and f["syncs_before_replay_end"] == 0
+          and f["kernels"] > 0 and f["launches"] == len(fills) <= 2
+          and all("fill" in k.lower() for k in fills)
+          and all(b is not None and b <= 4 * SEGMENTS
+                  for b in f["htod_bytes"]),
+          "phase 12 (c): the fresh GS N=6 replay is one graph launch, no "
+          "launch of its own but the registered device generator's fills, "
+          "no host-to-card copy beyond the seed word, no wait for the card "
+          "before its end")
     return out
 
 

@@ -263,13 +263,16 @@ def walker_mesh(args, cfg: Config):
 
 def _collectives_line(mesh, iterations: int) -> str | None:
     """What the mesh's collectives cost this process: count and host ms,
-    in all and per iteration (None without a process group)."""
+    in all and per iteration, and how many of them ran in replayed CUDA
+    graphs (None without a process group)."""
     if mesh is None or mesh.group is None or iterations <= 0:
         return None
     count, ms = mesh.stats["count"], 1e3 * mesh.stats["seconds"]
     return (f"mesh: {mesh.world} ranks over {mesh.backend}, {count} "
             f"collectives in {ms:.3f} ms, {count / iterations:.1f} and "
-            f"{ms / iterations:.4f} ms per iteration")
+            f"{ms / iterations:.4f} ms per iteration ({mesh.stats['replayed']}"
+            f" of them in replayed chunks, timed by the replays' host "
+            f"seconds)")
 
 
 def make_cnf(cfg: Config) -> CNF:

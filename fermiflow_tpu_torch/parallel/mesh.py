@@ -161,9 +161,13 @@ class WalkerMesh:
     backend: str | None = None
     # The collectives this rank ran and their host seconds (gloo: from the
     # device's last kernel to the sum back on the device, the wait for the
-    # other ranks included; NCCL: the enqueue).
+    # other ranks included; NCCL: the enqueue).  ``replayed`` of them ran in
+    # replays of a captured chunk (``train.py``), which count each replay's
+    # collectives as the capture recorded them and its host seconds (the
+    # graph's launch) as theirs.
     stats: dict = dataclasses.field(
-        default_factory=lambda: {"count": 0, "seconds": 0.0}, compare=False)
+        default_factory=lambda: {"count": 0, "seconds": 0.0, "replayed": 0},
+        compare=False)
 
     def rows(self, batch: int) -> tuple[int, int]:
         """(first row, row count) of this rank in a global ``batch``."""

@@ -32,13 +32,17 @@ kernel chain's gradients into the parameters' ``.grad`` tensors, Adam with
 chunk and an eager one leave the same bits.  Between replays the host
 draws the chunk's sampler seeds from the host generator, as the eager
 chunk does and in its order, and copies them into the static seed buffer
-the sampler kernels read (``ops/metropolis.py``).  The first chunk of each
-length runs eagerly, on a side stream, as the trajectory's own chunk; the
-capture that follows records and runs nothing.  ``graph=None`` captures
-where the state lies on the card and the path can be: the kernel chain,
-persistent walkers, no mesh, the fixed-grid solver.  ``graph=True`` raises
-``ValueError`` elsewhere; those paths stay eager.  The kernels' launch
-counts (``ops/_build.py``) are taken at capture and added once per replay.
+the sampler kernels read (``ops/metropolis.py``); fresh walkers and the
+finite-T states come from the state's device generator, which the graph
+registers, so a replay draws where the eager chunk draws.  The first chunk
+of each length runs eagerly, on a side stream, as the trajectory's own
+chunk (on an NCCL mesh its collectives make the communicator); the capture
+that follows records and runs nothing.  ``graph=None`` captures where the
+state lies on the card and the path can be: the kernel chain, persistent or
+fresh walkers, no mesh or one without gloo, the fixed-grid solver.
+``graph=True`` raises ``ValueError`` elsewhere; those paths stay eager.
+The kernels' launch counts (``ops/_build.py``) and the mesh's collectives
+are taken at capture and added once per replay.
 
 Every builder takes ``mesh`` (``parallel/mesh.py``): the state then holds
 this rank's rows of the global ``cfg.batch`` walkers.  Every walker-axis
@@ -92,16 +96,17 @@ __all__ = ["TrainState", "init_gs_state", "init_beta_state", "make_adam",
 class TrainState:
     flow: Backflow  # owns the flow parameters
     optimizer: torch.optim.Optimizer
-    generator: torch.Generator  # host stream: sampler seeds, fresh walkers
+    generator: torch.Generator  # host stream: sampler seeds
     step: int
     walkers_cm: torch.Tensor  # (n*dim, batch) persistent chain positions
     tau: torch.Tensor  # (batch,) per-walker proposal scales
     # Finite T only: the occupation-state logits (a parameter Adam updates),
-    # each walker's state and the probabilities it was drawn from, and the
-    # device stream the states are drawn from.
+    # each walker's state and the probabilities it was drawn from.
     log_state_weights: torch.nn.Parameter | None = None
     state_idx: torch.Tensor | None = None  # (batch,) int32
     sample_probs: torch.Tensor | None = None  # (Nstates,)
+    # The stream on the walkers' device: fresh walkers and, at finite T,
+    # the states.
     device_generator: torch.Generator | None = None
 
     @property
@@ -149,7 +154,8 @@ def _local_batch(cfg: Config, mesh) -> int:
 def init_gs_state(model: GSVMC, params: dict, cfg: Config,
                   device: torch.device, mesh=None) -> TrainState:
     """Fresh state: Gaussian walkers and tau = cfg.tau, from ``cfg.seed``
-    (with ``mesh``, this rank's rows of them)."""
+    (with ``mesh``, this rank's rows of them), and the device generator the
+    fresh walkers are drawn from."""
     dtype = cfg.torch_dtype()
     gen = torch.Generator().manual_seed(cfg.seed)
     d = model.n * model.basedist.dim
@@ -163,6 +169,7 @@ def init_gs_state(model: GSVMC, params: dict, cfg: Config,
         walkers_cm=shard_walkers(mesh, walkers, 1).to(device),
         tau=torch.full((_local_batch(cfg, mesh),), cfg.tau, dtype=dtype,
                        device=device),
+        device_generator=torch.Generator(device).manual_seed(cfg.seed + 2),
     )
 
 
@@ -257,15 +264,26 @@ def _make_gs_update(model: GSVMC, cfg: Config | None = None, mesh=None):
 
 def _chain_start(state: TrainState, cfg: Config, mesh=None):
     """(z0, steps, tau) of this iteration's chains: the persistent walkers
-    at their own tau, or fresh Gaussians at cfg.tau (this rank's rows of
-    the global draw)."""
+    at their own tau, or fresh Gaussians at cfg.tau drawn from the device
+    generator on the walkers' device (this rank's rows of the global
+    draw)."""
     if cfg.persistent_walkers:
         return state.walkers_cm, cfg.mcmc_steps, state.tau
     d, B = state.walkers_cm.shape
-    z0 = torch.randn((d, global_batch(mesh, B)), generator=state.generator,
-                     dtype=state.walkers_cm.dtype)
-    z0 = shard_walkers(mesh, z0, 1).to(state.walkers_cm.device)
-    return z0, cfg.equilibrium_steps, torch.full_like(state.tau, cfg.tau)
+    z0 = torch.randn((d, global_batch(mesh, B)),
+                     generator=state.device_generator,
+                     dtype=state.walkers_cm.dtype,
+                     device=state.walkers_cm.device)
+    return (shard_walkers(mesh, z0, 1), cfg.equilibrium_steps,
+            torch.full_like(state.tau, cfg.tau))
+
+
+def _fresh_generators(cfg: Config):
+    """``generators(state)`` of a ground-state chunk: the device generator
+    where fresh walkers are drawn from it."""
+    if cfg.persistent_walkers:
+        return lambda state: ()
+    return lambda state: (state.device_generator,)
 
 
 def _new_seed(state: TrainState) -> int:
@@ -290,12 +308,9 @@ def _capture_refusal(cfg: Config, cnf, mesh) -> str | None:
     (they stay eager), or None."""
     if torch.device(cfg.device).type != "cuda":
         return f"--device {cfg.device}: a CUDA graph needs the card"
-    if mesh is not None:
-        return ("a walker mesh: its collectives run between the launches "
-                "(gloo waits for the card)")
-    if not cfg.persistent_walkers:
-        return ("fresh walkers: every iteration draws them on the host and "
-                "copies them to the card")
+    if mesh is not None and mesh.backend == "gloo":
+        return ("a gloo walker mesh: its sums go through the host, which "
+                "waits for the card")
     if not (cfg.pallas_sampler and cfg.pallas_local_energy
             and cfg.pallas_reinforce):
         return "--no-pallas-*: the plain versions and autograd stay eager"
@@ -374,21 +389,24 @@ class _Chunk:
     step count aside); ``seed(k)`` gives its k-th sampler seed: an ``int``
     drawn from the host generator when the body asks (eager), or a view of
     the static seed buffer.  ``refusal`` says why the chunk cannot be
-    captured (None: it can), ``graph`` is the builder's argument and
-    ``generators(state)`` the device generators the body draws from.
-    Captured (module docstring), ``capture_seconds``, ``pool_bytes`` and
-    ``launches`` (per kernel, one replay) describe the graph.
+    captured (None: it can), ``graph`` is the builder's argument,
+    ``generators(state)`` the device generators the body draws from and
+    ``mesh`` the walker mesh whose collectives it runs.  Captured (module
+    docstring), ``capture_seconds``, ``pool_bytes``, ``launches`` (per
+    kernel, one replay) and ``collectives`` (one replay) describe the
+    graph.
     """
 
     def __init__(self, body, n_seeds: int, iters: int, refusal, graph,
-                 generators=lambda state: ()):
+                 generators=lambda state: (), mesh=None):
         if graph and refusal:
             raise ValueError(f"graph=True, but this path cannot be "
                              f"captured: {refusal}")
         self.body, self.n_seeds, self.iters = body, n_seeds, iters
         self.refusal, self.graph, self.generators = refusal, graph, generators
-        self._replay = None
+        self.mesh, self._replay = mesh, None
         self.capture_seconds = self.pool_bytes = self.launches = None
+        self.collectives = None
 
     def _captured(self, state: TrainState) -> bool:
         if self.graph is False:
@@ -412,8 +430,11 @@ class _Chunk:
         """The captured chunk's host side: its seeds drawn and copied into
         the static buffer, then the eager warm-up and capture (first call)
         or a replay; the metrics cloned out of the graph's output (the
-        step count is the caller's)."""
+        step count is the caller's).  The mesh counts the collectives of a
+        replay as the capture recorded them, and its host seconds as
+        theirs."""
         device = state.walkers_cm.device
+        stats = {} if self.mesh is None else self.mesh.stats
         host = torch.tensor([_new_seed(state) for _ in range(self.n_seeds)],
                             dtype=torch.int32, pin_memory=device.type == "cuda")
         if self._replay is None:
@@ -427,12 +448,14 @@ class _Chunk:
                 return torch.stack([metrics[k] for k in self._keys])
 
             packed = _on_side_stream(run, device)
-            before = dict(_build.LAUNCHES)
+            before, recorded = dict(_build.LAUNCHES), dict(stats)
             self._replay, self.capture_seconds, self.pool_bytes = _capture(
                 run, device, self.generators(state))
             self.launches = {k: v - before[k]
                              for k, v in _build.LAUNCHES.items()}
             _build.LAUNCHES.update(before)
+            self.collectives = stats.get("count", 0) - recorded.get("count", 0)
+            stats.update(recorded)
             self._pointers = _pointers(state)
         else:
             if _pointers(state) != self._pointers:
@@ -440,9 +463,14 @@ class _Chunk:
                     "a state tensor was replaced since this chunk was "
                     "captured (a restore?): make the chunk anew")
             self._seeds.copy_(host, non_blocking=True)
+            t0 = time.perf_counter()
             packed = self._replay().clone()
             for k, v in self.launches.items():
                 _build.LAUNCHES[k] += v
+            if self.collectives:
+                stats["count"] += self.collectives
+                stats["replayed"] += self.collectives
+                stats["seconds"] += time.perf_counter() - t0
         return dict(zip(self._keys, packed.unbind(0)))
 
 
@@ -481,7 +509,8 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,
             state.tau.copy_(tau_out)
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
-    return _Chunk(body, 1, K, _capture_refusal(cfg, model.cnf, mesh), graph)
+    return _Chunk(body, 1, K, _capture_refusal(cfg, model.cnf, mesh), graph,
+                  _fresh_generators(cfg), mesh)
 
 
 def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None,
@@ -506,7 +535,8 @@ def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None,
         _end_iteration(state, cfg, z, acc)
         return dict(metrics, accept_rate=walker_mean(mesh, acc), loss=loss)
 
-    return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph)
+    return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph,
+                  _fresh_generators(cfg), mesh)
 
 
 def make_multi_step(step_fn: _Chunk, steps_per_call: int,
@@ -524,7 +554,7 @@ def make_multi_step(step_fn: _Chunk, steps_per_call: int,
 
     return _Chunk(body, K, K, step_fn.refusal,
                   step_fn.graph if graph is None else graph,
-                  step_fn.generators)
+                  step_fn.generators, step_fn.mesh)
 
 
 # ---- finite temperature ----
@@ -667,4 +697,4 @@ def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None,
         return metrics
 
     return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph,
-                  lambda state: (state.device_generator,))
+                  lambda state: (state.device_generator,), mesh)

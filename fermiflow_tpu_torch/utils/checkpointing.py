@@ -10,9 +10,11 @@ parameters), the chains
 (``walkers_cm``, ``tau``), at finite T the logits, ``state_idx`` and
 ``sample_probs``, both generators' states and the step, with a structure
 fingerprint (names, shapes and dtypes, as the JAX ``_fingerprint``).  The
-sampler's seed is drawn from the host generator, so a run that saves at
-step k and resumes is bitwise the run that never stopped, at equal chunk
-boundaries.
+sampler's seed is drawn from the host generator, fresh walkers and states
+from the device generator, so a run that saves at step k and resumes is
+bitwise the run that never stopped, at equal chunk boundaries.  A
+ground-state file saved without a device generator (before the ground
+state had one) restores, the live device generator left as it is.
 
 Multi-process runs (``parallel/mesh.py``): each rank saves its own rows
 under ``directory/procNNNNN/``, replicated tensors redundantly, as the JAX
@@ -62,15 +64,16 @@ def named_tensors(state) -> dict:
     return out
 
 
-def _fingerprint(state) -> str:
-    """Names, shapes and dtypes of the state's tensors, the form of each
-    generator's state and the optimizer's parameter groups, so a restore
-    into another layout (another N, batch or state count, or a ground-state
-    checkpoint into a finite-T run) fails loudly.  Adam's moments are
-    created at its first step and follow the parameters' shapes."""
+def _fingerprint(state, generators=_GENERATORS) -> str:
+    """Names, shapes and dtypes of the state's tensors, the form of each of
+    its ``generators``' states and the optimizer's parameter groups, so a
+    restore into another layout (another N, batch or state count, or a
+    ground-state checkpoint into a finite-T run) fails loudly.  Adam's
+    moments are created at its first step and follow the parameters'
+    shapes."""
     entries = [[name, list(t.shape), str(t.dtype)]
                for name, t in named_tensors(state).items()]
-    for name in _GENERATORS:
+    for name in generators:
         g = getattr(state, name)
         if g is not None:
             entries.append([name, g.device.type, list(g.get_state().shape)])
@@ -87,6 +90,13 @@ def _to_cpu(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_cpu(v) for v in tree)
     return tree
+
+
+def _saved_generators(payload: dict) -> tuple:
+    """The generators a checkpoint holds: both, but in a ground-state file
+    written before the ground state had a device generator, whose restore
+    leaves the live one as it is."""
+    return tuple(name for name in _GENERATORS if name in payload)
 
 
 def _proc_dir(directory: str) -> str:
@@ -167,10 +177,8 @@ def _load_into(state, payload: dict, tensors: dict):
                 st = state.optimizer.state.get(p, {})
                 if "step" in st:
                     st["step"] = st["step"].to(p.device)
-    for gname in _GENERATORS:
-        g = getattr(state, gname)
-        if g is not None:
-            g.set_state(payload[gname])
+    for gname in _saved_generators(payload):
+        getattr(state, gname).set_state(payload[gname])
     state.step = payload["step"]
     return state, state.step
 
@@ -183,7 +191,7 @@ def _restore_resharded(directory: str, proc_dirs: list, name: str, state):
     sources = [os.path.join(directory, d) for d in proc_dirs] or [directory]
     payloads = [_load(d, name) for d in sources]
     where = os.path.join(sources[0], name)
-    want = _fingerprint(state)
+    want = _fingerprint(state, _saved_generators(payloads[0]))
     if _unsharded(payloads[0]["fingerprint"]) != _unsharded(want):
         raise ValueError(
             f"checkpoint structure mismatch at {where}: the saved TrainState "
@@ -244,7 +252,7 @@ def restore_checkpoint(directory: str, state):
         name = direct
     directory = _proc_dir(directory)
     payload = _load(directory, name)
-    want = _fingerprint(state)
+    want = _fingerprint(state, _saved_generators(payload))
     if payload["fingerprint"] != want:
         raise ValueError(
             f"checkpoint structure mismatch at "

@@ -2,7 +2,9 @@
 
 A run that saves at step 2 and resumes in a fresh ``main`` call must equal
 the run that never stopped, bitwise: the metrics rows after the resume, the
-flow's parameters, Adam's state, the chains and both generators.  The
+flow's parameters, Adam's state, the chains and both generators, with
+persistent walkers and with fresh ones (drawn from the device generator).
+The
 restart cases are those of ``tests/test_watchdog.py``, through both
 packages' ``run_training_loop`` with the JAX tests' own fake steps and a
 port fake step poisoned the same way (at step 2 of the original stream):
@@ -39,11 +41,11 @@ BETA = ["--beta", "2.0", "--deltaE", "1.0", "--boltzmann"]
 TIMING = ("iter_seconds", "hours_per_100_iters")
 
 
-def run(main, tmp, name, iters, extra):
+def run(main, tmp, name, iters, extra, small=SMALL):
     """``main`` for ``iters`` iterations with checkpoints in tmp/name;
     returns (final state, metrics rows without their timings)."""
     path = tmp / f"{name}.jsonl"
-    state = main(SMALL + extra + [
+    state = main(small + extra + [
         "--iternum", str(iters), "--checkpoint-dir", str(tmp / name),
         "--metrics", str(path)])
     rows = [{k: v for k, v in json.loads(line).items() if k not in TIMING}
@@ -74,14 +76,16 @@ def assert_bitwise(a: dict, b: dict):
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
-@pytest.mark.parametrize("path,K", [("gs", 1), ("gs", 2), ("beta", 2)])
+@pytest.mark.parametrize("path,K", [("gs", 1), ("gs", 2), ("beta", 2),
+                                    ("gs_fresh", 1), ("gs_fresh", 2)])
 def test_resume_equals_uninterrupted_run(tmp_path, path, K, dtype):
-    main = ground_state.main if path == "gs" else finite_t.main
+    main = finite_t.main if path == "beta" else ground_state.main
     extra = (BETA if path == "beta" else []) + [
         "--steps-per-call", str(K), "--dtype", dtype]
-    whole, rows = run(main, tmp_path, "whole", 4, extra)
-    run(main, tmp_path, "cut", 2, extra)
-    resumed, rows_cut = run(main, tmp_path, "cut", 4, extra)
+    small = [a for a in SMALL if path != "gs_fresh" or a != "--persistent"]
+    whole, rows = run(main, tmp_path, "whole", 4, extra, small)
+    run(main, tmp_path, "cut", 2, extra, small)
+    resumed, rows_cut = run(main, tmp_path, "cut", 4, extra, small)
     assert resumed.step == whole.step == 4
     assert sorted(os.listdir(tmp_path / "cut")) == [
         "ckpt_00000002.pt", "ckpt_00000004.pt"]
@@ -132,6 +136,34 @@ def test_restore_refuses_another_structure(tmp_path, saved, live):
     save_checkpoint(str(tmp_path), 3, saved())
     with pytest.raises(ValueError, match="structure mismatch"):
         restore_checkpoint(str(tmp_path), live())
+
+
+def test_restore_of_a_gs_file_saved_without_a_device_generator(tmp_path):
+    """A ground-state checkpoint written before the ground state had a
+    device generator (no ``device_generator`` entry, none in its
+    fingerprint) restores: every tensor and the host generator bitwise,
+    the live device generator as it was; a finite-T state still refuses
+    it."""
+    from fermiflow_tpu_torch.utils import checkpointing as ck
+
+    saved = _gs()
+    torch.rand(3, generator=saved.generator)
+    path = save_checkpoint(str(tmp_path), 3, saved)
+    payload = torch.load(path, weights_only=True)
+    del payload["device_generator"]
+    payload["fingerprint"] = ck._fingerprint(saved, ("generator",))
+    torch.save(payload, path)
+    live = _gs()
+    dev = live.device_generator.get_state()
+    restored, step = restore_checkpoint(str(tmp_path), live)
+    assert step == 3
+    for k, t in ck.named_tensors(saved).items():
+        assert torch.equal(ck.named_tensors(restored)[k], t), k
+    assert torch.equal(restored.generator.get_state(),
+                       saved.generator.get_state())
+    assert torch.equal(restored.device_generator.get_state(), dev)
+    with pytest.raises(ValueError, match="structure mismatch"):
+        restore_checkpoint(str(tmp_path), _beta())
 
 
 def test_restore_without_checkpoint_and_with_process_shards(tmp_path):

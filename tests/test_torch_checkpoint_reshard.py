@@ -21,7 +21,12 @@ import torch
 from fermiflow_tpu_torch.cli import common
 from fermiflow_tpu_torch.config import Config
 from fermiflow_tpu_torch.parallel.mesh import WalkerMesh
-from fermiflow_tpu_torch.train import init_beta_state, init_gs_state
+from fermiflow_tpu_torch.train import (
+    init_beta_state,
+    init_gs_state,
+    make_gs_train_step,
+    make_multi_step,
+)
 from fermiflow_tpu_torch.utils import checkpointing as ck
 
 BATCH = 16
@@ -42,7 +47,7 @@ def _state(finite, rank=0, world=1, batch=BATCH, nup=2, seed=0):
 
 def _payload(finite, seed=0, batch=BATCH):
     """A one-process state with a recognizable payload and Adam's moments
-    (one step on fixed gradients) and a generator moved on."""
+    (one step on fixed gradients) and both generators moved on."""
     st = _state(finite, batch=batch, seed=seed)
     d = st.walkers_cm.shape[0]
     with torch.no_grad():
@@ -55,6 +60,7 @@ def _payload(finite, seed=0, batch=BATCH):
         p.grad = torch.full_like(p, 0.5 + seed)
     st.optimizer.step()
     torch.rand(3 + seed, generator=st.generator)
+    torch.rand(5 + seed, generator=st.device_generator)
     st.step = 7 + seed
     return st
 
@@ -196,3 +202,42 @@ def test_resharded_restore_refuses_another_structure(tmp_path, monkeypatch):
     _save_shards(monkeypatch, str(tmp_path), _payload(False), 2, 7, False)
     with pytest.raises(ValueError, match="structure mismatch"):
         _restore_as(monkeypatch, str(tmp_path), 0, 1, False, nup=3)
+
+
+def _fresh_gs(rank=0, world=1):
+    """A fresh-walker GS state of ``rank`` of ``world`` (no process group)
+    and a chunk of 2 one-segment iterations, each chain started from the
+    device generator's draw."""
+    cfg = Config(nup=2, batch=BATCH, d_eta=8, d_mu=8, ode_steps=1,
+                 equilibrium_steps=3, lr=1e-2, dtype="float64", device="cpu")
+    mesh = WalkerMesh(rank, world, CPU) if world > 1 else None
+    model, params = common.build_gs(cfg)
+    return (init_gs_state(model, params, cfg, CPU, mesh),
+            make_multi_step(make_gs_train_step(model, cfg, mesh), 2))
+
+
+def test_fresh_walker_shards_resume_in_one_process_bitwise(tmp_path,
+                                                           monkeypatch):
+    """Fresh walkers, 2 -> 1: two ranks run a chunk of 2 iterations, each
+    drawing its rows of the global fresh draw from the replicated device
+    generator, and save their shards; one process restores them and runs
+    the next chunk.  Its walkers and both generators are bitwise those of
+    the one-process run of 4 iterations (the GS chains never depend on the
+    parameters, which here each rank fits to its own rows)."""
+    whole, chunk = _fresh_gs()
+    for _ in range(2):
+        whole, _ = chunk(whole)
+    for rank in range(2):
+        st, ch = _fresh_gs(rank, 2)
+        st, _ = ch(st)
+        _as_rank(monkeypatch, rank, 2)
+        ck.save_checkpoint(str(tmp_path), 2, st)
+    _as_rank(monkeypatch, 0, 1)
+    resumed, chunk = _fresh_gs()
+    resumed, step = ck.restore_checkpoint(str(tmp_path), resumed)
+    assert step == 2
+    resumed, _ = chunk(resumed)
+    assert torch.equal(resumed.walkers_cm, whole.walkers_cm)
+    for g in ("generator", "device_generator"):
+        assert torch.equal(getattr(resumed, g).get_state(),
+                           getattr(whole, g).get_state()), g

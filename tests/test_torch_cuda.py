@@ -420,9 +420,10 @@ def test_sample_use_pallas_launches_kernel_5(cuda):
 def _graph_cfg(finite, K, **kw):
     from fermiflow_tpu_torch.config import Config
 
-    cfg = Config(nup=3, batch=256, d_eta=8, d_mu=8, ode_steps=2, mcmc_steps=5,
-                 dtype="float32", persistent_walkers=True, steps_per_call=K,
-                 lr=1e-3, device="cuda", **kw)
+    cfg = Config(**{**dict(nup=3, batch=256, d_eta=8, d_mu=8, ode_steps=2,
+                           mcmc_steps=5, equilibrium_steps=20,
+                           dtype="float32", persistent_walkers=True,
+                           steps_per_call=K, lr=1e-3, device="cuda"), **kw})
     if finite:
         cfg.beta, cfg.deltaE, cfg.boltzmann = 2.0, 2.0, True
     return cfg
@@ -484,16 +485,22 @@ def _bitwise(a: dict, b: dict):
         assert torch.equal(a[k].cpu(), b[k].cpu()), k
 
 
+@pytest.mark.parametrize("persistent", [True, False],
+                         ids=["persistent", "fresh"])
 @pytest.mark.parametrize("finite,K", [(False, 3), (False, 1), (True, 3)])
-def test_captured_chunk_replays_the_eager_chunk_bitwise(cuda, finite, K):
+def test_captured_chunk_replays_the_eager_chunk_bitwise(cuda, finite, K,
+                                                        persistent):
     """Three chunks (the eager warm-up, then two replays) against three
-    eager chunks from the same seed: the state, Adam and the generators,
-    and every metric, bitwise; each replay counts the kernels it ran."""
+    eager chunks from the same seed, with persistent and with fresh walkers
+    (drawn from the registered device generator): the state, Adam and the
+    generators, and every metric, bitwise; each replay counts the kernels
+    it ran."""
+    cfg = _graph_cfg(finite, K, persistent_walkers=persistent)
     _build.reset_launch_counts()
-    s_g, m_g, chunk = _graph_run(finite, K, True, 3)
+    s_g, m_g, chunk = _graph_run(finite, K, True, 3, cfg=cfg)
     counts = dict(_build.LAUNCHES)
     _build.reset_launch_counts()
-    s_e, m_e, _ = _graph_run(finite, K, False, 3)
+    s_e, m_e, _ = _graph_run(finite, K, False, 3, cfg=cfg)
     assert counts == _build.LAUNCHES
     assert chunk.capture_seconds > 0 and chunk.pool_bytes >= 0
     assert s_g.step == s_e.step == 3 * K

@@ -8,8 +8,14 @@ per chunk (``fermiflow_tpu_torch/train.py``), held here without a card.
 * the captured chunk's host side (seeds through the static buffer, the
   eager warm-up, the metrics out of the graph's output) with a stand-in for
   the capture that replays by running the body again: bitwise the eager
-  chunk, for the GS fused chunk, the GS step and the finite-T multi-step;
-* ``graph=True`` refuses every path that stays eager;
+  chunk, for the GS fused chunk, the GS step and the finite-T multi-step,
+  with persistent and with fresh walkers;
+* ``graph=True`` refuses every path that stays eager, and accepts a mesh
+  without a process group and an NCCL mesh; a replay counts the mesh's
+  collectives as the capture recorded them;
+* fresh walkers: drawn from the device generator, a rank's rows of the
+  one-process draw; the identity-flow oracles through all three builders
+  against the JAX package's values;
 * ``run_training_loop`` makes its chunks anew after a restore;
 * the trace summary's counts of graph launches, launches and waits.
 
@@ -33,7 +39,8 @@ from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_multistate_cm,
     metropolis_single_cm,
 )
-from fermiflow_tpu_torch.parallel.mesh import make_walker_mesh
+from fermiflow_tpu_torch.parallel import mesh as mesh_mod
+from fermiflow_tpu_torch.parallel.mesh import WalkerMesh, make_walker_mesh
 from fermiflow_tpu_torch.physics import HO2D
 from fermiflow_tpu_torch.physics.potentials import CoulombPairPotential
 from fermiflow_tpu_torch.utils import MetricsLogger
@@ -129,26 +136,28 @@ def small_cfg(finite, K, **kw):
     return cfg
 
 
-def small_run(kind, graphed, chunks=4):
+def small_run(kind, graphed, chunks=4, persistent=True, mesh=None):
     """``chunks`` chunks of the GS fused chunk (K = 3), the GS step
     (K = 1) or the finite-T multi-step (K = 3) from a fresh float64 state
-    at N = 3; ``graphed``: through the captured chunk's host side, the
-    capture replaced by a stand-in that runs nothing and replays by running
-    the body again."""
+    at N = 3, with persistent or fresh walkers, on ``mesh``; ``graphed``:
+    through the captured chunk's host side, the capture replaced by a
+    stand-in that runs nothing and replays by running the body again."""
     finite, K = kind == "beta", 1 if kind == "single" else 3
-    cfg = small_cfg(finite, K)
+    cfg = small_cfg(finite, K, persistent_walkers=persistent,
+                    equilibrium_steps=6)
     cpu = torch.device("cpu")
     if finite:
         model, params = common.build_beta(cfg)
-        state = train.init_beta_state(model, params, cfg, cpu)
-        chunk = train.make_multi_step(train.make_beta_train_step(model, cfg),
-                                      K)
+        state = train.init_beta_state(model, params, cfg, cpu, mesh)
+        chunk = train.make_multi_step(
+            train.make_beta_train_step(model, cfg, mesh), K)
     else:
         model, params = common.build_gs(cfg)
-        state = train.init_gs_state(model, params, cfg, cpu)
-        chunk = (train.make_multi_step(train.make_gs_train_step(model, cfg), 1)
+        state = train.init_gs_state(model, params, cfg, cpu, mesh)
+        chunk = (train.make_multi_step(
+            train.make_gs_train_step(model, cfg, mesh), 1)
                  if kind == "single" else
-                 train.make_gs_fused_multi_step(model, cfg, K))
+                 train.make_gs_fused_multi_step(model, cfg, K, mesh))
     if graphed:
         chunk._captured = lambda state: True
     rows = []
@@ -170,21 +179,29 @@ def state_tensors(state):
     return out
 
 
+@pytest.mark.parametrize("persistent", [True, False],
+                         ids=["persistent", "fresh"])
 @pytest.mark.parametrize("kind", ["fused", "single", "beta"])
 def test_captured_chunk_host_side_is_the_eager_chunk_bitwise(monkeypatch,
-                                                             kind):
+                                                             kind,
+                                                             persistent):
     """The captured chunk run on the CPU in float64 (its seeds drawn up
     front and read from the static buffer, the first chunk warming up, the
     metrics cloned out of one packed output) against the eager chunk, 4
-    chunks each: walkers, tau, every parameter, Adam's moments and step,
-    the states and their probabilities, both generators and every metric,
-    bitwise.  The eager chunks are the ones that ``tests/test_torch_train.py``
-    and ``tests/test_torch_beta.py`` hold against the JAX package."""
+    chunks each, with persistent and with fresh walkers: walkers, tau,
+    every parameter, Adam's moments and step, the states and their
+    probabilities, both generators and every metric, bitwise.  The eager
+    chunks are the ones that ``tests/test_torch_train.py`` and
+    ``tests/test_torch_beta.py`` hold against the JAX package.  A fresh
+    chunk registers the device generator it draws from."""
     monkeypatch.setattr(train, "_on_side_stream", lambda fn, device: fn())
-    monkeypatch.setattr(train, "_capture",
-                        lambda fn, device, generators=(): (fn, 0.0, 0))
-    s_g, rows_g, chunk = small_run(kind, True)
-    s_e, rows_e, _ = small_run(kind, False)
+    registered = []
+    monkeypatch.setattr(train, "_capture", lambda fn, device, generators=(): (
+        registered.append(tuple(generators)), (fn, 0.0, 0))[1])
+    s_g, rows_g, chunk = small_run(kind, True, persistent=persistent)
+    s_e, rows_e, _ = small_run(kind, False, persistent=persistent)
+    draws = kind == "beta" or not persistent
+    assert registered == [(s_g.device_generator,) if draws else ()]
     assert chunk._replay is not None
     assert s_g.step == s_e.step == 4 * chunk.iters
     a, b = state_tensors(s_g), state_tensors(s_e)
@@ -210,20 +227,25 @@ def test_captured_chunk_refuses_a_replaced_state_tensor(monkeypatch):
         chunk(state)
 
 
-@pytest.mark.parametrize("case", ["cpu", "cpu_state", "mesh", "fresh",
+def gloo_mesh():
+    """A 2-rank gloo mesh as the builders see it; its group a stand-in
+    (the builders refuse it before any collective)."""
+    return WalkerMesh(0, 2, torch.device("cuda", 0), object(), "gloo")
+
+
+@pytest.mark.parametrize("case", ["cpu", "cpu_state", "gloo_mesh",
                                   "no_pallas_reinforce", "nested_jvp",
                                   "adaptive"])
 def test_graph_true_refuses_the_paths_that_stay_eager(case):
     """``graph=True`` raises ``ValueError`` saying why on every path that
-    cannot be captured (the default leaves them eager): the CPU, a walker
-    mesh, fresh walkers, ``--no-pallas-reinforce``, the nested-jvp engine
-    and the adaptive solver; for each builder."""
-    kw = {"fresh": dict(persistent_walkers=False),
-          "no_pallas_reinforce": dict(pallas_reinforce=False),
+    cannot be captured (the default leaves them eager): the CPU, a gloo
+    walker mesh, ``--no-pallas-reinforce``, the nested-jvp engine and the
+    adaptive solver; for each builder."""
+    kw = {"no_pallas_reinforce": dict(pallas_reinforce=False),
           "nested_jvp": dict(local_energy="nested_jvp"),
           "adaptive": dict(ode_solver="adaptive")}.get(case, {})
     match = {"cpu": "--device cpu", "cpu_state": "the state lies on the CPU",
-             "mesh": "walker mesh", "fresh": "fresh walkers",
+             "gloo_mesh": "gloo walker mesh",
              "no_pallas_reinforce": "no-pallas", "nested_jvp": "nested-jvp",
              "adaptive": "adaptive solver"}[case]
     gs_model, gs_params = common.build_gs(small_cfg(False, 2))
@@ -231,7 +253,7 @@ def test_graph_true_refuses_the_paths_that_stay_eager(case):
     cfg = small_cfg(False, 2, **kw)
     if case != "cpu":
         cfg.device = "cuda"  # the builders read the device, never use it
-    mesh = make_walker_mesh(torch.device("cpu")) if case == "mesh" else None
+    mesh = gloo_mesh() if case == "gloo_mesh" else None
     builders = [
         lambda: train.make_gs_fused_multi_step(gs_model, cfg, 2, mesh, True),
         lambda: train.make_multi_step(
@@ -250,6 +272,194 @@ def test_graph_true_refuses_the_paths_that_stay_eager(case):
         chunk = build()  # the device decides at the first call
         with pytest.raises(ValueError, match=match):
             chunk(state)
+
+
+def nccl_mesh(monkeypatch):
+    """A one-rank NCCL mesh as the builders and estimators see it, on the
+    CPU: its group a stand-in, its sum over the one rank the identity."""
+    monkeypatch.setattr(mesh_mod.dist, "all_reduce",
+                        lambda t, group=None: None)
+    return WalkerMesh(0, 1, torch.device("cpu"), object(), "nccl")
+
+
+@pytest.mark.parametrize("case", ["fresh", "mesh", "nccl_mesh"])
+def test_graph_true_accepts_fresh_walkers_and_meshes_without_gloo(
+        monkeypatch, case):
+    """Fresh walkers (drawn on the card), a mesh without a process group
+    and an NCCL mesh are captured: ``graph=True`` builds each chunk, and no
+    builder gives a reason to stay eager."""
+    gs_model, _ = common.build_gs(small_cfg(False, 2))
+    beta_model, _ = common.build_beta(small_cfg(True, 2))
+    cfg = small_cfg(False, 2, persistent_walkers=case != "fresh",
+                    device="cuda")
+    mesh = {"fresh": None, "mesh": make_walker_mesh(torch.device("cpu")),
+            "nccl_mesh": nccl_mesh(monkeypatch)}[case]
+    chunks = [
+        train.make_gs_fused_multi_step(gs_model, cfg, 2, mesh, True),
+        train.make_multi_step(
+            train.make_gs_train_step(gs_model, cfg, mesh), 2, True),
+        train.make_gs_train_step(gs_model, cfg, mesh, True),
+        train.make_multi_step(
+            train.make_beta_train_step(beta_model, cfg, mesh), 2, True),
+    ]
+    assert all(c.refusal is None and c.graph for c in chunks)
+
+
+@pytest.mark.parametrize("kind", ["fused", "single", "beta"])
+def test_captured_chunk_on_a_one_rank_nccl_mesh_is_the_eager_chunk_bitwise(
+        monkeypatch, kind):
+    """Fresh walkers on a one-rank NCCL mesh (its collectives through the
+    estimators' sums): the captured chunk's host side against the eager
+    chunk, 4 chunks each, every state tensor, both generators and every
+    metric bitwise, and the same count of collectives."""
+    monkeypatch.setattr(train, "_on_side_stream", lambda fn, device: fn())
+    monkeypatch.setattr(train, "_capture",
+                        lambda fn, device, generators=(): (fn, 0.0, 0))
+    mesh_g, mesh_e = nccl_mesh(monkeypatch), nccl_mesh(monkeypatch)
+    s_g, rows_g, chunk = small_run(kind, True, persistent=False, mesh=mesh_g)
+    s_e, rows_e, _ = small_run(kind, False, persistent=False, mesh=mesh_e)
+    assert chunk._replay is not None and chunk.mesh is mesh_g
+    a, b = state_tensors(s_g), state_tensors(s_e)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    for r_g, r_e in zip(rows_g, rows_e):
+        for k in r_g:
+            assert torch.equal(r_g[k], r_e[k]), k
+    assert mesh_g.stats["count"] == mesh_e.stats["count"] > 0
+
+
+def test_a_replay_counts_the_collectives_its_capture_recorded(monkeypatch):
+    """On an NCCL mesh the warm-up chunk's collectives run and count; the
+    capture's are recorded, not counted; each replay, which runs no Python,
+    adds them once, as ``replayed``, with its host seconds; the CLI's mesh
+    line says so."""
+    mesh = nccl_mesh(monkeypatch)
+    monkeypatch.setattr(train, "_on_side_stream", lambda fn, device: fn())
+    recorded = {}
+
+    def capture(fn, device, generators=()):
+        recorded["out"] = fn()  # the capture sees fn's collectives
+        return lambda: recorded["out"], 0.0, 0
+
+    monkeypatch.setattr(train, "_capture", capture)
+
+    def body(state, seed):
+        seed(0)
+        one = torch.ones((), dtype=torch.float64)
+        return {"a": mesh_mod.all_sum(mesh, one),
+                "b": mesh_mod.all_sum(mesh, 2 * one)}
+
+    cfg = small_cfg(False, 1)
+    model, params = common.build_gs(cfg)
+    state = train.init_gs_state(model, params, cfg, torch.device("cpu"))
+    chunk = train._Chunk(body, 1, 1, None, None, mesh=mesh)
+    chunk._captured = lambda state: True
+    for _ in range(3):
+        state, metrics = chunk(state)
+    assert chunk.collectives == 2
+    assert float(metrics["b"]) == 2.0
+    assert mesh.stats["count"] == 6 and mesh.stats["replayed"] == 4
+    assert mesh.stats["seconds"] > 0
+    line = common._collectives_line(mesh, 3)
+    assert line.startswith("mesh: 1 ranks over nccl, 6 collectives")
+    assert "(4 of them in replayed chunks" in line
+
+
+# ---- fresh walkers: the device draw, a rank's rows, the oracles ----
+
+
+def test_fresh_walkers_are_the_device_draw_and_a_rank_holds_its_rows():
+    """Fresh chain starts come from the state's device generator (the host
+    generator, which draws the sampler seeds, is left as it was), at
+    cfg.tau for cfg.equilibrium_steps; on a mesh of 2 or 4 ranks each
+    rank's start is its rows of the one-process draw, bitwise."""
+    cfg = small_cfg(False, 1, persistent_walkers=False, tau=0.1)
+    model, params = common.build_gs(cfg)
+    cpu = torch.device("cpu")
+    one = train.init_gs_state(model, params, cfg, cpu)
+    host, dev = one.generator.get_state(), one.device_generator.get_state()
+    z0, steps, tau = train._chain_start(one, cfg)
+    assert torch.equal(one.generator.get_state(), host)
+    assert not torch.equal(one.device_generator.get_state(), dev)
+    assert steps == cfg.equilibrium_steps and bool((tau == 0.1).all())
+    assert z0.shape == (6, cfg.batch)
+    for world in (2, 4):
+        n = cfg.batch // world
+        for rank in range(world):
+            mesh = WalkerMesh(rank, world, cpu)
+            st = train.init_gs_state(model, params, cfg, cpu, mesh)
+            zr, _, tr = train._chain_start(st, cfg, mesh)
+            assert torch.equal(zr, z0[:, rank * n:(rank + 1) * n])
+            assert tr.shape == (n,)
+            assert torch.equal(st.device_generator.get_state(),
+                               one.device_generator.get_state())
+
+
+ORACLE = dict(nup=3, Z=0.0, batch=64, d_eta=8, d_mu=8, ode_steps=2,
+              equilibrium_steps=10, seed=0)
+
+
+@pytest.fixture(scope="module")
+def jax_oracles():
+    """E of the JAX package's GS step and F of its finite-T step at the
+    identity flow, N = 3, Z = 0, fresh walkers, float64 on the CPU (its
+    own oracle tests' configuration: E = 5, F = 4.636605)."""
+    import optax
+
+    from fermiflow_tpu.cli import common as jcommon
+    from fermiflow_tpu.config import Config as JConfig
+    from fermiflow_tpu.train import (
+        init_beta_state,
+        init_gs_state,
+        make_beta_train_step,
+        make_gs_train_step,
+    )
+
+    cfg = JConfig(**ORACLE)
+    model, params = jcommon.build_gs(cfg)
+    opt = optax.sgd(cfg.lr)
+    _, m = make_gs_train_step(model, opt, cfg)(
+        init_gs_state(model, params, cfg, opt))
+    cfg.beta, cfg.deltaE, cfg.boltzmann = 2.0, 2.0, True
+    model, params = jcommon.build_beta(cfg)
+    _, mb = make_beta_train_step(model, opt, cfg)(
+        init_beta_state(model, params, cfg, opt))
+    return {"E": float(m["E"]), "F": float(mb["F"])}
+
+
+@pytest.mark.parametrize("kind", ["fused", "single", "beta"])
+def test_identity_flow_oracle_with_fresh_walkers_matches_jax(jax_oracles,
+                                                             kind):
+    """The identity flow at N = 3, Z = 0 with fresh walkers through each
+    builder (2 iterations, lr 0 so the flow stays the identity): every
+    iteration's E (or at beta = 2, deltaE = 2, Boltzmann logits, F) is the
+    JAX package's within the JAX oracle tests' tolerances (value 1e-8,
+    spread 1e-7)."""
+    finite = kind == "beta"
+    cfg = Config(**ORACLE, dtype="float64", device="cpu", lr=0.0,
+                 persistent_walkers=False, steps_per_call=2)
+    cpu = torch.device("cpu")
+    if finite:
+        cfg.beta, cfg.deltaE, cfg.boltzmann = 2.0, 2.0, True
+        model, params = common.build_beta(cfg)
+        state = train.init_beta_state(model, params, cfg, cpu)
+        chunk = train.make_multi_step(train.make_beta_train_step(model, cfg),
+                                      2)
+    else:
+        model, params = common.build_gs(cfg)
+        state = train.init_gs_state(model, params, cfg, cpu)
+        chunk = (train.make_gs_fused_multi_step(model, cfg, 2)
+                 if kind == "fused" else
+                 train.make_multi_step(train.make_gs_train_step(model, cfg),
+                                       2))
+    key = "F" if finite else "E"
+    np.testing.assert_allclose(jax_oracles[key],
+                               4.636605 if finite else 5.0, atol=1e-6)
+    _, m = chunk(state)
+    np.testing.assert_allclose(m[key].numpy(), jax_oracles[key], rtol=0,
+                               atol=1e-8)
+    np.testing.assert_allclose(m[key + "_std"].numpy(), 0.0, atol=1e-7)
 
 
 # ---- the training loop makes its chunks anew after a restore ----

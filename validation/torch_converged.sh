@@ -20,11 +20,23 @@
 #
 # ROW: gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet
 # gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20
-# beta_n6_z40 beta_n6_z80 beta_n3_b10 xover odesteps eval (default: all of
-# them, in that order); eval_z80 is eval at the Z = 8 checkpoint alone;
+# beta_n6_z40 beta_n6_z80 beta_n3_b10 gs_n3_fresh gs_n6_fresh
+# gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh xover odesteps eval
+# (default: all of them, in that order); eval_z80 is eval at the Z = 8 checkpoint alone;
 # gs_n6_graph (not in the default) is gs_n6 again into records of its own,
 # torch_gs_n6_z05_ode4_graph*: the row retrained through the CLI's
 # captured chunks, beside the eager chunks' records of gs_n6.
+# gs_n3_fresh gs_n6_fresh gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh
+# (in the default, before xover) retrain the five round-2 JAX records of
+# the reference's fresh-walker protocol (docs/VALIDATION.md:12-17, :23-30)
+# under it: the CLIs' default sampling (no --persistent: every iteration
+# 100 Metropolis steps at tau 0.1 from fresh Gaussians drawn on the card),
+# batch 8192, lr 3e-3, ode 8, steps-per-call 10, the records' 3000 or 2000
+# iterations, no polish, into torch_<record>_fresh.jsonl.  The bounds on
+# |port - JAX| of the last-500 mean, fixed before the runs: GS N = 3
+# 0.002; GS N = 6, Z = 0.5 0.005; Z = 1 0.006; Z = 2 0.010; finite T
+# N = 6 (beta 2, deltaE 2, Boltzmann) F 0.005 and |S - S_an| <= 0.02 on
+# the last row (validation/torch_converged_summary.py).
 # xover and odesteps retrain gs_n6 first when $CK lacks its checkpoint.
 # Records go to $OUT (validation/runs), each run's wall seconds to
 # $OUT/torch_converged_wall.jsonl, checkpoints to $CK (validation/ck), logs
@@ -96,6 +108,13 @@ gs_sweep () {  # gs_sweep <tag> <Z>: the r3 protocol at N = 6
     --ode-steps 8
 }
 
+fresh () {  # fresh <cli> <record> <iters> <row flags...>: the CLIs'
+  # default fresh-walker protocol, batch 8192, ode 8, no polish
+  local proto="--dtype float32 --seed 42 --steps-per-call 10 \
+    --checkpoint-every 500"
+  train "$1" "$2" "$3" 0 --batch 8192 --ode-steps 8 "${@:4}"
+}
+
 beta_sweep () {  # beta_sweep <tag> <Z>: beta = 2, deltaE = 2 at N = 6
   train finite_t "beta_n6_$1" 3000 1000 --nup 6 --Z "$2" --beta 2.0 \
     --deltaE 2.0 --boltzmann --batch 8192 --ode-steps 8
@@ -122,7 +141,8 @@ evaluate () {  # evaluate <record> <row flags...>: both engines
 
 rows=${*:-gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet \
   gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20 \
-  beta_n6_z40 beta_n6_z80 beta_n3_b10 xover odesteps eval}
+  beta_n6_z40 beta_n6_z80 beta_n3_b10 gs_n3_fresh gs_n6_fresh \
+  gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh xover odesteps eval}
 for row in $rows; do
   case $row in
     gs_n6) train ground_state gs_n6_z05_ode4 3000 1000 \
@@ -157,6 +177,14 @@ for row in $rows; do
     beta_n3_b10) train finite_t beta_n3_b10_z2 1000 0 \
       --nup 3 --Z 2.0 --beta 10.0 --deltaE 2.0 --boltzmann --batch 2048 \
       --ode-steps 8 ;;
+    gs_n3_fresh) fresh ground_state gs_n3_z05_fresh 3000 --nup 3 --Z 0.5 ;;
+    gs_n6_fresh) fresh ground_state gs_n6_z05_fresh 2000 --nup 6 --Z 0.5 ;;
+    gs_n6_z10_fresh) fresh ground_state gs_n6_z10_fresh 2000 --nup 6 \
+      --Z 1.0 ;;
+    gs_n6_z20_fresh) fresh ground_state gs_n6_z20_fresh 2000 --nup 6 \
+      --Z 2.0 ;;
+    beta_n6_fresh) fresh finite_t beta_n6_z05_fresh 2000 --nup 6 --Z 0.5 \
+      --beta 2.0 --deltaE 2.0 --boltzmann ;;
     xover)
       need_gs_n6
       for spec in $XOVER; do

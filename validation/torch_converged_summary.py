@@ -2,11 +2,12 @@
 package's (``validation/torch_converged.sh``).
 
 For each row: the mean of the primary metric (E, or F at finite
-temperature) over the last 300 rows of the port's final record and of the
+temperature) over the last 300 rows (500 for the fresh-walker rows, as
+their JAX records were summarised) of the port's final record and of the
 JAX record, the sem of the port's mean (the rows' standard deviation over
-sqrt 300, which ignores their autocorrelation), |delta|, the bound fixed
+sqrt of the rows, which ignores their autocorrelation), |delta|, the bound fixed
 before the runs and whether it holds; S(MC) - S_analytical on the last
-finite-temperature row; the median of ``iter_seconds`` (steady ms per
+finite-temperature row, with its mean and the rows' spread over the tail; the median of ``iter_seconds`` (steady ms per
 iteration) and the wall seconds of the CLI runs
 (``torch_converged_wall.jsonl``); and the evaluator's fresh-chain energies
 at the ground-state checkpoints, each against its training tail (within 3
@@ -43,8 +44,8 @@ TAIL = 300
 
 class Row(NamedTuple):
     """A training row: its port records, the JAX record, the metric, the
-    bound (lo, hi) on the port's tail mean, and on the last row the bound
-    on |S - S_analytical| and on S itself (or None)."""
+    bound (lo, hi) on the port's tail mean, on the last row the bound on
+    |S - S_analytical| and on S itself (or None), and the tail's rows."""
     name: str
     recs: list
     jax: str
@@ -52,6 +53,7 @@ class Row(NamedTuple):
     bound: tuple
     s_bound: float | None = None
     s_max: float | None = None
+    tail: int = TAIL
 
 
 def _port(rec: str, polish: bool = True) -> list:
@@ -100,6 +102,22 @@ ROWS = [
         _within(59.99868, 0.01, 0.01), 0.02),
     Row("beta=10 N=3 Z=2", _port("beta_n3_b10_z2", False), "beta_n3_b10_z2",
         "F", _within(8.32539, 0.003, 0.003), s_max=0.01),
+    # The reference's fresh-walker protocol (the CLIs' default: every
+    # iteration 100 Metropolis steps at a fixed tau 0.1 from fresh
+    # Gaussians), the round-2 JAX records' own (docs/VALIDATION.md:12-17,
+    # :23-30): batch 8192, lr 3e-3, dopri5 x 8, no polish.  Last-500
+    # means; |port - JAX| within the bound, fixed before the runs.
+    Row("GS N=3 fresh", _port("gs_n3_z05_fresh", False), "gs_n3_z05", "E",
+        _within(5.90832, 0.002, 0.002), tail=500),
+    Row("GS N=6 fresh", _port("gs_n6_z05_fresh", False), "gs_n6_z05", "E",
+        _within(18.15935, 0.005, 0.005), tail=500),
+    Row("GS Z=1 fresh", _port("gs_n6_z10_fresh", False), "gs_n6_z10", "E",
+        _within(22.00883, 0.006, 0.006), tail=500),
+    Row("GS Z=2 fresh", _port("gs_n6_z20_fresh", False), "gs_n6_z20", "E",
+        _within(28.98483, 0.010, 0.010), tail=500),
+    Row("finite T N=6 fresh", _port("beta_n6_z05_fresh", False),
+        "beta_n6_z05", "F", _within(17.49912, 0.005, 0.005), 0.02,
+        tail=500),
 ]
 # (row, record, slack added to 3 combined sems)
 EVALS = [("GS N=6", "gs_n6_z05_ode4", 0.002), ("GS N=10", "gs_n10_z05", 0.002),
@@ -145,8 +163,8 @@ def record(runs: str, name: str) -> str:
     return path if os.path.exists(path) else path + ".gz"
 
 
-def tail_stats(rows, key):
-    v = np.array([r[key] for r in rows[-TAIL:]], dtype=np.float64)
+def tail_stats(rows, key, tail=TAIL):
+    v = np.array([r[key] for r in rows[-tail:]], dtype=np.float64)
     return float(v.mean()), float(v.std(ddof=1) / math.sqrt(len(v)))
 
 
@@ -164,18 +182,19 @@ def summarise(runs: str) -> dict:
            "ode_steps": []}
     tails, e_tails = {}, {}
     wall_s = walls(runs)
-    for name, recs, jax_rec, key, (lo, hi), s_bound, s_max in ROWS:
+    for name, recs, jax_rec, key, (lo, hi), s_bound, s_max, tail in ROWS:
         paths = [record(runs, r) for r in recs]
         if not all(os.path.exists(p) for p in paths):
             out["rows"].append({"row": name, "missing": recs})
             continue
         rows = [r for p in paths for r in read(p)]
-        mean, sem = tail_stats(rows, key)
-        jmean, jsem = tail_stats(read(record(runs, jax_rec)), key)
+        mean, sem = tail_stats(rows, key, tail)
+        jmean, jsem = tail_stats(read(record(runs, jax_rec)), key, tail)
         tails[name] = (mean, sem)
-        e_tails[name] = tail_stats(rows, "E")[0]
+        e_tails[name] = tail_stats(rows, "E", tail)[0]
         row = {
-            "row": name, "metric": key, "iterations": rows[-1]["step"],
+            "row": name, "metric": key, "tail": tail,
+            "iterations": rows[-1]["step"],
             "port": mean, "port_sem": sem, "jax": jmean, "jax_sem": jsem,
             "abs_delta": abs(mean - jmean), "bound": [lo, hi],
             "within_bound": lo <= mean <= hi,
@@ -188,8 +207,13 @@ def summarise(runs: str) -> dict:
         }
         if s_bound is not None:
             dS = rows[-1]["S"] - rows[-1]["S_analytical"]
+            tail_dS = [r["S"] - r["S_analytical"] for r in rows[-tail:]]
             row.update(S_minus_S_analytical=dS,
-                       S_within_bound=abs(dS) <= s_bound)
+                       S_within_bound=abs(dS) <= s_bound,
+                       S_minus_S_analytical_tail_mean=float(
+                           np.mean(tail_dS)),
+                       S_minus_S_analytical_tail_std=float(
+                           np.std(tail_dS, ddof=1)))
         if s_max is not None:
             row.update(S=rows[-1]["S"], S_below_max=rows[-1]["S"] < s_max)
         out["rows"].append(row)
@@ -334,7 +358,9 @@ def main():
             continue
         extra = ("" if "S_minus_S_analytical" not in r else
                  f"; S - S_an {r['S_minus_S_analytical']:+.5f} "
-                 f"({'pass' if r['S_within_bound'] else 'FAIL'})")
+                 f"({'pass' if r['S_within_bound'] else 'FAIL'}; over the "
+                 f"tail {r['S_minus_S_analytical_tail_mean']:+.5f}, rows' "
+                 f"std {r['S_minus_S_analytical_tail_std']:.5f})")
         print(f"{r['row']}: {r['metric']} {r['port']:.5f} ± "
               f"{r['port_sem']:.5f} (JAX {r['jax']:.5f} ± {r['jax_sem']:.5f}),"
               f" |delta| {r['abs_delta']:.5f}, bound [{r['bound'][0]:.4f}, "
