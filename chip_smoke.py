@@ -84,11 +84,11 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      E against the Hessian-flow kernels' within a tolerance measured on the
      CPU, 3 iterations of --local-energy nested_jvp (E in (17, 21), kernel
      #1 alone) and 1 at K=1 (#5 alone), at batch 8192 with its peak
-     memory; 2 iterations each at --ode-solver
-     adaptive and adjoint, the adjoint's gradient against the fixed grid's,
-     the --movie frames against generate; the three --no-pallas-* flags
-     launching no kernel, their update against the kernel chain's within
-     phase 5's bounds;
+     memory, through captured chunks; 2 iterations each at --ode-solver
+     adaptive and adjoint (eager), the adjoint's gradient against the fixed
+     grid's, the --movie frames against generate; the three --no-pallas-*
+     flags (captured chunks) launching no kernel, their update against the
+     kernel chain's within phase 5's bounds;
   9. the walker mesh (``parallel/mesh.py``, N=6): (a) the ground-state
      path of phase 4 at 20 iterations with checkpoints every 10, as 2
      ranks of a gloo process group sharing the card (two CLI processes,
@@ -128,8 +128,8 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      2 pi sum r n(r) dr = N x (share inside rmax) to 1e-6 and V_int against
      a float64 recomputation on the same walkers to rtol 1e-5.
  12. the compiled chunk (``train.py``): (a) the captured chunk against the
-     eager one from the same seed, 3 chunks each (the first eager, then two
-     replays): GS N=6 at K=10 (30 iterations) and K=1 (3), finite T N=6 at
+     eager one from the same seed, side by side, 3 chunks each (the first
+     eager, then two replays): GS N=6 at K=10 (30 iterations) and K=1 (3), finite T N=6 at
      K=10 (30), each with persistent walkers and with fresh ones (the CLIs'
      default: every iteration 100 steps at tau 0.1 from Gaussians drawn on
      the card); after every chunk the walkers, tau, the flow's parameters
@@ -153,7 +153,21 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      one the same with no launch of its own but the registered device
      generator's two fills and no host-to-card copy beyond the seed word.
      Lines ``phase 12 timing:`` and ``phase 12 traces:`` hold (b) and (c)
-     as JSON.
+     as JSON.  Then (a)-(c) of the autograd A/B paths, captured as the
+     kernel chain is: (a) GS K=10 and finite T K=10 with every
+     ``--no-pallas-*`` flag, GS K=3 on the nested-jvp engine and GS K=10
+     with ``--no-pallas-reinforce`` alone, 3 chunks captured and eager side
+     by side after each of which every state tensor, Adam, both generators
+     and every metric are bitwise equal, with persistent walkers at batch
+     8192 and with fresh ones at batch 2048; (b) the persistent chunks 2
+     and 3 timed in turns (eager, captured, captured, eager): ms per
+     iteration, captured and eager, median, min and max over 2 chunks
+     each, with the capture's seconds and graph pool; (c) the trace of a
+     replayed chunk 2 of the ``--no-pallas-reinforce`` path, held to one
+     graph launch, no launch but the registered generator's fills, no
+     host-to-card copy but the seed word and no wait before the replay's
+     end.  Lines ``phase 12 A/B timing:`` and ``phase 12 A/B trace:`` hold
+     their (b) and (c).
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -2330,52 +2344,80 @@ def _state_snapshot(state):
     return out
 
 
-def phase_graph_bitwise(device):
-    """Phase 12 (a): the captured chunk against the eager one from the same
-    seed, GRAPH_CHUNKS chunks each: after every chunk every state tensor,
-    Adam's step and moments, the generators and every metric bitwise
-    equal; GS N=6 at K=10 and K=1, finite T N=6 at K=10, each with
-    persistent and with fresh walkers."""
+def _side_by_side(tag, what, argv, finite, K):
+    """GRAPH_CHUNKS chunks of the CLI run ``argv`` captured and eager from
+    the same seed, side by side, each chunk timed as the CLI times it (the
+    chunk and its metrics fetch, over K); the first chunk of each (the
+    warm-up and capture) untimed, the later ones in turns (eager, captured,
+    captured, eager).  Fails unless every state tensor, Adam's step and
+    moments, both generators and every metric are bitwise equal after
+    every chunk (phase 12 ``tag``).  Returns ms per iteration of each
+    side's timed chunks, the capture's seconds and pool, one replay's
+    launches."""
+    import statistics
+
     import torch
 
-    cases = [(what + (" fresh" if not persistent else ""), argv, finite, K)
-             for persistent in (True, False)
-             for what, argv, finite, K in (
-                 ("GS N=6 K=10", path_argv(device, 0, SEGMENTS,
-                                           persistent=persistent), False,
-                  SEGMENTS),
-                 ("GS N=6 K=1", path_argv(device, 0, 1, persistent=persistent),
-                  False, 1),
-                 ("finite T N=6 K=10", beta_argv(device, 0,
-                                                 persistent=persistent),
-                  True, SEGMENTS))]
-    for what, argv, finite, K in cases:
-        runs = {}
-        for graph in (True, False):
-            state, chunk = _path_chunk(argv, finite, K, graph)
-            snaps = []
-            for _ in range(GRAPH_CHUNKS):
-                state, m = chunk(state)
-                snaps.append(dict(_state_snapshot(state),
-                                  **{"metric." + k: v.clone()
-                                     for k, v in m.items()}))
-            torch.cuda.synchronize()
-            runs[graph] = (state, snaps, chunk)
-        bad = sorted({f"{k} (chunk {i + 1})"
-                      for i, (a, b) in enumerate(zip(runs[True][1],
-                                                     runs[False][1]))
-                      for k in a if not torch.equal(a[k].cpu(), b[k].cpu())})
-        chunk = runs[True][2]
-        print(f"phase 12 (a) {what}: {GRAPH_CHUNKS} chunks "
-              f"({GRAPH_CHUNKS * K} iterations; the first eager, then "
-              f"replays), captured against eager: "
-              f"{'bitwise equal' if not bad else bad[:8]}; capture "
-              f"{chunk.capture_seconds:.4f} s, graph pool "
-              f"{chunk.pool_bytes} bytes", flush=True)
-        check(chunk._replay is not None and runs[True][0].step
-              == runs[False][0].step == GRAPH_CHUNKS * K and not bad,
-              f"phase 12 (a) {what}: the captured chunk's state, Adam, "
-              "generators and metrics equal the eager chunk's bitwise")
+    from fermiflow_tpu_torch.utils import MetricsLogger
+
+    runs = {g: list(_path_chunk(argv, finite, K, g)) for g in (True, False)}
+    times, bad = {True: [], False: []}, set()
+    key, finite_rows = ("F" if finite else "E"), True
+    for i in range(GRAPH_CHUNKS):
+        snaps = {}
+        for graph in ((True, False) if i % 2 == 0 else (False, True)):
+            state, chunk = runs[graph]
+            t0 = time.perf_counter()
+            state, m = chunk(state)
+            recs = MetricsLogger(None).log_many(1, m, time.time())
+            if i:
+                times[graph].append(1e3 * (time.perf_counter() - t0) / K)
+            finite_rows &= all(math.isfinite(r[key]) for r in recs)
+            runs[graph][0] = state
+            snaps[graph] = dict(_state_snapshot(state),
+                                **{"metric." + k: v.clone()
+                                   for k, v in m.items()})
+        bad |= {f"{k} (chunk {i + 1})" for k in snaps[True]
+                if not torch.equal(snaps[True][k].cpu(),
+                                   snaps[False][k].cpu())}
+    torch.cuda.synchronize()
+    chunk = runs[True][1]
+    print(f"phase 12 {tag} {what}: {GRAPH_CHUNKS} chunks "
+          f"({GRAPH_CHUNKS * K} iterations; the first eager, then replays), "
+          f"captured against eager: "
+          f"{'bitwise equal' if not bad else sorted(bad)[:8]}; capture "
+          f"{chunk.capture_seconds:.4f} s, graph pool {chunk.pool_bytes} "
+          f"bytes", flush=True)
+    check(chunk._replay is not None and runs[True][0].step
+          == runs[False][0].step == GRAPH_CHUNKS * K and not bad,
+          f"phase 12 {tag} {what}: the captured chunk's state, Adam, "
+          "generators and metrics equal the eager chunk's bitwise")
+    check(finite_rows, f"phase 12 {tag} {what}: every {key} finite")
+    row = {"capture_s": chunk.capture_seconds, "pool_bytes": chunk.pool_bytes,
+           "replay_launches": {k: v for k, v in chunk.launches.items() if v}}
+    for graph, name in ((True, "graphed"), (False, "eager")):
+        t = sorted(times[graph])
+        row[name] = dict(median=statistics.median(t), min=t[0], max=t[-1],
+                         chunks=len(t))
+    return row
+
+
+def phase_graph_bitwise(device):
+    """Phase 12 (a): the captured chunk against the eager one from the same
+    seed, side by side (``_side_by_side``): GS N=6 at K=10 and K=1, finite
+    T N=6 at K=10, each with persistent and with fresh walkers."""
+    for persistent in (True, False):
+        tag = "" if persistent else " fresh"
+        for what, argv, finite, K in (
+                ("GS N=6 K=10", path_argv(device, 0, SEGMENTS,
+                                          persistent=persistent), False,
+                 SEGMENTS),
+                ("GS N=6 K=1", path_argv(device, 0, 1,
+                                         persistent=persistent), False, 1),
+                ("finite T N=6 K=10", beta_argv(device, 0,
+                                                persistent=persistent),
+                 True, SEGMENTS)):
+            _side_by_side("(a)", what + tag, argv, finite, K)
 
 
 def phase_graph_timing(device):
@@ -2447,70 +2489,11 @@ def phase_graph_traces(device, tmp, timing):
     registered device generator's two fills of its seed and offset
     (fresh), and the fresh one no host-to-card copy beyond the seed
     word."""
-    from fermiflow_tpu_torch.cli import finite_t, ground_state
-
     out = {}
     for what, argv, finite, _, traced in _graph_configs(device):
         if not traced:
             continue
-        main = finite_t.main if finite else ground_state.main
-        row, names = {}, {}
-        for name in ("graphed", "eager"):
-            prof = f"{tmp}/{what.replace(' ', '_')}_{name}"
-            with (eager_chunks() if name == "eager"
-                  else contextlib.nullcontext()):
-                _, _, counts, _ = drive_path(
-                    main, argv(GRAPH_TRACE_ITERS) + ["--profile-dir", prof])
-            with open(f"{prof}/summary.json") as fh:
-                summ = json.load(fh)
-            calls = summ["runtime_calls"]
-            row[name] = dict(
-                kernels=summ.get("kernels"),
-                graph_launches=calls["cudaGraphLaunch"],
-                launches=calls["cudaLaunchKernel"]
-                + calls["cudaLaunchKernelExC"],
-                syncs=calls["cudaStreamSynchronize"],
-                idle_share=summ.get("device_idle_share"),
-                busy_ms=summ.get("device_busy_ms"),
-                window_ms=summ["window_ms"],
-                kernel_launches={k: v for k, v in counts.items() if v})
-            with open(f"{prof}/trace.json") as fh:
-                evs = [e for e in json.load(fh)["traceEvents"]
-                       if e.get("ph") == "X"]
-            # Kernels launched on their own (by cudaLaunchKernel, not by
-            # the graph), and the host-to-card copies with their bytes.
-            own = {e.get("args", {}).get("correlation") for e in evs
-                   if e["name"].startswith("cudaLaunchKernel")}
-            row[name]["own_launch_kernels"] = [
-                e["name"][:80] for e in evs if e.get("cat") == "kernel"
-                and e.get("args", {}).get("correlation") in own]
-            row[name]["htod_bytes"] = [
-                e.get("args", {}).get("bytes") for e in evs
-                if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
-            names[name], other = {}, {}
-            for e in evs:
-                if e.get("cat") == "kernel":
-                    names[name][e["name"]] = names[name].get(e["name"], 0) + 1
-                    if not PORT_KERNEL.search(e["name"]):
-                        other[e["name"][:60]] = (other.get(e["name"][:60], 0.0)
-                                                 + float(e["dur"]) / 1e3)
-            row[name]["port_kernels_ms"] = sum(
-                float(e["dur"]) / 1e3 for e in evs if e.get("cat") == "kernel"
-                and PORT_KERNEL.search(e["name"]))
-            row[name]["other_kernels_ms"] = sum(other.values())
-            row[name]["other_kernels_top"] = dict(sorted(
-                other.items(), key=lambda kv: -kv[1])[:5])
-            if name == "graphed":
-                ends = [float(e["ts"]) + float(e["dur"]) for e in evs
-                        if e["name"] == "cudaGraphLaunch"]
-                row[name]["syncs_before_replay_end"] = sum(
-                    1 for e in evs if e["name"] == "cudaStreamSynchronize"
-                    and ends and float(e["ts"]) < max(ends))
-        # Kernels the replay ran more or fewer times than the eager chunk.
-        row["kernel_count_differences"] = {
-            k[:60]: [names["graphed"].get(k, 0), names["eager"].get(k, 0)]
-            for k in sorted(set(names["graphed"]) | set(names["eager"]))
-            if names["graphed"].get(k, 0) != names["eager"].get(k, 0)}
+        row = _trace_row(what, argv, finite, tmp, ("graphed", "eager"))
         row.update(capture_s=timing[what]["capture_s"],
                    pool_bytes=timing[what]["pool_bytes"])
         out[what] = row
@@ -2533,6 +2516,148 @@ def phase_graph_traces(device, tmp, timing):
           "no host-to-card copy beyond the seed word, no wait for the card "
           "before its end")
     return out
+
+
+def _trace_row(what, argv, finite, tmp, modes):
+    """The CLI's ``--profile-dir`` trace of chunk 2 of ``argv`` (at
+    GRAPH_TRACE_ITERS iterations) in each of ``modes`` ("graphed", the
+    default, or "eager"): the counts phase 12 (c) prints."""
+    from fermiflow_tpu_torch.cli import finite_t, ground_state
+
+    main = finite_t.main if finite else ground_state.main
+    row, names = {}, {}
+    for name in modes:
+        prof = f"{tmp}/{what.replace(' ', '_')}_{name}"
+        with (eager_chunks() if name == "eager"
+              else contextlib.nullcontext()):
+            _, _, counts, _ = drive_path(
+                main, argv(GRAPH_TRACE_ITERS) + ["--profile-dir", prof])
+        with open(f"{prof}/summary.json") as fh:
+            summ = json.load(fh)
+        calls = summ["runtime_calls"]
+        row[name] = dict(
+            kernels=summ.get("kernels"),
+            graph_launches=calls["cudaGraphLaunch"],
+            launches=calls["cudaLaunchKernel"]
+            + calls["cudaLaunchKernelExC"],
+            syncs=calls["cudaStreamSynchronize"],
+            idle_share=summ.get("device_idle_share"),
+            busy_ms=summ.get("device_busy_ms"),
+            window_ms=summ["window_ms"],
+            kernel_launches={k: v for k, v in counts.items() if v})
+        with open(f"{prof}/trace.json") as fh:
+            evs = [e for e in json.load(fh)["traceEvents"]
+                   if e.get("ph") == "X"]
+        # Kernels launched on their own (by cudaLaunchKernel, not by
+        # the graph), and the host-to-card copies with their bytes.
+        own = {e.get("args", {}).get("correlation") for e in evs
+               if e["name"].startswith("cudaLaunchKernel")}
+        row[name]["own_launch_kernels"] = [
+            e["name"][:80] for e in evs if e.get("cat") == "kernel"
+            and e.get("args", {}).get("correlation") in own]
+        row[name]["htod_bytes"] = [
+            e.get("args", {}).get("bytes") for e in evs
+            if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
+        names[name], other = {}, {}
+        for e in evs:
+            if e.get("cat") == "kernel":
+                names[name][e["name"]] = names[name].get(e["name"], 0) + 1
+                if not PORT_KERNEL.search(e["name"]):
+                    other[e["name"][:60]] = (other.get(e["name"][:60], 0.0)
+                                             + float(e["dur"]) / 1e3)
+        row[name]["port_kernels_ms"] = sum(
+            float(e["dur"]) / 1e3 for e in evs if e.get("cat") == "kernel"
+            and PORT_KERNEL.search(e["name"]))
+        row[name]["other_kernels_ms"] = sum(other.values())
+        row[name]["other_kernels_top"] = dict(sorted(
+            other.items(), key=lambda kv: -kv[1])[:5])
+        if name == "graphed":
+            ends = [float(e["ts"]) + float(e["dur"]) for e in evs
+                    if e["name"] == "cudaGraphLaunch"]
+            row[name]["syncs_before_replay_end"] = sum(
+                1 for e in evs if e["name"] == "cudaStreamSynchronize"
+                and ends and float(e["ts"]) < max(ends))
+    if len(modes) == 2:
+        # Kernels the replay ran more or fewer times than the eager chunk.
+        row["kernel_count_differences"] = {
+            k[:60]: [names["graphed"].get(k, 0), names["eager"].get(k, 0)]
+            for k in sorted(set(names["graphed"]) | set(names["eager"]))
+            if names["graphed"].get(k, 0) != names["eager"].get(k, 0)}
+    return row
+
+
+# Phase 12 (a)-(c) of the autograd A/B paths, captured like the kernel
+# chain.  A chunk of them is tens of thousands of kernels (the plain
+# samplers and Hessian flow, autograd) whose eager run and capture take
+# seconds of the host's time, so (a) and (b) share their chunks
+# (``_side_by_side``), and the fresh-walker cases, held bitwise only, run
+# at AB_FRESH_BATCH walkers.
+NO_PALLAS = ["--no-pallas-sampler", "--no-pallas-local-energy",
+             "--no-pallas-reinforce"]
+AB_FRESH_BATCH = 2048
+
+
+def _ab_configs(device, persistent=True, batch=BATCH):
+    """(name, CLI argv, finite T, K) of the autograd A/B paths at N=6:
+    GS K=10 and finite T K=10 with every ``--no-pallas-*`` flag, GS K=3 on
+    the nested-jvp engine, GS K=10 with ``--no-pallas-reinforce`` alone
+    (kernels #1-#3, then autograd)."""
+    tag = "" if persistent else f" fresh (batch {batch})"
+    gs = lambda K, extra: path_argv(device, 0, K, batch=batch,
+                                    persistent=persistent) + extra
+    return [
+        ("GS N=6 K=10 --no-pallas-*" + tag, gs(SEGMENTS, NO_PALLAS), False,
+         SEGMENTS),
+        ("GS N=6 K=3 nested-jvp" + tag,
+         gs(3, ["--local-energy", "nested_jvp"]), False, 3),
+        ("finite T N=6 K=10 --no-pallas-*" + tag,
+         beta_argv(device, 0, batch=batch, persistent=persistent)
+         + NO_PALLAS, True, SEGMENTS),
+        ("GS N=6 K=10 --no-pallas-reinforce" + tag,
+         gs(SEGMENTS, ["--no-pallas-reinforce"]), False, SEGMENTS),
+    ]
+
+
+def phase_graph_ab(device, tmp):
+    """Phase 12 (a)-(c) of the autograd A/B paths (``_ab_configs``): (a)
+    bitwise and (b) timed, persistent at batch 8192 (``_side_by_side``), and
+    (a) again with fresh walkers at AB_FRESH_BATCH; (c) the trace of a
+    replayed chunk 2 of the GS ``--no-pallas-reinforce`` path: one graph
+    launch, no launch of its own but the registered device generator's two
+    fills, no host-to-card copy beyond the seed word, no wait for the card
+    before the replay's end.  Returns ((b)'s rows, (c)'s row)."""
+    import torch
+
+    timing = {}
+    for what, argv, finite, K in _ab_configs(device):
+        timing[what] = row = _side_by_side("(a)", what, argv, finite, K)
+        g, e = row["graphed"], row["eager"]
+        print(f"phase 12 (b) {what}: ms per iteration over {g['chunks']} "
+              f"chunks each, captured median {g['median']:.4f} (min "
+              f"{g['min']:.4f}, max {g['max']:.4f}), eager median "
+              f"{e['median']:.4f} (min {e['min']:.4f}, max {e['max']:.4f})",
+              flush=True)
+        torch.cuda.empty_cache()
+    for what, argv, finite, K in _ab_configs(device, False, AB_FRESH_BATCH):
+        _side_by_side("(a)", what, argv, finite, K)
+        torch.cuda.empty_cache()
+    what, argv, finite, _ = _ab_configs(device)[3]
+    row = _trace_row(what, lambda it: argv + ["--iternum", str(it)], finite,
+                     tmp, ("graphed",))
+    print(f"phase 12 (c) {what}: traced chunk 2 ({SEGMENTS} iterations): "
+          f"{json.dumps(row)}", flush=True)
+    g = row["graphed"]
+    fills = g["own_launch_kernels"]
+    check(g["graph_launches"] == 1 and g["syncs_before_replay_end"] == 0
+          and g["kernels"] > 0 and g["launches"] == len(fills) <= 2
+          and all("fill" in k.lower() for k in fills)
+          and all(b is not None and b <= 4 * SEGMENTS
+                  for b in g["htod_bytes"]),
+          f"phase 12 (c) {what}: the replay is one graph launch, no launch "
+          "of its own but the registered device generator's fills, no "
+          "host-to-card copy beyond the seed word, no wait for the card "
+          "before its end")
+    return timing, row
 
 
 def main() -> int:
@@ -2651,7 +2776,13 @@ def main() -> int:
             traces = phase_graph_traces(device, tmp12, timing)
         print("phase 12 timing: " + json.dumps(timing))
         print("phase 12 traces: " + json.dumps(traces))
-        print(f"phase 12: {time.perf_counter() - t12:.1f} s")
+        t12ab = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp12:
+            ab_timing, ab_trace = phase_graph_ab(device, tmp12)
+        print("phase 12 A/B timing: " + json.dumps(ab_timing))
+        print("phase 12 A/B trace: " + json.dumps(ab_trace))
+        print(f"phase 12: {time.perf_counter() - t12:.1f} s (the A/B "
+              f"paths {time.perf_counter() - t12ab:.1f} s)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -57,7 +57,7 @@ import torch
 from fermiflow_tpu_torch.ops import _build
 from fermiflow_tpu_torch.ops.logdet import logabsdet
 from fermiflow_tpu_torch.parallel.mesh import sampler_rows
-from fermiflow_tpu_torch.physics.orbitals import hermite_functions
+from fermiflow_tpu_torch.physics.orbitals import device_table, hermite_functions
 from fermiflow_tpu_torch.physics.slater import slater_matrix_qnums
 
 __all__ = ["metropolis_chains", "metropolis_chains_plain",
@@ -142,8 +142,8 @@ def slater_logp_qn(x: torch.Tensor, nx: tuple, ny: tuple, nup: int,
     gauss = torch.exp(-0.5 * torch.sum(x * x, dim=-1)) * float(1 / np.sqrt(np.pi))
     hx = hermite_functions(x[..., 0], num_shells)
     hy = hermite_functions(x[..., 1], num_shells)
-    ix = torch.as_tensor(nx, dtype=torch.long, device=x.device)
-    iy = torch.as_tensor(ny, dtype=torch.long, device=x.device)
+    ix = device_table(nx, torch.long, x.device)
+    iy = device_table(ny, torch.long, x.device)
     D = gauss[..., None] * hx[..., ix] * hy[..., iy]
     up = torch.arange(n, device=x.device) < nup
     same = (up[:, None] == up[None, :]).to(x.dtype)

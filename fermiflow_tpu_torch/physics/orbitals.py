@@ -12,7 +12,26 @@ import itertools
 import numpy as np
 import torch
 
-__all__ = ["hermite_functions", "HO2D"]
+__all__ = ["hermite_functions", "HO2D", "device_table"]
+
+_TABLES: dict = {}
+
+
+def device_table(values, dtype: torch.dtype, device) -> torch.Tensor:
+    """``values`` (an array or a sequence) as a tensor on ``device``, made
+    once for each distinct content: a copy from the host to the card waits
+    for the card, which a chunk being captured as a CUDA graph cannot do.
+    Made outside any ``torch.func`` transform (the nested-jvp engine calls
+    this under ``vmap`` and ``jvp``, whose levels would otherwise wrap the
+    tensor kept for later calls).  Callers read it and never write it."""
+    a = np.ascontiguousarray(values)
+    key = (a.dtype.str, a.shape, a.tobytes(), dtype, torch.device(device))
+    table = _TABLES.get(key)
+    if table is None:
+        with torch._C._DisableFuncTorch():
+            table = torch.tensor(a, dtype=dtype, device=device)
+        _TABLES[key] = table
+    return table
 
 
 def hermite_functions(x: torch.Tensor, num: int) -> torch.Tensor:
@@ -89,8 +108,8 @@ class HO2D:
         gauss = torch.exp(-0.5 * torch.sum(x**2, dim=-1)) * float(1 / np.sqrt(np.pi))
         hx = hermite_functions(x[..., 0], self.num_shells)
         hy = hermite_functions(x[..., 1], self.num_shells)
-        ix = torch.as_tensor(self.nx[orb_indices], dtype=torch.long, device=x.device)
-        iy = torch.as_tensor(self.ny[orb_indices], dtype=torch.long, device=x.device)
+        ix = device_table(self.nx[orb_indices], torch.long, x.device)
+        iy = device_table(self.ny[orb_indices], torch.long, x.device)
         return gauss[..., None] * hx[..., ix] * hy[..., iy]
 
     def fermion_states(self, nup: int, ndown: int, deltaE: float):

@@ -12,7 +12,11 @@ import numpy as np
 import torch
 
 from fermiflow_tpu_torch.ops.logdet import gauss_jordan_inv, logabsdet
-from fermiflow_tpu_torch.physics.orbitals import HO2D, hermite_functions
+from fermiflow_tpu_torch.physics.orbitals import (
+    HO2D,
+    device_table,
+    hermite_functions,
+)
 
 __all__ = [
     "slater_matrix",
@@ -40,11 +44,11 @@ def _ho1d_val_d1_d2(u: torch.Tensor, num: int):
     psi_ext = gauss[..., None] * h
     psi = psi_ext[..., :num]
     m = np.arange(num)
-    lo = torch.as_tensor(np.sqrt(m / 2.0), dtype=u.dtype, device=u.device)
-    hi = torch.as_tensor(np.sqrt((m + 1) / 2.0), dtype=u.dtype, device=u.device)
+    lo = device_table(np.sqrt(m / 2.0), u.dtype, u.device)
+    hi = device_table(np.sqrt((m + 1) / 2.0), u.dtype, u.device)
     psi_m1 = torch.cat([torch.zeros_like(psi[..., :1]), psi[..., :-1]], dim=-1)
     dpsi = lo * psi_m1 - hi * psi_ext[..., 1:]
-    two_m1 = torch.as_tensor(2 * m + 1, dtype=u.dtype, device=u.device)
+    two_m1 = device_table(2 * m + 1, u.dtype, u.device)
     d2psi = (u[..., None] ** 2 - two_m1) * psi
     return psi, dpsi, d2psi
 
@@ -68,8 +72,8 @@ def slater_derivs(orbitals: HO2D, occ, x: torch.Tensor):
     """Slater matrix D (..., n, n) and its per-row coordinate derivatives
     D1 (..., n, n, 2), D2 (..., n, n, 2, 2), closed form."""
     occ = np.asarray(occ, dtype=np.int64)
-    nx = torch.as_tensor(orbitals.nx[occ], dtype=torch.long, device=x.device)
-    ny = torch.as_tensor(orbitals.ny[occ], dtype=torch.long, device=x.device)
+    nx = device_table(orbitals.nx[occ], torch.long, x.device)
+    ny = device_table(orbitals.ny[occ], torch.long, x.device)
     K = orbitals.num_shells
     vx, dvx, d2vx = _ho1d_val_d1_d2(x[..., 0], K)
     vy, dvy, d2vy = _ho1d_val_d1_d2(x[..., 1], K)
@@ -83,14 +87,14 @@ def walker_qnums(orbitals: HO2D, occ_table, state_idx: torch.Tensor):
     """Per-walker 1D quantum numbers (nx, ny), each ``state_idx.shape + (n,)``
     long, of the orbitals ``occ_table[state_idx]`` occupies."""
     dev = state_idx.device
-    table = torch.as_tensor(np.asarray(occ_table), dtype=torch.long, device=dev)
+    table = device_table(occ_table, torch.long, dev)
     # index_select, not table[state_idx]: indexing by a 0-d tensor reads it
     # on the host, which torch.func.vmap cannot do over walkers.
     idx = state_idx.long()
     occ = table.index_select(0, idx.reshape(-1)).reshape(
         idx.shape + table.shape[1:])
-    nx = torch.as_tensor(orbitals.nx, dtype=torch.long, device=dev)[occ]
-    ny = torch.as_tensor(orbitals.ny, dtype=torch.long, device=dev)[occ]
+    nx = device_table(orbitals.nx, torch.long, dev)[occ]
+    ny = device_table(orbitals.ny, torch.long, dev)[occ]
     return nx, ny
 
 

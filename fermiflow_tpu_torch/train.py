@@ -20,26 +20,31 @@ x = flow(z) and autograd of the nested-jvp ``loss_and_metrics``; and with
 ``cfg.pallas_local_energy`` or ``cfg.pallas_reinforce`` off (the CLI's
 ``--no-pallas-*``) autograd of ``loss_and_metrics_from_base``, Eloc from
 the kernel chain or the plain Hessian flow.  ``cfg.pallas_sampler`` off
-runs the plain samplers.  The sampler kernels draw z on every other path.
+runs the plain samplers, which draw from the state's device generator.
+The sampler kernels draw z on every other path.  The autograd paths write
+their gradients into the parameters' ``.grad`` tensors as the kernel chain
+does.
 
 Every builder takes ``graph``, the counterpart of the JAX builders' ``jit``
 (with ``donate_argnums=0``): a chunk of K iterations becomes ONE CUDA graph
 per chunk length, captured over the state's own tensors and replayed for
 every later chunk of that length.  The chunk's body updates the state in
-place (walkers, tau, states and their probabilities by ``copy_``, the
-kernel chain's gradients into the parameters' ``.grad`` tensors, Adam with
+place (walkers, tau, states and their probabilities by ``copy_``, every
+path's gradients into the parameters' ``.grad`` tensors, Adam with
 ``capturable=True`` on the card, eager or captured alike), so a replayed
 chunk and an eager one leave the same bits.  Between replays the host
 draws the chunk's sampler seeds from the host generator, as the eager
 chunk does and in its order, and copies them into the static seed buffer
-the sampler kernels read (``ops/metropolis.py``); fresh walkers and the
-finite-T states come from the state's device generator, which the graph
-registers, so a replay draws where the eager chunk draws.  The first chunk
-of each length runs eagerly, on a side stream, as the trajectory's own
-chunk (on an NCCL mesh its collectives make the communicator); the capture
-that follows records and runs nothing.  ``graph=None`` captures where the
-state lies on the card and the path can be: the kernel chain, persistent or
-fresh walkers, no mesh or one without gloo, the fixed-grid solver.
+the sampler kernels read (``ops/metropolis.py``); fresh walkers, the
+finite-T states and the plain samplers' noise come from the state's device
+generator, which the graph registers, so a replay draws where the eager
+chunk draws.  The first chunk of each length runs eagerly, on a side
+stream, as the trajectory's own chunk (on an NCCL mesh its collectives
+make the communicator); the capture that follows records and runs
+nothing.  ``graph=None`` captures where the
+state lies on the card and the path can be: every update path (the kernel
+chain, ``--no-pallas-*``, the nested-jvp engine), persistent or fresh
+walkers, no mesh or one without gloo, the fixed-grid solver.
 ``graph=True`` raises ``ValueError`` elsewhere; those paths stay eager.
 The kernels' launch counts (``ops/_build.py``) and the mesh's collectives
 are taken at capture and added once per replay.
@@ -196,17 +201,21 @@ def _apply_grads(state: TrainState, grads: dict) -> None:
 
 def _autograd_step(state: TrainState, loss: torch.Tensor,
                    mesh=None) -> torch.Tensor:
-    """Adam on the gradient that autograd takes of ``loss``; with ``mesh``
-    ``loss`` is this rank's share, and every parameter's gradient and the
-    loss are summed over ranks (one collective) before the step."""
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    params = [p for g in state.optimizer.param_groups for p in g["params"]
-              if p.grad is not None]
-    *grads, loss = all_sum_tensors(mesh, *(p.grad for p in params),
-                                   loss.detach())
+    """Adam on the gradient that autograd takes of ``loss``, written into
+    the parameters' own ``.grad`` tensors (``_set_grad``, as the kernel
+    chain's), so that a captured chunk reads and writes the same tensors
+    at every replay; with ``mesh`` ``loss`` is this rank's share, and every
+    parameter's gradient and the loss are summed over ranks (one
+    collective) before the step.  A parameter ``loss`` does not reach keeps
+    no gradient, and Adam leaves it as it is."""
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    *grads, loss = all_sum_tensors(mesh, *grads, loss.detach())
     for p, g in zip(params, grads):
-        p.grad = g
+        if g is None:
+            p.grad = None
+        else:
+            _set_grad(p, g)
     state.optimizer.step()
     return loss
 
@@ -278,12 +287,20 @@ def _chain_start(state: TrainState, cfg: Config, mesh=None):
             torch.full_like(state.tau, cfg.tau))
 
 
-def _fresh_generators(cfg: Config):
+def _chunk_generators(cfg: Config):
     """``generators(state)`` of a ground-state chunk: the device generator
-    where fresh walkers are drawn from it."""
-    if cfg.persistent_walkers:
+    where the body draws from it (fresh walkers, or the plain samplers'
+    noise)."""
+    if cfg.persistent_walkers and cfg.pallas_sampler:
         return lambda state: ()
     return lambda state: (state.device_generator,)
+
+
+def _plain_draws(cfg: Config, state: TrainState) -> dict:
+    """The plain samplers' stream (``--no-pallas-sampler``): the state's
+    device generator, which a captured chunk registers (a generator seeded
+    from the seed word would read it on the host)."""
+    return {} if cfg.pallas_sampler else {"generator": state.device_generator}
 
 
 def _new_seed(state: TrainState) -> int:
@@ -303,7 +320,7 @@ def _end_iteration(state: TrainState, cfg: Config, z: torch.Tensor,
 # ---- chunks: eager, or one captured CUDA graph ----
 
 
-def _capture_refusal(cfg: Config, cnf, mesh) -> str | None:
+def _capture_refusal(cfg: Config, mesh) -> str | None:
     """Why the chunks of ``cfg``'s path cannot be captured as a CUDA graph
     (they stay eager), or None."""
     if torch.device(cfg.device).type != "cuda":
@@ -311,11 +328,6 @@ def _capture_refusal(cfg: Config, cnf, mesh) -> str | None:
     if mesh is not None and mesh.backend == "gloo":
         return ("a gloo walker mesh: its sums go through the host, which "
                 "waits for the card")
-    if not (cfg.pallas_sampler and cfg.pallas_local_energy
-            and cfg.pallas_reinforce):
-        return "--no-pallas-*: the plain versions and autograd stay eager"
-    if not _use_hessian_flow(cfg, cnf):
-        return "the nested-jvp engine (autograd) stays eager"
     if cfg.ode_solver != "fixed":
         return (f"the {cfg.ode_solver} solver: its launches depend on the "
                 "data")
@@ -498,7 +510,7 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,
             ny_occ=ny_up, nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
             target=cfg.tau_target_accept, gain=cfg.tau_gain,
             reinit=not cfg.persistent_walkers,
-            **sampler_rows(mesh, z0.shape[1]))
+            **sampler_rows(mesh, z0.shape[1]), **_plain_draws(cfg, state))
         accept = walker_mean(mesh, rates)  # (K,)
         rows = []
         for k in range(K):
@@ -509,8 +521,8 @@ def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,
             state.tau.copy_(tau_out)
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
-    return _Chunk(body, 1, K, _capture_refusal(cfg, model.cnf, mesh), graph,
-                  _fresh_generators(cfg), mesh)
+    return _Chunk(body, 1, K, _capture_refusal(cfg, mesh), graph,
+                  _chunk_generators(cfg), mesh)
 
 
 def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None,
@@ -530,13 +542,13 @@ def make_gs_train_step(model: GSVMC, cfg: Config, mesh=None,
         z, _, acc = single(
             z0, tau, s, steps=n_steps, nx_occ=nx_up, ny_occ=ny_up,
             nx_dn=nx_dn, ny_dn=ny_dn, num_shells=kshells,
-            **sampler_rows(mesh, z0.shape[1]))
+            **sampler_rows(mesh, z0.shape[1]), **_plain_draws(cfg, state))
         loss, metrics = update(state, z)
         _end_iteration(state, cfg, z, acc)
         return dict(metrics, accept_rate=walker_mean(mesh, acc), loss=loss)
 
-    return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph,
-                  _fresh_generators(cfg), mesh)
+    return _Chunk(body, 1, 1, _capture_refusal(cfg, mesh), graph,
+                  _chunk_generators(cfg), mesh)
 
 
 def make_multi_step(step_fn: _Chunk, steps_per_call: int,
@@ -686,7 +698,8 @@ def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None,
         nx_cm, ny_cm = model.qnums_cm(state_idx)
         z, _, acc = sampler(
             z0, tau, s, steps=n_steps, nx_cm=nx_cm, ny_cm=ny_cm,
-            num_shells=kshells, **sampler_rows(mesh, z0.shape[1]))
+            num_shells=kshells, **sampler_rows(mesh, z0.shape[1]),
+            **_plain_draws(cfg, state))
         loss, metrics = update(state, state_idx, z)
         state.state_idx.copy_(state_idx)
         state.sample_probs.copy_(probs)
@@ -696,5 +709,5 @@ def make_beta_train_step(model: BetaVMC, cfg: Config, mesh=None,
             metrics["state_switch_frac"] = switch_frac
         return metrics
 
-    return _Chunk(body, 1, 1, _capture_refusal(cfg, model.cnf, mesh), graph,
+    return _Chunk(body, 1, 1, _capture_refusal(cfg, mesh), graph,
                   lambda state: (state.device_generator,), mesh)

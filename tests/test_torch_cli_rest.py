@@ -128,12 +128,21 @@ def _one_iteration(tmp_path, name, flags, finite=False):
     ["--no-pallas-sampler", "--no-pallas-local-energy",
      "--no-pallas-reinforce"],
 ])
-def test_no_pallas_switches_take_the_plain_paths(tmp_path, flags, finite):
+def test_no_pallas_switches_take_the_plain_paths(tmp_path, monkeypatch,
+                                                 flags, finite):
     """On the CPU every wrapper already runs its plain version, so the
-    sampler switch changes nothing; the other two trade the closed-form
-    adjoint for autograd of the reverse-ODE logp, which agrees with it up to
-    the fixed grid's reversal error."""
-    base, rec = _one_iteration(tmp_path, "base", [], finite)
+    sampler switch changes nothing but the stream the plain samplers draw
+    from, the state's device generator (the base run's wrappers are handed
+    the same generator here, which a wrapper accepts on the CPU); the other
+    two trade the closed-form adjoint for autograd of the reverse-ODE logp,
+    which agrees with it up to the fixed grid's reversal error."""
+    from fermiflow_tpu_torch import train
+
+    with monkeypatch.context() as m:
+        if "--no-pallas-sampler" in flags:
+            m.setattr(train, "_plain_draws", lambda cfg, state: {
+                "generator": state.device_generator})
+        base, rec = _one_iteration(tmp_path, "base", [], finite)
     off, rec_off = _one_iteration(tmp_path, "off", flags, finite)
     for k in ("E", "E_std", "accept_rate") + (("F", "S") if finite else ()):
         np.testing.assert_allclose(rec_off[k], rec[k], rtol=1e-12)

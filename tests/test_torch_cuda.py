@@ -509,6 +509,40 @@ def test_captured_chunk_replays_the_eager_chunk_bitwise(cuda, finite, K,
         _bitwise(a, b)
 
 
+# The autograd A/B paths at K = 3: (finite T, the flags).
+NO_PALLAS = dict(pallas_sampler=False, pallas_local_energy=False,
+                 pallas_reinforce=False)
+AB_PATHS = {"no_pallas": (False, NO_PALLAS),
+            "nested_jvp": (False, dict(local_energy="nested_jvp")),
+            "no_pallas_beta": (True, NO_PALLAS),
+            "no_pallas_reinforce": (False, dict(pallas_reinforce=False))}
+
+
+@pytest.mark.parametrize("persistent", [True, False],
+                         ids=["persistent", "fresh"])
+@pytest.mark.parametrize("path", list(AB_PATHS))
+def test_captured_ab_chunk_replays_the_eager_chunk_bitwise(cuda, path,
+                                                           persistent):
+    """The autograd A/B paths (``--no-pallas-*`` at GS and finite T, the
+    nested-jvp engine, ``--no-pallas-reinforce`` alone), three chunks of 3
+    captured against three eager ones, persistent and fresh: the state,
+    Adam, both generators and every metric bitwise, and the same kernel
+    launches (none where every flag is off)."""
+    finite, kw = AB_PATHS[path]
+    cfg = _graph_cfg(finite, 3, persistent_walkers=persistent, **kw)
+    _build.reset_launch_counts()
+    s_g, m_g, chunk = _graph_run(finite, 3, True, 3, cfg=cfg)
+    counts = dict(_build.LAUNCHES)
+    _build.reset_launch_counts()
+    s_e, m_e, _ = _graph_run(finite, 3, False, 3, cfg=cfg)
+    assert counts == _build.LAUNCHES
+    assert (sum(counts.values()) == 0) == (kw is NO_PALLAS)
+    assert chunk._replay is not None and s_g.step == s_e.step == 9
+    _bitwise(_state_tensors(s_g), _state_tensors(s_e))
+    for a, b in zip(m_g, m_e):
+        _bitwise(a, b)
+
+
 def test_eager_checkpoint_restores_into_the_captured_chunk(cuda, tmp_path):
     """A checkpoint of an eager run, once as saved and once with Adam's step
     count on the CPU (as a non-capturable Adam saves it), restored into a

@@ -126,6 +126,14 @@ def test_plain_samplers_take_an_int_or_a_tensor_seed(entry):
 # ---- the captured chunk's host side, with a stand-in capture ----
 
 
+# The autograd A/B paths: the CLI's --no-pallas-* flags, the nested-jvp
+# engine, and --no-pallas-reinforce alone (kernels #1-#3, then autograd).
+AB_FLAGS = {"no_pallas": dict(pallas_sampler=False, pallas_local_energy=False,
+                              pallas_reinforce=False),
+            "nested_jvp": dict(local_energy="nested_jvp"),
+            "no_pallas_reinforce": dict(pallas_reinforce=False)}
+
+
 def small_cfg(finite, K, **kw):
     cfg = Config(**{**dict(nup=3, batch=32, d_eta=8, d_mu=8, ode_steps=2,
                            mcmc_steps=5, dtype="float64",
@@ -136,15 +144,17 @@ def small_cfg(finite, K, **kw):
     return cfg
 
 
-def small_run(kind, graphed, chunks=4, persistent=True, mesh=None):
+def small_run(kind, graphed, chunks=4, persistent=True, mesh=None,
+              path=None):
     """``chunks`` chunks of the GS fused chunk (K = 3), the GS step
     (K = 1) or the finite-T multi-step (K = 3) from a fresh float64 state
-    at N = 3, with persistent or fresh walkers, on ``mesh``; ``graphed``:
-    through the captured chunk's host side, the capture replaced by a
-    stand-in that runs nothing and replays by running the body again."""
+    at N = 3, with persistent or fresh walkers, on ``mesh``, on the kernel
+    chain or an A/B ``path`` (``AB_FLAGS``); ``graphed``: through the
+    captured chunk's host side, the capture replaced by a stand-in that
+    runs nothing and replays by running the body again."""
     finite, K = kind == "beta", 1 if kind == "single" else 3
     cfg = small_cfg(finite, K, persistent_walkers=persistent,
-                    equilibrium_steps=6)
+                    equilibrium_steps=6, **AB_FLAGS.get(path, {}))
     cpu = torch.device("cpu")
     if finite:
         model, params = common.build_beta(cfg)
@@ -214,6 +224,63 @@ def test_captured_chunk_host_side_is_the_eager_chunk_bitwise(monkeypatch,
             assert torch.equal(r_g[k], r_e[k]), k
 
 
+@pytest.mark.parametrize("path,kind,persistent", [
+    ("no_pallas", "fused", True), ("no_pallas", "beta", False),
+    ("nested_jvp", "single", True), ("nested_jvp", "single", False),
+    ("no_pallas_reinforce", "beta", True),
+    ("no_pallas_reinforce", "fused", False)])
+def test_captured_ab_chunk_host_side_is_the_eager_chunk_bitwise(
+        monkeypatch, path, kind, persistent):
+    """The autograd A/B paths through the captured chunk's host side (the
+    stand-in capture as above) against the eager chunk, 3 chunks each (2,
+    the warm-up and one replay, on the slow nested-jvp engine): every
+    state tensor, Adam, both generators and every metric bitwise.  Each
+    path runs persistent and fresh, and each chunk kind twice.  The graph
+    registers the device generator wherever the body draws from it: fresh
+    walkers, finite-T states, the plain samplers."""
+    monkeypatch.setattr(train, "_on_side_stream", lambda fn, device: fn())
+    registered = []
+    monkeypatch.setattr(train, "_capture", lambda fn, device, generators=(): (
+        registered.append(tuple(generators)), (fn, 0.0, 0))[1])
+    chunks = 2 if path == "nested_jvp" else 3
+    s_g, rows_g, chunk = small_run(kind, True, chunks, persistent, path=path)
+    s_e, rows_e, _ = small_run(kind, False, chunks, persistent, path=path)
+    draws = kind == "beta" or not persistent or path == "no_pallas"
+    assert registered == [(s_g.device_generator,) if draws else ()]
+    assert chunk._replay is not None and s_g.step == s_e.step
+    a, b = state_tensors(s_g), state_tensors(s_e)
+    assert a.keys() == b.keys()
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+    for r_g, r_e in zip(rows_g, rows_e):
+        assert r_g.keys() == r_e.keys()
+        for k in r_g:
+            assert torch.equal(r_g[k], r_e[k]), k
+
+
+@pytest.mark.parametrize("kind", ["fused", "single", "beta"])
+def test_plain_samplers_draw_from_the_device_generator(monkeypatch, kind):
+    """``--no-pallas-sampler``: the plain samplers draw from the state's
+    device generator, not from a generator seeded with the chunk's seed
+    word (which they would read on the host), so the walkers do not
+    depend on the host's seeds, and the host generator still draws one
+    seed an iteration, as on the kernel path."""
+    runs = []
+    for seed in (lambda state: 11, lambda state: 12):
+        monkeypatch.setattr(train, "_new_seed", seed)
+        s, _, _ = small_run(kind, False, 1, path="no_pallas")
+        runs.append(s)
+    assert torch.equal(runs[0].walkers_cm, runs[1].walkers_cm)
+    assert torch.equal(runs[0].device_generator.get_state(),
+                       runs[1].device_generator.get_state())
+    monkeypatch.undo()
+    s, _, _ = small_run(kind, False, 1, path="no_pallas")
+    k, _, _ = small_run(kind, False, 1)
+    assert not torch.equal(s.device_generator.get_state(),
+                           k.device_generator.get_state())
+    assert torch.equal(s.generator.get_state(), k.generator.get_state())
+
+
 def test_captured_chunk_refuses_a_replaced_state_tensor(monkeypatch):
     """A replay reads the tensors it captured: after one of them is
     replaced (as Adam's state is by a restore) the chunk raises instead of
@@ -234,20 +301,17 @@ def gloo_mesh():
 
 
 @pytest.mark.parametrize("case", ["cpu", "cpu_state", "gloo_mesh",
-                                  "no_pallas_reinforce", "nested_jvp",
-                                  "adaptive"])
+                                  "adaptive", "adjoint"])
 def test_graph_true_refuses_the_paths_that_stay_eager(case):
     """``graph=True`` raises ``ValueError`` saying why on every path that
     cannot be captured (the default leaves them eager): the CPU, a gloo
-    walker mesh, ``--no-pallas-reinforce``, the nested-jvp engine and the
-    adaptive solver; for each builder."""
-    kw = {"no_pallas_reinforce": dict(pallas_reinforce=False),
-          "nested_jvp": dict(local_energy="nested_jvp"),
-          "adaptive": dict(ode_solver="adaptive")}.get(case, {})
+    walker mesh and the adaptive and adjoint solvers; for each chunk."""
+    kw = {"adaptive": dict(ode_solver="adaptive"),
+          "adjoint": dict(ode_solver="adjoint")}.get(case, {})
     match = {"cpu": "--device cpu", "cpu_state": "the state lies on the CPU",
              "gloo_mesh": "gloo walker mesh",
-             "no_pallas_reinforce": "no-pallas", "nested_jvp": "nested-jvp",
-             "adaptive": "adaptive solver"}[case]
+             "adaptive": "adaptive solver",
+             "adjoint": "adjoint solver"}[case]
     gs_model, gs_params = common.build_gs(small_cfg(False, 2))
     beta_model, beta_params = common.build_beta(small_cfg(True, 2))
     cfg = small_cfg(False, 2, **kw)
@@ -282,18 +346,20 @@ def nccl_mesh(monkeypatch):
     return WalkerMesh(0, 1, torch.device("cpu"), object(), "nccl")
 
 
-@pytest.mark.parametrize("case", ["fresh", "mesh", "nccl_mesh"])
+@pytest.mark.parametrize("case", ["fresh", "mesh", "nccl_mesh",
+                                  "no_pallas_reinforce", "nested_jvp"])
 def test_graph_true_accepts_fresh_walkers_and_meshes_without_gloo(
         monkeypatch, case):
-    """Fresh walkers (drawn on the card), a mesh without a process group
-    and an NCCL mesh are captured: ``graph=True`` builds each chunk, and no
+    """Fresh walkers (drawn on the card), a mesh without a process group,
+    an NCCL mesh, ``--no-pallas-reinforce`` and the nested-jvp engine (the
+    autograd paths) are captured: ``graph=True`` builds each chunk, and no
     builder gives a reason to stay eager."""
     gs_model, _ = common.build_gs(small_cfg(False, 2))
     beta_model, _ = common.build_beta(small_cfg(True, 2))
     cfg = small_cfg(False, 2, persistent_walkers=case != "fresh",
-                    device="cuda")
-    mesh = {"fresh": None, "mesh": make_walker_mesh(torch.device("cpu")),
-            "nccl_mesh": nccl_mesh(monkeypatch)}[case]
+                    device="cuda", **AB_FLAGS.get(case, {}))
+    mesh = {"mesh": make_walker_mesh(torch.device("cpu")),
+            "nccl_mesh": nccl_mesh(monkeypatch)}.get(case)
     chunks = [
         train.make_gs_fused_multi_step(gs_model, cfg, 2, mesh, True),
         train.make_multi_step(

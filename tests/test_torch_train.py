@@ -342,3 +342,65 @@ def test_entry_points_raise_without_cuda_unless_cpu_is_asked(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ground_state.main(CLI_SMALL)
     assert fermiflow_tpu_torch.resolve_device("cpu").type == "cpu"
+
+
+def _old_autograd_step(state, loss):
+    """The autograd step as it was before it kept its gradient tensors:
+    new ``.grad`` tensors from ``backward``, then Adam (no mesh)."""
+    state.optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    state.optimizer.step()
+    return loss.detach()
+
+
+@pytest.mark.parametrize("finite", [False, True], ids=["gs", "beta"])
+def test_autograd_step_is_the_backward_step_bitwise_and_keeps_its_grads(
+        finite):
+    """``train._autograd_step`` (``torch.autograd.grad`` into the
+    parameters' own ``.grad`` tensors, then Adam) against ``zero_grad``,
+    ``backward`` and Adam, in float64 on the CPU, three steps of the
+    ``--no-pallas-*`` loss: every parameter, Adam's moments and step and
+    the loss bitwise; and from the first step on every ``.grad`` is the
+    same tensor (its ``data_ptr``), which a captured chunk reads again at
+    each replay."""
+    from fermiflow_tpu_torch import train
+
+    cfg = Config(nup=3, batch=B, d_eta=8, d_mu=8, ode_steps=STEPS,
+                 dtype="float64", device="cpu", lr=LR, Z=0.5)
+    cpu = torch.device("cpu")
+    if finite:
+        cfg.beta, cfg.deltaE, cfg.boltzmann = 2.0, 2.0, True
+        model, params = common.build_beta(cfg)
+        init = train.init_beta_state
+    else:
+        model, params = common.build_gs(cfg)
+        init = train.init_gs_state
+    new, old = init(model, params, cfg, cpu), init(model, params, cfg, cpu)
+    z = torch.as_tensor(walkers(70, B, 3))
+    idx = new.state_idx
+
+    def loss(state):
+        if finite:
+            return model.loss_and_metrics_from_base(state.params, idx, z)[0]
+        return model.loss_and_metrics_from_base(state.params, z)[0]
+
+    ptrs = None
+    for _ in range(3):
+        l_new = train._autograd_step(new, loss(new))
+        l_old = _old_autograd_step(old, loss(old))
+        assert torch.equal(l_new, l_old)
+        grads = [p.grad for g in new.optimizer.param_groups
+                 for p in g["params"]]
+        assert all(g is not None for g in grads)
+        now = [g.data_ptr() for g in grads]
+        assert ptrs is None or now == ptrs
+        ptrs = now
+    for (k, a), (_, b) in zip(new.flow.named_parameters(),
+                              old.flow.named_parameters()):
+        assert torch.equal(a, b), k
+    if finite:
+        assert torch.equal(new.log_state_weights, old.log_state_weights)
+    for sa, sb in zip(new.optimizer.state.values(),
+                      old.optimizer.state.values()):
+        for k in sa:
+            assert torch.equal(sa[k], sb[k]), k

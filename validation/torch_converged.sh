@@ -21,7 +21,9 @@
 # ROW: gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet
 # gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20
 # beta_n6_z40 beta_n6_z80 beta_n3_b10 gs_n3_fresh gs_n6_fresh
-# gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh xover odesteps eval
+# gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh gs_n6_z40_fresh
+# gs_n6_z80_fresh beta_n6_b10_fresh beta_n6_b40_fresh beta_n3_z05 xover
+# odesteps eval
 # (default: all of them, in that order); eval_z80 is eval at the Z = 8 checkpoint alone;
 # gs_n6_graph (not in the default) is gs_n6 again into records of its own,
 # torch_gs_n6_z05_ode4_graph*: the row retrained through the CLI's
@@ -37,6 +39,21 @@
 # 0.002; GS N = 6, Z = 0.5 0.005; Z = 1 0.006; Z = 2 0.010; finite T
 # N = 6 (beta 2, deltaE 2, Boltzmann) F 0.005 and |S - S_an| <= 0.02 on
 # the last row (validation/torch_converged_summary.py).
+# gs_n6_z40_fresh gs_n6_z80_fresh beta_n6_b10_fresh beta_n6_b40_fresh
+# beta_n3_z05 (in the default, after beta_n6_fresh) retrain the JAX
+# package's last five training records: the fresh protocol at Z = 4 and 8
+# (3000 iterations) and at beta = 1 and 4 (Z = 0.5, deltaE 2, Boltzmann,
+# 2000), each row first checked at step 1 (10 iterations of its flags at
+# the identity flow into torch_<record>_step1.jsonl: E within 0.1 of the
+# JAX record's step 1, which confirms Z, or the row is not trained); and
+# the persistent finite-T run at N = 3, beta 2, deltaE 2, Z = 0.5,
+# Boltzmann, batch 8192, ode 4 (the JAX Config default; its record does
+# not say), 3000 at 3e-3 + 1000 at 1e-3 (docs/VALIDATION.md:168-173).
+# Bounds on the last-500 means, fixed before the runs: GS Z = 4 0.018,
+# Z = 8 0.033; beta = 1 F 0.010, beta = 4 F 0.005, each with the tail
+# mean of S - S_an within 0.005 of 0; N = 3 F 0.002 and within 0.004 of
+# the reference's 5.5264, the last row's |S - S_an| <= 0.02 and the tail
+# mean of S - S_an within 0.005 of the JAX record's.
 # xover and odesteps retrain gs_n6 first when $CK lacks its checkpoint.
 # Records go to $OUT (validation/runs), each run's wall seconds to
 # $OUT/torch_converged_wall.jsonl, checkpoints to $CK (validation/ck), logs
@@ -115,6 +132,32 @@ fresh () {  # fresh <cli> <record> <iters> <row flags...>: the CLIs'
   train "$1" "$2" "$3" 0 --batch 8192 --ode-steps 8 "${@:4}"
 }
 
+step1 () {  # step1 <cli> <record> <JAX step-1 E> <row flags...>: 10
+  # iterations of fresh's protocol at the identity flow; true when step
+  # 1's E lies within 0.1 of the JAX record's
+  local proto="--dtype float32 --seed 42 --steps-per-call 10" rec="torch_$2"
+  seg "$1" "${rec}_step1" --iternum 10 --lr 3e-3 --batch 8192 --ode-steps 8 \
+    "${@:4}"
+  python - "$OUT/${rec}_step1.jsonl" "$3" <<'PY'
+import json, sys
+e, ref = json.loads(open(sys.argv[1]).readline())["E"], float(sys.argv[2])
+ok = abs(e - ref) <= 0.1
+print(f"step 1: E {e:.5f}, the JAX record's {ref}: {e - ref:+.5f} "
+      f"({'within' if ok else 'BEYOND'} 0.1)")
+sys.exit(0 if ok else 1)
+PY
+}
+
+fresh_checked () {  # fresh_checked <cli> <record> <iters> <JAX step-1 E>
+  # <row flags...>: fresh, once step1 confirms the row's configuration
+  if step1 "$1" "$2" "$4" "${@:5}"; then
+    fresh "$1" "$2" "$3" "${@:5}"
+  else
+    echo "$2: step 1 misses the JAX record's; the row is not trained"
+    status=1
+  fi
+}
+
 beta_sweep () {  # beta_sweep <tag> <Z>: beta = 2, deltaE = 2 at N = 6
   train finite_t "beta_n6_$1" 3000 1000 --nup 6 --Z "$2" --beta 2.0 \
     --deltaE 2.0 --boltzmann --batch 8192 --ode-steps 8
@@ -142,7 +185,9 @@ evaluate () {  # evaluate <record> <row flags...>: both engines
 rows=${*:-gs_n6 beta_n6 gs_n10 beta_n10 taut_singlet taut_triplet \
   gs_n6_z10 gs_n6_z20 gs_n6_z40 gs_n6_z80 beta_n6_z10 beta_n6_z20 \
   beta_n6_z40 beta_n6_z80 beta_n3_b10 gs_n3_fresh gs_n6_fresh \
-  gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh xover odesteps eval}
+  gs_n6_z10_fresh gs_n6_z20_fresh beta_n6_fresh gs_n6_z40_fresh \
+  gs_n6_z80_fresh beta_n6_b10_fresh beta_n6_b40_fresh beta_n3_z05 xover \
+  odesteps eval}
 for row in $rows; do
   case $row in
     gs_n6) train ground_state gs_n6_z05_ode4 3000 1000 \
@@ -185,6 +230,16 @@ for row in $rows; do
       --Z 2.0 ;;
     beta_n6_fresh) fresh finite_t beta_n6_z05_fresh 2000 --nup 6 --Z 0.5 \
       --beta 2.0 --deltaE 2.0 --boltzmann ;;
+    gs_n6_z40_fresh) fresh_checked ground_state gs_n6_z40_fresh 3000 49.848 \
+      --nup 6 --Z 4.0 ;;
+    gs_n6_z80_fresh) fresh_checked ground_state gs_n6_z80_fresh 3000 85.696 \
+      --nup 6 --Z 8.0 ;;
+    beta_n6_b10_fresh) fresh_checked finite_t beta_n6_b10_fresh 2000 19.870 \
+      --nup 6 --Z 0.5 --beta 1.0 --deltaE 2.0 --boltzmann ;;
+    beta_n6_b40_fresh) fresh_checked finite_t beta_n6_b40_fresh 2000 18.678 \
+      --nup 6 --Z 0.5 --beta 4.0 --deltaE 2.0 --boltzmann ;;
+    beta_n3_z05) train finite_t beta_n3_z05 3000 1000 --nup 3 --Z 0.5 \
+      --beta 2.0 --deltaE 2.0 --boltzmann --batch 8192 --ode-steps 4 ;;
     xover)
       need_gs_n6
       for spec in $XOVER; do

@@ -7,8 +7,12 @@ their JAX records were summarised) of the port's final record and of the
 JAX record, the sem of the port's mean (the rows' standard deviation over
 sqrt of the rows, which ignores their autocorrelation), |delta|, the bound fixed
 before the runs and whether it holds; S(MC) - S_analytical on the last
-finite-temperature row, with its mean and the rows' spread over the tail; the median of ``iter_seconds`` (steady ms per
-iteration) and the wall seconds of the CLI runs
+finite-temperature row, with its mean and the rows' spread over the tail
+(and, where a row fixes one, the bound on that mean); a reference value
+the mean must also meet where a row names one; the tail's acceptance;
+the step-1 checks of the rows that have them (``STEP1``); the median of
+``iter_seconds`` (steady ms per iteration) and the wall seconds of the
+CLI runs
 (``torch_converged_wall.jsonl``); and the evaluator's fresh-chain energies
 at the ground-state checkpoints, each against its training tail (within 3
 combined sems + 0.002; + 0.01 at Z = 8), its two engines within 3e-4
@@ -45,7 +49,11 @@ TAIL = 300
 class Row(NamedTuple):
     """A training row: its port records, the JAX record, the metric, the
     bound (lo, hi) on the port's tail mean, on the last row the bound on
-    |S - S_analytical| and on S itself (or None), and the tail's rows."""
+    |S - S_analytical| and on S itself (or None), and the tail's rows;
+    the bound on the tail mean of S - S_analytical, about 0 or (with
+    ``s_tail_vs_jax``) about the JAX record's own tail mean (or None); and
+    (value, bound) of a reference that the port's tail mean must also lie
+    within (or None)."""
     name: str
     recs: list
     jax: str
@@ -54,6 +62,9 @@ class Row(NamedTuple):
     s_bound: float | None = None
     s_max: float | None = None
     tail: int = TAIL
+    s_tail: float | None = None
+    s_tail_vs_jax: bool = False
+    ref: tuple | None = None
 
 
 def _port(rec: str, polish: bool = True) -> list:
@@ -118,7 +129,39 @@ ROWS = [
     Row("finite T N=6 fresh", _port("beta_n6_z05_fresh", False),
         "beta_n6_z05", "F", _within(17.49912, 0.005, 0.005), 0.02,
         tail=500),
+    # The last five JAX training records: the fresh-protocol runs at
+    # Z = 4 and 8, and at beta = 1 and 4 (their beta read from the first
+    # row's S_analytical, Z = 0.5 confirmed by the step-1 E, STEP1), and
+    # the persistent N = 3 finite-T run with its polish, which the
+    # reference's own finite-T training also ran (docs/VALIDATION.md:
+    # 165-185, F 5.5264).  The widths scale the nearest fresh row's bound
+    # by the ratio of the JAX records' row spreads (0.005 the floor); the
+    # fresh finite-T rows hold the tail mean of S - S_an, where a single
+    # row's S is a new 8192-walker estimate, and report the last row's.
+    Row("GS Z=4 fresh", _port("gs_n6_z40_fresh", False), "gs_n6_z40", "E",
+        _within(41.00402, 0.018, 0.018), tail=500),
+    Row("GS Z=8 fresh", _port("gs_n6_z80_fresh", False), "gs_n6_z80", "E",
+        _within(60.86448, 0.033, 0.033), tail=500),
+    Row("finite T beta=1 fresh", _port("beta_n6_b10_fresh", False),
+        "beta_n6_b10", "F", _within(15.69135, 0.010, 0.010), tail=500,
+        s_tail=0.005),
+    Row("finite T beta=4 fresh", _port("beta_n6_b40_fresh", False),
+        "beta_n6_b40", "F", _within(18.09384, 0.005, 0.005), tail=500,
+        s_tail=0.005),
+    Row("finite T N=3 Z=0.5", _port("beta_n3_z05"), "beta_n3_z05_r5_polish",
+        "F", _within(5.52509, 0.002, 0.002), 0.02, tail=500, s_tail=0.005,
+        s_tail_vs_jax=True, ref=(5.5264, 0.004)),
 ]
+# The step-1 check run before each of those fresh rows (the identity flow,
+# 10 iterations of the row's flags): (row, its record, the JAX record);
+# step 1's E within STEP1_BOUND of the JAX record's confirms Z.
+STEP1 = [("GS Z=4 fresh", "torch_gs_n6_z40_fresh_step1", "gs_n6_z40"),
+         ("GS Z=8 fresh", "torch_gs_n6_z80_fresh_step1", "gs_n6_z80"),
+         ("finite T beta=1 fresh", "torch_beta_n6_b10_fresh_step1",
+          "beta_n6_b10"),
+         ("finite T beta=4 fresh", "torch_beta_n6_b40_fresh_step1",
+          "beta_n6_b40")]
+STEP1_BOUND = 0.1
 # (row, record, slack added to 3 combined sems)
 EVALS = [("GS N=6", "gs_n6_z05_ode4", 0.002), ("GS N=10", "gs_n10_z05", 0.002),
          ("Taut singlet", "gs_n2_taut_singlet", 0.002),
@@ -179,17 +222,19 @@ def walls(runs: str) -> dict:
 
 def summarise(runs: str) -> dict:
     out = {"rows": [], "evals": [], "excitation": [], "xover": [],
-           "ode_steps": []}
+           "ode_steps": [], "step1": step1(runs)}
     tails, e_tails = {}, {}
     wall_s = walls(runs)
-    for name, recs, jax_rec, key, (lo, hi), s_bound, s_max, tail in ROWS:
+    for (name, recs, jax_rec, key, (lo, hi), s_bound, s_max, tail, s_tail,
+         s_tail_vs_jax, ref) in ROWS:
         paths = [record(runs, r) for r in recs]
         if not all(os.path.exists(p) for p in paths):
             out["rows"].append({"row": name, "missing": recs})
             continue
         rows = [r for p in paths for r in read(p)]
+        jrows = read(record(runs, jax_rec))
         mean, sem = tail_stats(rows, key, tail)
-        jmean, jsem = tail_stats(read(record(runs, jax_rec)), key, tail)
+        jmean, jsem = tail_stats(jrows, key, tail)
         tails[name] = (mean, sem)
         e_tails[name] = tail_stats(rows, "E", tail)[0]
         row = {
@@ -204,16 +249,29 @@ def summarise(runs: str) -> dict:
                                       for r in rows)),
             "wall_seconds": (sum(wall_s[r] for r in recs)
                              if all(r in wall_s for r in recs) else None),
+            "accept": tail_stats(rows, "accept_rate", tail)[0],
+            "jax_accept": tail_stats(jrows, "accept_rate", tail)[0],
         }
-        if s_bound is not None:
+        if s_bound is not None or s_tail is not None:
             dS = rows[-1]["S"] - rows[-1]["S_analytical"]
-            tail_dS = [r["S"] - r["S_analytical"] for r in rows[-tail:]]
+            tail_dS = float(np.mean([r["S"] - r["S_analytical"]
+                                     for r in rows[-tail:]]))
             row.update(S_minus_S_analytical=dS,
-                       S_within_bound=abs(dS) <= s_bound,
-                       S_minus_S_analytical_tail_mean=float(
-                           np.mean(tail_dS)),
-                       S_minus_S_analytical_tail_std=float(
-                           np.std(tail_dS, ddof=1)))
+                       S_minus_S_analytical_tail_mean=tail_dS,
+                       S_minus_S_analytical_tail_std=float(np.std(
+                           [r["S"] - r["S_analytical"] for r in rows[-tail:]],
+                           ddof=1)))
+            if s_bound is not None:
+                row["S_within_bound"] = abs(dS) <= s_bound
+        if s_tail is not None:
+            centre = (float(np.mean([r["S"] - r["S_analytical"]
+                                     for r in jrows[-tail:]]))
+                      if s_tail_vs_jax else 0.0)
+            row.update(S_tail_centre=centre, S_tail_bound=s_tail,
+                       S_tail_within_bound=abs(tail_dS - centre) <= s_tail)
+        if ref is not None:
+            row.update(reference=ref[0], reference_bound=ref[1],
+                       within_reference=abs(mean - ref[0]) <= ref[1])
         if s_max is not None:
             row.update(S=rows[-1]["S"], S_below_max=rows[-1]["S"] < s_max)
         out["rows"].append(row)
@@ -246,6 +304,21 @@ def summarise(runs: str) -> dict:
                                       "within": lo <= d <= hi})
     out["xover"] = xover(runs)
     out["ode_steps"] = ode_steps(runs)
+    return out
+
+
+def step1(runs: str) -> list:
+    """Each step-1 check present: the port's E at step 1 against the JAX
+    record's, within STEP1_BOUND."""
+    out = []
+    for name, rec, jax_rec in STEP1:
+        path = record(runs, rec)
+        if not os.path.exists(path):
+            continue
+        e, je = read(path)[0]["E"], read(record(runs, jax_rec))[0]["E"]
+        out.append({"row": name, "E": e, "jax_E": je, "delta": e - je,
+                    "bound": STEP1_BOUND, "within": abs(e - je)
+                    <= STEP1_BOUND})
     return out
 
 
@@ -325,8 +398,10 @@ def ode_steps(runs: str) -> list:
 def failures(res: dict) -> list:
     """Every bound that does not hold."""
     bad = []
+    bad += [f"step 1 {c['row']}" for c in res["step1"] if not c["within"]]
     for r in res["rows"]:
-        for key in ("within_bound", "S_within_bound", "S_below_max"):
+        for key in ("within_bound", "S_within_bound", "S_below_max",
+                    "S_tail_within_bound", "within_reference"):
             if r.get(key) is False:
                 bad.append(f"{r['row']}: {key}")
     for e in res["evals"]:
@@ -357,10 +432,20 @@ def main():
             print(f"{r['row']}: missing {r['missing']}")
             continue
         extra = ("" if "S_minus_S_analytical" not in r else
-                 f"; S - S_an {r['S_minus_S_analytical']:+.5f} "
-                 f"({'pass' if r['S_within_bound'] else 'FAIL'}; over the "
-                 f"tail {r['S_minus_S_analytical_tail_mean']:+.5f}, rows' "
-                 f"std {r['S_minus_S_analytical_tail_std']:.5f})")
+                 f"; S - S_an {r['S_minus_S_analytical']:+.5f} ("
+                 + ({True: "pass; ", False: "FAIL; "}.get(
+                     r.get("S_within_bound"), "reported only; "))
+                 + f"over the tail {r['S_minus_S_analytical_tail_mean']:+.5f}"
+                 + ("" if "S_tail_within_bound" not in r else
+                    f" against {r['S_tail_centre']:+.5f} ± "
+                    f"{r['S_tail_bound']:g} "
+                    + ("pass" if r["S_tail_within_bound"] else "FAIL"))
+                 + f", rows' std {r['S_minus_S_analytical_tail_std']:.5f})")
+        if "reference" in r:
+            extra += (f"; against the reference {r['reference']:g} ± "
+                      f"{r['reference_bound']:g} "
+                      + ("pass" if r["within_reference"] else "FAIL"))
+        extra += f"; accept {r['accept']:.3f} (JAX {r['jax_accept']:.3f})"
         print(f"{r['row']}: {r['metric']} {r['port']:.5f} ± "
               f"{r['port_sem']:.5f} (JAX {r['jax']:.5f} ± {r['jax_sem']:.5f}),"
               f" |delta| {r['abs_delta']:.5f}, bound [{r['bound'][0]:.4f}, "
@@ -368,6 +453,10 @@ def main():
               f"{extra}; {r['ms_per_iteration_median']:.3f} ms/iter median, "
               f"{r['loop_seconds']:.1f} s in the loop, wall "
               f"{r['wall_seconds']} s")
+    for c in res["step1"]:
+        print(f"step 1 {c['row']}: E {c['E']:.5f} (JAX {c['jax_E']:.5f}), "
+              f"delta {c['delta']:+.5f} (bound {c['bound']:g}) "
+              f"{'pass' if c['within'] else 'FAIL'}")
     for e in res["evals"]:
         print(f"eval {e['row']} {e['engine']} (step {e['step']}): E "
               f"{e['E']:.5f} ± {e['E_sem']:.5f}, tail {e['training_tail']:.5f}"
