@@ -1,0 +1,7 @@
+"""``roofline.reinforce_adjoint`` in the cells that report ``iter_ms.k1`` (one iteration a
+chunk). Layer "kernels": the reinforce_adjoint kernel's frozen bound over its device time a
+launch in the traced chunks, in % (nothing where it did not run)."""
+
+
+def read(ctx):
+    return ctx.roofline("reinforce_adjoint")
