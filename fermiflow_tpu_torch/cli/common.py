@@ -58,7 +58,7 @@ from fermiflow_tpu_torch.utils.checkpointing import (
     restore_checkpoint,
     save_checkpoint,
 )
-from fermiflow_tpu_torch.utils.profiling import trace
+from fermiflow_tpu_torch.utils.profiling import SPANS, trace
 from fermiflow_tpu_torch.vmc import BetaVMC, GSVMC
 from fermiflow_tpu_torch.vmc.gs import _detach
 
@@ -442,6 +442,11 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
     detection and raises ``FloatingPointError`` naming the first non-finite
     state tensor after a chunk.
 
+    Each chunk's host path goes into ``utils.profiling.SPANS``, reset here
+    and numbered by chunk from 1: ``loop.chunk`` around the chunk call,
+    ``loop.wait`` and ``loop.fetch`` (the logger's), ``loop.watchdog``
+    around the check and ``loop.print`` around the rows.
+
     On a walker ``mesh`` every rank runs the loop: the metrics are
     replicated, so all ranks stop, restore and reseed alike; the
     non-finite check of ``debug_nans`` is summed over ranks.  Only the
@@ -482,11 +487,13 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
 
     i = start_step
     n_chunk = 0
+    SPANS.reset()
     anomaly = (torch.autograd.set_detect_anomaly(True) if debug_nans
                else contextlib.nullcontext())
     with anomaly, contextlib.ExitStack() as profiling:
         while i < cfg.iternum:
             n_chunk += 1
+            SPANS.chunk = n_chunk
             if profile_dir and primary and n_chunk == 2:
                 profiling.enter_context(
                     trace(profile_dir, cuda=cfg.device != "cpu"))
@@ -498,7 +505,8 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
             if fn is None:
                 fn = chunk_fns[chunk] = make_chunk(chunk)
             t0 = time.time()
-            state, stacked = fn(state)
+            with SPANS.span("loop.chunk"):
+                state, stacked = fn(state)
             if debug_nans:
                 name = _first_nonfinite(state)
                 bad = torch.tensor([float(name is not None)],
@@ -515,14 +523,17 @@ def run_training_loop(state, cfg: Config, make_chunk, logger, print_row,
                     else logger.log_many(i + 1, stacked, t0))
             if n_chunk == last_traced:
                 profiling.close()
-            reason = _bad(cfg, window, rows)
+            with SPANS.span("loop.watchdog"):
+                reason = _bad(cfg, window, rows)
+                if not reason:
+                    _note_healthy(cfg, window, rows)
             if reason:
                 state, i = recover(state, i + chunk, reason)
                 continue
-            _note_healthy(cfg, window, rows)
             if primary:
-                for rec in rows:
-                    print_row(rec)
+                with SPANS.span("loop.print"):
+                    for rec in rows:
+                        print_row(rec)
             i += chunk
             if cfg.checkpoint_dir and i % cfg.checkpoint_every == 0:
                 save_checkpoint(cfg.checkpoint_dir, i, state)

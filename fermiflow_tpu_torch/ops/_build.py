@@ -49,7 +49,6 @@ LAUNCHES = {
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-BUILD_SECONDS: dict[str, float] = {}
 
 
 def reset_launch_counts() -> None:
@@ -87,7 +86,7 @@ def build_all() -> dict[str, float]:
     if not todo:
         return {}
     nvcc = _nvcc()
-    procs = {}
+    procs, seconds = {}, {}
     t0 = time.perf_counter()
     for name, out in todo.items():
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -99,7 +98,7 @@ def build_all() -> dict[str, float]:
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
-        BUILD_SECONDS[name] = time.perf_counter() - t0
+        seconds[name] = time.perf_counter() - t0
         (BUILD_DIR / f"{name}.ptxas.txt").write_text(log)
         if proc.returncode != 0:
             failed.append(f"--- {name} (rc {proc.returncode}) ---\n{log}")
@@ -107,7 +106,7 @@ def build_all() -> dict[str, float]:
         tmp.replace(out)
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return {n: BUILD_SECONDS[n] for n in todo}
+    return seconds
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -89,6 +89,7 @@ from fermiflow_tpu_torch.parallel.mesh import (
     walker_mean,
 )
 from fermiflow_tpu_torch.utils.checkpointing import named_tensors
+from fermiflow_tpu_torch.utils.profiling import SPANS
 from fermiflow_tpu_torch.vmc.beta import BetaVMC
 from fermiflow_tpu_torch.vmc.gs import GSVMC, _detach
 
@@ -444,15 +445,16 @@ class _Chunk:
         or a replay; the metrics cloned out of the graph's output (the
         step count is the caller's).  The mesh counts the collectives of a
         replay as the capture recorded them, and its host seconds as
-        theirs."""
+        theirs.  A replay records the spans ``chunk.seeds`` (the seeds'
+        draw and copy) and ``chunk.launch`` (the pointer check, the replay
+        and the clone) in ``utils.profiling.SPANS``."""
         device = state.walkers_cm.device
         stats = {} if self.mesh is None else self.mesh.stats
-        host = torch.tensor([_new_seed(state) for _ in range(self.n_seeds)],
-                            dtype=torch.int32, pin_memory=device.type == "cuda")
         if self._replay is None:
             self._seeds = torch.empty(self.n_seeds, dtype=torch.int32,
                                       device=device)
-            self._seeds.copy_(host, non_blocking=True)
+            self._seeds.copy_(self._draw_seeds(state, device),
+                              non_blocking=True)
 
             def run():
                 metrics = self.body(state, lambda k: self._seeds[k:k + 1])
@@ -469,12 +471,15 @@ class _Chunk:
             self.collectives = stats.get("count", 0) - recorded.get("count", 0)
             stats.update(recorded)
             self._pointers = _pointers(state)
-        else:
+            return dict(zip(self._keys, packed.unbind(0)))
+        with SPANS.span("chunk.seeds"):
+            self._seeds.copy_(self._draw_seeds(state, device),
+                              non_blocking=True)
+        with SPANS.span("chunk.launch"):
             if _pointers(state) != self._pointers:
                 raise RuntimeError(
                     "a state tensor was replaced since this chunk was "
                     "captured (a restore?): make the chunk anew")
-            self._seeds.copy_(host, non_blocking=True)
             t0 = time.perf_counter()
             packed = self._replay().clone()
             for k, v in self.launches.items():
@@ -483,7 +488,14 @@ class _Chunk:
                 stats["count"] += self.collectives
                 stats["replayed"] += self.collectives
                 stats["seconds"] += time.perf_counter() - t0
-        return dict(zip(self._keys, packed.unbind(0)))
+            return dict(zip(self._keys, packed.unbind(0)))
+
+    def _draw_seeds(self, state: TrainState, device) -> torch.Tensor:
+        """The chunk's sampler seeds from the host generator, in pinned
+        memory on the way to a card."""
+        return torch.tensor([_new_seed(state) for _ in range(self.n_seeds)],
+                            dtype=torch.int32,
+                            pin_memory=device.type == "cuda")
 
 
 def make_gs_fused_multi_step(model: GSVMC, cfg: Config, steps_per_call: int,

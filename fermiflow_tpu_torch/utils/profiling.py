@@ -14,22 +14,33 @@ kernels, copies and fills (through CUPTI).  On exit it writes into
   calls by self time; and the count of each of ``RUNTIME_CALLS``.
 
 ``PhaseTimer`` sums wall-clock time per named phase, waiting for the
-devices of the tensors it is given before it stops the clock.
+devices of the tensors it is given before it stops the clock.  Its
+``span`` records the host path of every training iteration without
+waiting for anything: ``SPANS`` is the one instance that the training loop
+(``cli/common.py``), the metrics logger and the captured chunk
+(``train.py``) record into, each span also a ``record_function`` range
+while a profiler runs, so that ``trace`` puts the spans beside the device's
+kernels.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
-__all__ = ["trace", "summarize", "PhaseTimer", "SHORT_GAP_US",
+__all__ = ["trace", "summarize", "PhaseTimer", "SPANS", "SHORT_GAP_US",
            "RUNTIME_CALLS"]
 
 SHORT_GAP_US = 10.0  # device gaps up to this long count as launch gaps
+# Span records a PhaseTimer keeps: a 10 s run at one iteration a chunk
+# makes ~5000 chunks of 7 spans.
+_RING = 2**17
 # Runtime calls counted on their own: graph replays, single launches (a
 # replayed CUDA graph's kernels need none), and host waits for the card.
 RUNTIME_CALLS = ("cudaGraphLaunch", "cudaLaunchKernel", "cudaLaunchKernelExC",
@@ -155,15 +166,67 @@ def _tensors(tree):
             yield from _tensors(v)
 
 
+class _Span:
+    """One occurrence of a span: ``PhaseTimer.span``."""
+
+    __slots__ = ("timer", "name", "parent", "t0", "annotation")
+
+    def __init__(self, timer: PhaseTimer, name: str):
+        self.timer = timer
+        self.name = name
+
+    def __enter__(self):
+        timer = self.timer
+        self.parent = timer.current
+        timer.current = self.name
+        # A record_function costs ~12 us even with no profiler running (the
+        # H100 machine's host, torch 2.11); reading the flag, ~0.05 us.
+        self.annotation = None
+        if _autograd_profiler._is_profiler_enabled:
+            self.annotation = torch.profiler.record_function(self.name)
+            self.annotation.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter()
+        if self.annotation is not None:
+            self.annotation.__exit__(*exc)
+        timer = self.timer
+        timer.current = self.parent
+        timer.records.append((timer.chunk, self.name, self.parent, self.t0,
+                              t1 - self.t0))
+
+
 class PhaseTimer:
     """Wall-clock time per named phase.  ``sync_on`` (a tensor or a nested
     dict, list or tuple of them) makes the phase wait for the CUDA devices
     those tensors live on before its clock stops, since kernels return
-    before the device has run them."""
+    before the device has run them.
+
+    ``span(name)`` times a phase without waiting for any device and keeps
+    each occurrence, outside the sums, in ``records``, a ring of the last
+    ``_RING`` of them: (``chunk``, the number the caller has set, name, the
+    innermost span open around it or None, start and seconds on the
+    ``time.perf_counter`` clock).  While a ``torch.profiler`` profile runs,
+    a span is also a ``record_function`` range of its name."""
 
     def __init__(self):
         self.totals: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self.records = collections.deque(maxlen=_RING)
+        self.current: str | None = None  # the innermost open span
+        self.chunk = 0
+
+    def span(self, name: str) -> _Span:
+        return _Span(self, name)
+
+    def reset(self) -> None:
+        """Forget every phase and record; the chunk number restarts at 0."""
+        self.totals.clear()
+        self.counts.clear()
+        self.records.clear()
+        self.current = None
+        self.chunk = 0
 
     @contextlib.contextmanager
     def phase(self, name: str, sync_on=None):
@@ -187,3 +250,8 @@ class PhaseTimer:
             }
             for name in self.totals
         }
+
+
+# The spans of the training loop's host path: ``run_training_loop`` resets
+# it when it starts and numbers its chunks from 1.
+SPANS = PhaseTimer()
