@@ -520,8 +520,9 @@ def phase_occupancy(device):
     units = [len(items) for items in rplan["eta_units"][0]]
     print(f"occupancy: {json.dumps(warps)} resident warps per SM; "
           f"hessian_flow: {hf.lanes_for(N)} lanes per walker, per lane "
-          f"{plan['entries'][1]} state entries, {plan['pairs'][1]} pair and "
-          f"{plan['one_body'][1]} one-body MLP inputs; reinforce_adjoint: "
+          f"{plan['entries'][1]} state entries, {plan['mlp_inputs'][1]} MLP "
+          f"input slots (pairs, then one-body) in one hidden-unit loop; "
+          f"reinforce_adjoint: "
           f"{rf.lanes_for(N)} lanes per walker, per lane {rplan['entries'][1]} state "
           f"entries, eta/mu hidden units {units} by lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "

@@ -39,19 +39,36 @@ def lane_plan(n: int, lanes: int | None = None) -> dict:
     """Which lane of a walker's group owns what in ``csrc/hessian_flow.cu``
     (at ``lanes_for(n)`` lanes unless ``lanes`` is given).
 
-    Item i of each kind goes to lane i % lanes, register slot i // lanes:
-    the state entries (x, logp, g, packed H), the pair MLP inputs (in
-    ``np.triu_indices`` order) and the one-body MLP inputs.  Returns
+    State entry e (x, logp, g, packed H) goes to lane e % lanes, register
+    slot e // lanes.  Up to n = 6 (8 lanes; the kernel's ``group_flow``
+    schedule) a lane runs all its MLP inputs in one hidden-unit loop:
+    ``"mlp_inputs"`` lists them as ``("pair", p)`` (pair p in
+    ``np.triu_indices`` order, to lane p % lanes, slot p // lanes) and then
+    ``("one_body", i)`` (particle i to lane i % lanes, slot QP + i //
+    lanes), where QP is the pair slots of every lane.  From n = 7 (a warp)
+    the pair and one-body inputs run in loops of their own: ``"pairs"`` and
+    ``"one_body"``, item i to lane i % lanes, slot i // lanes.  Returns
     ``{kind: (per-lane lists of (item, slot), slots the kernel compiles)}``;
-    the slot counts are the kernel's ``E``, ``QP`` and ``QN``.
+    the slot counts are the kernel's ``E``, ``QP + QN`` (or ``QP`` and
+    ``QN``).
     """
     lanes = lanes or lanes_for(n)
     d = 2 * n
-    counts = {"entries": 2 * d + 1 + d * (d + 1) // 2,
-              "pairs": n * (n - 1) // 2, "one_body": n}
-    return {kind: ([[(i, i // lanes) for i in range(c) if i % lanes == lane]
-                    for lane in range(lanes)], -(-c // lanes))
-            for kind, c in counts.items()}
+    n_pairs = n * (n - 1) // 2
+    deal = lambda items, first=0: [
+        [(item, first + i // lanes) for i, item in enumerate(items)
+         if i % lanes == lane] for lane in range(lanes)]
+    plan = {"entries": (deal(range(2 * d + 1 + d * (d + 1) // 2)),
+                        -(-(2 * d + 1 + d * (d + 1) // 2) // lanes))}
+    qp, qn = -(-n_pairs // lanes), -(-n // lanes)
+    if lanes_for(n) == 32:
+        plan["pairs"] = (deal(range(n_pairs)), qp)
+        plan["one_body"] = (deal(range(n)), qn)
+        return plan
+    pairs = deal([("pair", p) for p in range(n_pairs)])
+    ones = deal([("one_body", i) for i in range(n)], qp)
+    plan["mlp_inputs"] = ([a + b for a, b in zip(pairs, ones)], qp + qn)
+    return plan
 
 
 def hessian_flow_occupancy(n: int, d_eta: int, d_mu: int | None) -> int:

@@ -130,10 +130,12 @@ def test_slater_vgh_kernel_matches_plain(cuda, nup, ndown, B):
 
 # Batch sizes that leave the last block ragged (16 walkers per block, 4 per
 # warp, to N = 6; 4 walkers per block from N = 7): 37 and 8191 end mid-warp
-# (N <= 6) or mid-block, 100 mid-block (N <= 6).
+# (N <= 6) or mid-block, 100 mid-block (N <= 6).  d_eta is 8: d_mu = 5 and
+# 12 give the 8-lane schedule unequal widths (its units padded with zeros).
 @pytest.mark.parametrize("nup,d_mu,B", [
     (3, 8, 100), (3, None, 37), (2, 8, 37), (2, None, 8191), (6, 8, 8191),
-    (6, None, 37), (10, 8, 4095), (9, None, 37)])
+    (6, None, 37), (10, 8, 4095), (9, None, 37), (6, 5, 100), (6, 12, 37),
+    (4, 8, 37), (5, 8, 100), (5, None, 8191)])
 def test_hessian_flow_kernel_matches_plain(cuda, nup, d_mu, B):
     z = equilibrated(cuda, nup, 0, B)
     y, g, H = slater_vgh_cm(z, **occ(nup, 0))
@@ -151,6 +153,29 @@ def test_hessian_flow_kernel_matches_plain(cuda, nup, d_mu, B):
         # tests/test_hessian_flow.py: err < 1e-4 * scale + 1e-5.
         err = float((a.double() - r).abs().max())
         assert err < 1e-4 * float(r.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("nup", [3, 6])
+def test_hessian_flow_kernel_both_reciprocal_paths(cuda, nup):
+    # One eta unit with w1 = 30: a lane whose pair distance r passes
+    # 80 / 30 runs its hidden-unit loop on the division, the others on the
+    # range-checked reciprocal, in one warp; both give the plain result.
+    z = equilibrated(cuda, nup, 0, 1001)
+    y, g, H = slater_vgh_cm(z, **occ(nup, 0))
+    p = params(cuda, 8)
+    p["eta"]["w1"][0, 0] = 30.0
+    k = hessian_flow_cm(p, z, y, g, H, *TS)
+    again = hessian_flow_cm(p, z, y, g, H, *TS)
+    ref = hessian_flow_cm_plain(f64(p), z.double(), y.double(), g.double(),
+                                H.double(), *TS)
+    torch.cuda.synchronize()
+    d = z.reshape(nup, 2, -1)
+    r = (d[:, None] - d[None]).square().sum(2).sqrt()
+    assert bool((r > 80 / 30).any()) and bool((r[0, 1] < 80 / 30).any())
+    for a, b, rr in zip(k, again, ref):
+        assert torch.equal(a, b)
+        err = float((a.double() - rr).abs().max())
+        assert err < 1e-4 * float(rr.abs().max()) + 1e-5
 
 
 def test_hessian_flow_occupancy(cuda):

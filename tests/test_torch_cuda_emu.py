@@ -105,15 +105,19 @@ def f64(p):
 
 
 # Ragged batches: 16 walkers per block, 4 per warp (N <= 6); 4 walkers per
-# block, one per warp (N >= 7).
+# block, one per warp (N >= 7).  d_eta is 8: d_mu = 5 and 12 give the
+# 8-lane schedule unequal widths (its units padded with zeros).
 @pytest.mark.parametrize("n,d_mu,B", [(2, None, 5), (3, 8, 37), (6, 8, 19),
                                       (6, None, 17), (10, 8, 9),
-                                      (8, None, 6)])
-def test_hessian_flow_source_matches_plain(on_emu, n, d_mu, B):
+                                      (8, None, 6), (6, 5, 19), (6, 12, 9),
+                                      (4, 8, 13), (5, None, 21)])
+def test_hessian_flow_source_matches_plain(on_emu, n, d_mu, B, w1=None):
     gen = torch.Generator().manual_seed(n + B)
     z = 0.8 * torch.randn((2 * n, B), generator=gen)
     y, g, H = slater_vgh_cm_plain(z, **occ(n))
     p = params(d_mu)
+    if w1 is not None:
+        p["eta"]["w1"][0, 0] = w1
     before = _build.LAUNCHES["hessian_flow"]
     k = hf._hflow_cuda(p, z, y, g, H, *TS)
     again = hf._hflow_cuda(p, z, y, g, H, *TS)
@@ -125,6 +129,14 @@ def test_hessian_flow_source_matches_plain(on_emu, n, d_mu, B):
         # tests/test_torch_cuda.py: err < 1e-4 * scale + 1e-5.
         err = float((a.double() - r).abs().max())
         assert err < 1e-4 * float(r.abs().max()) + 1e-5
+
+
+@pytest.mark.parametrize("n,B", [(3, 37), (6, 17)])
+def test_hessian_flow_source_both_reciprocal_paths(on_emu, n, B):
+    # One eta unit with w1 = 30: the lanes whose pair distance passes
+    # 80 / 30 run their hidden-unit loop on the division, the others on
+    # the range-checked reciprocal (the division too, on the host).
+    test_hessian_flow_source_matches_plain(on_emu, n, 8, B, w1=30.0)
 
 
 def flat_grads(gr):

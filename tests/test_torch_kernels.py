@@ -256,22 +256,35 @@ def _reinforce_inputs(seed):
 def test_hessian_flow_lane_plan_owns_everything_once(n, lanes):
     # csrc/hessian_flow.cu deals state entries and MLP inputs over the lanes
     # of a walker's group; every item must have exactly one owner, in a
-    # register slot the kernel compiles.
+    # register slot the kernel compiles.  Up to n = 6 a lane's MLP inputs
+    # share one hidden-unit loop: its pairs in slots 0..QP-1, then its
+    # one-body inputs from slot QP on.
     d = 2 * n
-    counts = {"entries": 2 * d + 1 + d * (d + 1) // 2,
-              "pairs": n * (n - 1) // 2, "one_body": n}
+    n_entries = 2 * d + 1 + d * (d + 1) // 2
+    n_pairs = n * (n - 1) // 2
+    qp, qn = -(-n_pairs // lanes), -(-n // lanes)
     plan = lane_plan(n, lanes)
-    assert set(plan) == set(counts)
-    for kind, count in counts.items():
-        per_lane, slots = plan[kind]
-        assert len(per_lane) == lanes
-        owned = [item for items in per_lane for item, _ in items]
-        assert sorted(owned) == list(range(count))
-        for lane, items in enumerate(per_lane):
-            assert [slot for _, slot in items] == list(range(len(items)))
-            assert len(items) <= slots
-            assert all(item % lanes == lane for item, _ in items)
-        assert slots == -(-count // lanes)
+    assert set(plan) == {"entries", "mlp_inputs"}
+    per_lane, slots = plan["entries"]
+    assert slots == -(-n_entries // lanes) and len(per_lane) == lanes
+    assert sorted(e for items in per_lane for e, _ in items) \
+        == list(range(n_entries))
+    for lane, items in enumerate(per_lane):
+        assert items == [(e, e // lanes) for e in range(lane, n_entries,
+                                                        lanes)]
+    per_lane, slots = plan["mlp_inputs"]
+    assert slots == qp + qn and len(per_lane) == lanes
+    owned = sorted(item for items in per_lane for item, _ in items)
+    assert owned == sorted([("pair", p) for p in range(n_pairs)]
+                           + [("one_body", i) for i in range(n)])
+    for lane, items in enumerate(per_lane):
+        pairs = [(p, slot) for (kind, p), slot in items if kind == "pair"]
+        ones = [(i, slot) for (kind, i), slot in items if kind == "one_body"]
+        assert items == [(("pair", p), s) for p, s in pairs] \
+            + [(("one_body", i), s) for i, s in ones]
+        assert pairs == [(p, p // lanes) for p in range(lane, n_pairs, lanes)]
+        assert ones == [(i, qp + i // lanes) for i in range(lane, n, lanes)]
+        assert all(s < slots for _, s in items)
 
 
 @pytest.mark.parametrize("lanes", [4, 8])
