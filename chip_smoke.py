@@ -580,8 +580,8 @@ def phase_occupancy_n10(device):
           f"{json.dumps({k: v['lanes'] for k, v in launches.items()})}; the "
           f"batch-{B} grid places {json.dumps(placed)} warps per SM on {sms} "
           f"SMs; hessian_flow per lane {plan['entries'][1]} state entries, "
-          f"{plan['pairs'][1]} pair and {plan['one_body'][1]} one-body MLP "
-          f"inputs; reinforce_adjoint per lane {rplan['entries'][1]} state "
+          f"{plan['mlp_inputs'][1]} MLP input slots (pairs, then one-body, "
+          f"as one list) in one hidden-unit loop; reinforce_adjoint per lane {rplan['entries'][1]} state "
           f"entries, eta/mu hidden units {units} by lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
           f"inputs", flush=True)

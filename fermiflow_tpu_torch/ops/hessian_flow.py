@@ -23,7 +23,8 @@ from fermiflow_tpu_torch.ops.slater_vgh import pack_triu, unpack_triu
 
 __all__ = ["hessian_flow_cm", "hessian_flow_cm_plain", "hessian_flow_packed",
            "hessian_flow_occupancy", "lane_plan", "lanes_for",
-           "tableau_args", "w2k", "hessian_flow_pallas_sharded"]
+           "reciprocal_margin", "tableau_args", "w2k",
+           "hessian_flow_pallas_sharded"]
 
 _MAXSTAGES = 6  # FF_MAXSTAGES in csrc/common.cuh
 
@@ -31,7 +32,8 @@ _MAXSTAGES = 6  # FF_MAXSTAGES in csrc/common.cuh
 def lanes_for(n: int) -> int:
     """Lanes of a warp per walker in ``csrc/hessian_flow.cu`` (its
     ``lanes_for``): 8 up to n = 6, the whole warp from n = 7, where 8 lanes
-    could not hold their state entries' six slopes in registers."""
+    could not hold their state entries' running stage inputs in
+    registers."""
     return 8 if n <= 6 else 32
 
 
@@ -40,35 +42,60 @@ def lane_plan(n: int, lanes: int | None = None) -> dict:
     (at ``lanes_for(n)`` lanes unless ``lanes`` is given).
 
     State entry e (x, logp, g, packed H) goes to lane e % lanes, register
-    slot e // lanes.  Up to n = 6 (8 lanes; the kernel's ``group_flow``
-    schedule) a lane runs all its MLP inputs in one hidden-unit loop:
-    ``"mlp_inputs"`` lists them as ``("pair", p)`` (pair p in
-    ``np.triu_indices`` order, to lane p % lanes, slot p // lanes) and then
-    ``("one_body", i)`` (particle i to lane i % lanes, slot QP + i //
-    lanes), where QP is the pair slots of every lane.  From n = 7 (a warp)
-    the pair and one-body inputs run in loops of their own: ``"pairs"`` and
-    ``"one_body"``, item i to lane i % lanes, slot i // lanes.  Returns
+    slot e // lanes.  A lane runs all its MLP inputs in one hidden-unit
+    loop; ``"mlp_inputs"`` lists them as ``("pair", p)`` (pair p in
+    ``np.triu_indices`` order) and ``("one_body", i)`` (particle i).  Up to
+    n = 6 (8 lanes) pair p goes to lane p % lanes, slot p // lanes, and
+    particle i to lane i % lanes, slot QP + i // lanes, where QP is the
+    pair slots of every lane.  From n = 7 (a warp) the pairs and then the
+    particles form one list, item k to lane k % lanes, slot k // lanes, so
+    that no lane holds more than ceil((P + n) / lanes) inputs.  Returns
     ``{kind: (per-lane lists of (item, slot), slots the kernel compiles)}``;
-    the slot counts are the kernel's ``E``, ``QP + QN`` (or ``QP`` and
-    ``QN``).
+    the slot counts are the kernel's ``E`` and ``QM``.
     """
     lanes = lanes or lanes_for(n)
     d = 2 * n
+    n_entries = 2 * d + 1 + d * (d + 1) // 2
     n_pairs = n * (n - 1) // 2
     deal = lambda items, first=0: [
         [(item, first + i // lanes) for i, item in enumerate(items)
          if i % lanes == lane] for lane in range(lanes)]
-    plan = {"entries": (deal(range(2 * d + 1 + d * (d + 1) // 2)),
-                        -(-(2 * d + 1 + d * (d + 1) // 2) // lanes))}
-    qp, qn = -(-n_pairs // lanes), -(-n // lanes)
+    plan = {"entries": (deal(range(n_entries)), -(-n_entries // lanes))}
+    pairs = [("pair", p) for p in range(n_pairs)]
+    ones = [("one_body", i) for i in range(n)]
     if lanes_for(n) == 32:
-        plan["pairs"] = (deal(range(n_pairs)), qp)
-        plan["one_body"] = (deal(range(n)), qn)
+        plan["mlp_inputs"] = (deal(pairs + ones), -(-(n_pairs + n) // lanes))
         return plan
-    pairs = deal([("pair", p) for p in range(n_pairs)])
-    ones = deal([("one_body", i) for i in range(n)], qp)
-    plan["mlp_inputs"] = ([a + b for a, b in zip(pairs, ones)], qp + qn)
+    qp, qn = -(-n_pairs // lanes), -(-n // lanes)
+    plan["mlp_inputs"] = ([a + b for a, b in zip(deal(pairs), deal(ones, qp))],
+                          qp + qn)
     return plan
+
+
+def reciprocal_margin(params: dict, z: torch.Tensor) -> dict:
+    """How far a batch lies inside the range check of the kernel's sigmoid
+    (``csrc/hessian_flow.cu``, ``rcp_in_range``): a lane takes the
+    reciprocal without the division's range branch while r |w1|max +
+    |b1|max < 80 for every MLP input it holds, with r a pair distance and
+    the eta MLP's weights, or a particle's distance from the origin and
+    mu's.  z (B, n, 2).  Returns the largest such sum over the batch
+    (``"largest"``), the limit (``"limit"``) and the share of walkers whose
+    every input lies under it (``"share_under"``).  The kernel checks the
+    positions of every stage; these are the positions given.
+    """
+    reach = lambda mlp: (mlp["w1"].detach().abs().max(),
+                         mlp["b1"].detach().abs().max())
+    w, b = reach(params["eta"])
+    z = z.detach()
+    r = (z[:, :, None] - z[:, None]).square().sum(-1).sqrt()
+    iu = torch.triu_indices(z.shape[1], z.shape[1], 1, device=z.device)
+    sums = [r[:, iu[0], iu[1]] * w + b]
+    if params.get("mu") is not None:
+        wm, bm = reach(params["mu"])
+        sums.append(z.square().sum(-1).sqrt() * wm + bm)
+    per_walker = torch.cat(sums, dim=1).amax(dim=1)
+    return {"largest": float(per_walker.max()), "limit": 80.0,
+            "share_under": float((per_walker < 80.0).double().mean())}
 
 
 def hessian_flow_occupancy(n: int, d_eta: int, d_mu: int | None) -> int:

@@ -155,11 +155,12 @@ def test_hessian_flow_kernel_matches_plain(cuda, nup, d_mu, B):
         assert err < 1e-4 * float(r.abs().max()) + 1e-5
 
 
-@pytest.mark.parametrize("nup", [3, 6])
+@pytest.mark.parametrize("nup", [3, 6, 10])
 def test_hessian_flow_kernel_both_reciprocal_paths(cuda, nup):
     # One eta unit with w1 = 30: a lane whose pair distance r passes
     # 80 / 30 runs its hidden-unit loop on the division, the others on the
-    # range-checked reciprocal, in one warp; both give the plain result.
+    # range-checked reciprocal, in one warp (at N = 10 the 32-lane
+    # schedule); both give the plain result.
     z = equilibrated(cuda, nup, 0, 1001)
     y, g, H = slater_vgh_cm(z, **occ(nup, 0))
     p = params(cuda, 8)

@@ -106,11 +106,14 @@ def f64(p):
 
 # Ragged batches: 16 walkers per block, 4 per warp (N <= 6); 4 walkers per
 # block, one per warp (N >= 7).  d_eta is 8: d_mu = 5 and 12 give the
-# 8-lane schedule unequal widths (its units padded with zeros).
+# units unequal widths (padded with zeros).  From N = 7 the MLP inputs take
+# one slot a lane (N = 7: 28 inputs) or two, the second holding pairs on
+# some lanes and one-body inputs on others (N = 9, 10).
 @pytest.mark.parametrize("n,d_mu,B", [(2, None, 5), (3, 8, 37), (6, 8, 19),
                                       (6, None, 17), (10, 8, 9),
                                       (8, None, 6), (6, 5, 19), (6, 12, 9),
-                                      (4, 8, 13), (5, None, 21)])
+                                      (4, 8, 13), (5, None, 21), (7, 8, 11),
+                                      (9, 8, 5)])
 def test_hessian_flow_source_matches_plain(on_emu, n, d_mu, B, w1=None):
     gen = torch.Generator().manual_seed(n + B)
     z = 0.8 * torch.randn((2 * n, B), generator=gen)
@@ -131,7 +134,7 @@ def test_hessian_flow_source_matches_plain(on_emu, n, d_mu, B, w1=None):
         assert err < 1e-4 * float(r.abs().max()) + 1e-5
 
 
-@pytest.mark.parametrize("n,B", [(3, 37), (6, 17)])
+@pytest.mark.parametrize("n,B", [(3, 37), (6, 17), (10, 7)])
 def test_hessian_flow_source_both_reciprocal_paths(on_emu, n, B):
     # One eta unit with w1 = 30: the lanes whose pair distance passes
     # 80 / 30 run their hidden-unit loop on the division, the others on

@@ -50,7 +50,11 @@ from fermiflow_tpu_torch.nn.backflow import (
 )
 from fermiflow_tpu_torch.nn.backflow_derivs import backflow_field_tensors
 from fermiflow_tpu_torch.ode import odeint
-from fermiflow_tpu_torch.ops.hessian_flow import hessian_flow_packed, lane_plan
+from fermiflow_tpu_torch.ops.hessian_flow import (
+    hessian_flow_packed,
+    lane_plan,
+    reciprocal_margin,
+)
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
     metropolis_free_fermion,
@@ -251,14 +255,17 @@ def _reinforce_inputs(seed):
     return x1, ghat, w
 
 
-@pytest.mark.parametrize("lanes", [4, 8])
-@pytest.mark.parametrize("n", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("n,lanes", [(n, lanes) for n in (2, 3, 4, 5, 6)
+                                     for lanes in (4, 8)]
+                         + [(n, 32) for n in (7, 8, 9, 10)])
 def test_hessian_flow_lane_plan_owns_everything_once(n, lanes):
     # csrc/hessian_flow.cu deals state entries and MLP inputs over the lanes
     # of a walker's group; every item must have exactly one owner, in a
-    # register slot the kernel compiles.  Up to n = 6 a lane's MLP inputs
-    # share one hidden-unit loop: its pairs in slots 0..QP-1, then its
-    # one-body inputs from slot QP on.
+    # register slot the kernel compiles.  A lane's MLP inputs share one
+    # hidden-unit loop: up to n = 6 its pairs in slots 0..QP-1, then its
+    # one-body inputs from slot QP on; from n = 7 (a warp) the pairs and
+    # then the particles as one list, so that no lane holds more than
+    # ceil((P + n) / 32).
     d = 2 * n
     n_entries = 2 * d + 1 + d * (d + 1) // 2
     n_pairs = n * (n - 1) // 2
@@ -273,10 +280,21 @@ def test_hessian_flow_lane_plan_owns_everything_once(n, lanes):
         assert items == [(e, e // lanes) for e in range(lane, n_entries,
                                                         lanes)]
     per_lane, slots = plan["mlp_inputs"]
-    assert slots == qp + qn and len(per_lane) == lanes
+    assert len(per_lane) == lanes
     owned = sorted(item for items in per_lane for item, _ in items)
     assert owned == sorted([("pair", p) for p in range(n_pairs)]
                            + [("one_body", i) for i in range(n)])
+    if lanes == 32:
+        bound = -(-(n_pairs + n) // lanes)
+        assert slots == bound
+        inputs = [("pair", p) for p in range(n_pairs)] \
+            + [("one_body", i) for i in range(n)]
+        for lane, items in enumerate(per_lane):
+            assert len(items) <= bound
+            assert items == [(inputs[k], k // lanes)
+                             for k in range(lane, n_pairs + n, lanes)]
+        return
+    assert slots == qp + qn
     for lane, items in enumerate(per_lane):
         pairs = [(p, slot) for (kind, p), slot in items if kind == "pair"]
         ones = [(i, slot) for (kind, i), slot in items if kind == "one_body"]
@@ -285,6 +303,35 @@ def test_hessian_flow_lane_plan_owns_everything_once(n, lanes):
         assert pairs == [(p, p // lanes) for p in range(lane, n_pairs, lanes)]
         assert ones == [(i, qp + i // lanes) for i in range(lane, n, lanes)]
         assert all(s < slots for _, s in items)
+
+
+@pytest.mark.parametrize("with_mu", [True, False])
+def test_hessian_flow_reciprocal_margin(with_mu):
+    # The largest r |w1|max + |b1|max over the batch's pair (eta) and
+    # one-body (mu) inputs, and the share of walkers with every input under
+    # the kernel's limit of 80, against a loop over walkers and inputs.
+    gen = torch.Generator().manual_seed(5)
+    z = 2.0 * torch.randn((64, 4, 2), generator=gen)
+    p = {"eta": {"w1": torch.randn((1, 6), generator=gen),
+                 "b1": torch.randn((6,), generator=gen)},
+         "mu": ({"w1": torch.randn((1, 5), generator=gen),
+                 "b1": torch.randn((5,), generator=gen)} if with_mu else None)}
+    p["eta"]["w1"][0, 2] = -30.0  # some walkers past the limit
+    got = reciprocal_margin(p, z)
+    we, be = float(p["eta"]["w1"].abs().max()), float(p["eta"]["b1"].abs().max())
+    per_walker = []
+    for zw in z.tolist():
+        sums = [np.hypot(zw[i][0] - zw[j][0], zw[i][1] - zw[j][1]) * we + be
+                for i in range(4) for j in range(i + 1, 4)]
+        if with_mu:
+            wm = float(p["mu"]["w1"].abs().max())
+            bm = float(p["mu"]["b1"].abs().max())
+            sums += [np.hypot(*zw[i]) * wm + bm for i in range(4)]
+        per_walker.append(max(sums))
+    assert got["limit"] == 80.0
+    assert got["largest"] == pytest.approx(max(per_walker), rel=1e-6)
+    share = float(np.mean([s < 80.0 for s in per_walker]))
+    assert 0.0 < share < 1.0 and got["share_under"] == share
 
 
 @pytest.mark.parametrize("lanes", [4, 8])

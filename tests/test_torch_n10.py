@@ -252,15 +252,24 @@ def test_identity_flow_eloc_is_30_at_z0():
 
 @pytest.mark.parametrize("n", [7, 8, 9, 10])
 def test_n7_to_10_lane_plans_own_everything_once(n):
-    """The N >= 7 lane plans of the Hessian flow (a warp per walker) and
-    the adjoint (16 lanes, pairs in chunks of 16): every item has one
-    owner, in a slot the kernel compiles."""
+    """The N >= 7 lane plans of the Hessian flow (a warp per walker, its
+    pair and one-body MLP inputs in one list) and the adjoint (16 lanes,
+    pairs in chunks of 16): every item has one owner, in a slot the kernel
+    compiles."""
     d = 2 * n
     P = n * (n - 1) // 2
     assert hf.lanes_for(n) == 32 and rf.lanes_for(n) == 16
+    hplan = hf.lane_plan(n)
+    inputs, slots = hplan.pop("mlp_inputs")
+    owned = sorted(i for items in inputs for i, _ in items)
+    assert owned == sorted([("pair", p) for p in range(P)]
+                           + [("one_body", i) for i in range(n)])
+    for items in inputs:
+        used = [s for _, s in items]
+        assert len(set(used)) == len(used) and all(0 <= s < slots
+                                                   for s in used)
     for plan, counts in (
-            (hf.lane_plan(n), {"entries": 2 * d + 1 + d * (d + 1) // 2,
-                               "pairs": P, "one_body": n}),
+            (hplan, {"entries": 2 * d + 1 + d * (d + 1) // 2}),
             (rf.lane_plan(n, 50, 50), {"entries": 2 * d, "eta_units": 50,
                                        "mu_units": 50, "pairs": P,
                                        "one_body": n})):
@@ -274,9 +283,11 @@ def test_n7_to_10_lane_plans_own_everything_once(n):
                 assert len(set(used)) == len(used) and all(
                     0 <= s < slots for s in used), kind
     # The adjoint's pairs: 16 per chunk, one per lane (45 pairs, 3 chunks
-    # at N = 10); the Hessian flow's state: 8 entries per lane at N = 10.
+    # at N = 10); the Hessian flow's state: 8 entries per lane at N = 10,
+    # and its 55 MLP inputs 2 slots.
     assert rf.lane_plan(10, 50, 50)["pairs"][1] == 3
     assert hf.lane_plan(10)["entries"][1] == 8
+    assert hf.lane_plan(10)["mlp_inputs"][1] == 2
 
 
 def test_ground_state_kernels_take_n_up_to_10():
