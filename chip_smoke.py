@@ -22,12 +22,9 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      random stream and by their distribution (acceptance at tau=0.1, logp
      against log_prob).  The finite-T kernels (mixed-state sampler and
      VGH) run on states drawn from the Boltzmann probabilities at beta=2,
-     deltaE=2 (54 states).  Kernels are timed with CUDA events over a run
-     of launches; the reduce pass and its yardstick ``Tensor.sum``, and the
-     two Slater VGH kernels, by replaying a CUDA graph of 50 launches each
-     (device time only), printed beside the dispatch-inclusive times on the
-     ``reinforce_reduce timing:`` and ``... timing:`` lines of each VGH
-     kernel;
+     deltaE=2 (54 states).  A CUDA graph of 50 launches of each Slater VGH
+     kernel, of the reduce pass and of ``Tensor.sum`` on its partials must
+     recompute the captured output on replay;
   3. the oracles through the kernels: the identity flow at N=6, Z=0 gives
      Eloc = 14; at finite T (beta=2, deltaE=2, Boltzmann logits) every
      walker's Floc is the exact free energy 13.391808;
@@ -38,9 +35,7 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      (``cli.finite_t.main``, 20 iterations, --beta 2.0 --deltaE 2.0
      --boltzmann, otherwise alike); the ground-state per-iteration path
      (--steps-per-call 1, 3 iterations).  Each CLI runs its default, one
-     captured CUDA graph a chunk (``train.py``), and each path's line
-     prints the ms per iteration of the same run with every chunk eager
-     beside it (phases 6 and 7 too);
+     captured CUDA graph a chunk (``train.py``);
   5. one ground-state and one finite-T update against the plain-PyTorch
      updates on the card;
   6. the ground state at N=10 (docs/VALIDATION.md:19): each ground-state
@@ -74,10 +69,9 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      runs through captured chunks, made anew after each restore: the GS
      path (batch 8192, K=10) for 30 iterations with checkpoints every 10,
      and again cut at 20, its checkpoint restored in this process bitwise
-     (every tensor, Adam and both generators; the save and restore seconds
-     and the file size printed) and resumed to 30 in a fresh process of the
-     CLI: rows 21-30 and the final checkpoint bitwise equal to the
-     uninterrupted run's; the same for finite T (20 iterations, cut at 10);
+     (every tensor, Adam and both generators; the file size printed) and
+     resumed to 30 in a fresh process of the CLI: rows 21-30 and the final
+     checkpoint bitwise equal to the uninterrupted run's; the same for finite T (20 iterations, cut at 10);
      the fused GS chunks with chunk 2's metrics poisoned on the original
      stream, restored and completed at --max-restarts 1 (the WATCHDOG line),
      the JAX message at 0; the nested-jvp engine: the Z=0 identity oracle,
@@ -100,9 +94,8 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      NCCL rank with --shard, 40 iterations (the warm-up chunk and three
      replays), its chunks captured (the collectives inside the graph,
      counted once per replay) against the same rank eager: rows and state
-     bitwise, ms per iteration by chunk; against the run without a process
-     group: the first 20 E within 1e-6; (e) the pair's milliseconds per iteration and rank 0's
-     collectives (count and host ms per iteration);
+     bitwise; against the run without a process group: the first 20 E
+     within 1e-6;
  10. converged physics at N=2 (the Taut anchors, docs/VALIDATION.md:195-218):
      (a) kernels #1-#5 against their plain versions at nup=1, ndown=1,
      batch 8192, with phase 2's tolerances (acceptance 0.894 at tau=0.1,
@@ -121,7 +114,7 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      ``FreeFermion.sample(use_pallas=True)`` at 32768 walkers, 600 steps at
      tau=0.1, through kernel #5 (one launch) against the plain sampler on
      the card by distribution (<sum x^2> within 5 standard errors,
-     acceptance within 0.01), both times printed; (b) the ground-state path
+     acceptance within 0.01); (b) the ground-state path
      at N=6, Z=8, batch 8192, ode 4, K=10, lr 3e-3, 300 iterations (launch
      counts reset before): the mean E of rows 281-300 in [60.9, 61.8]; (c)
      ``cli.crossover_analysis`` at (b)'s checkpoint (32768 walkers):
@@ -134,40 +127,33 @@ Phases; any failure ends the run with a non-zero exit code and no result:
      default: every iteration 100 steps at tau 0.1 from Gaussians drawn on
      the card); after every chunk the walkers, tau, the flow's parameters
      and logits, the states and their probabilities, Adam's step and both
-     moments, both generators and every metric bitwise equal; (b) ms per
-     iteration of the captured and the eager chunk in turns (eager,
-     captured, captured, eager; 12 chunks of K=10 a turn, or 120 of K=1,
-     timed as the CLI times them) at GS N=6, GS N=10 (batch 4096), finite
+     moments, both generators and every metric bitwise equal; (b) the
+     captured chunk alone for 25 chunks of K=10 (250 iterations), or 250
+     of K=1, every E or F finite, at GS N=6, GS N=10 (batch 4096), finite
      T N=6 and finite T N=10 (batch 2048), and with fresh walkers at GS
-     N=6 (K=10 and K=1) and finite T N=6: median, min and max over 24
-     chunks each (240 at K=1), the capture's seconds and graph pool bytes;
-     (c) the CLI's ``--profile-dir`` trace of chunk 2 of the four
-     persistent paths and the fresh GS N=6 path, replayed and eager: the
-     kernels the card ran, ``cudaGraphLaunch``, ``cudaLaunchKernel`` and
-     ``cudaStreamSynchronize`` calls, the kernels launched outside a graph,
-     the host-to-card copies' bytes, the device's idle share, the port's
-     kernels' ms and PyTorch's (its five largest by name), the kernels run
-     more or fewer times replayed than eager, and the run's launches per
-     kernel; the GS N=6 replay must be one graph launch, at most 10
-     launches and no wait for the card before the replay's end, the fresh
-     one the same with no launch of its own but the registered device
-     generator's two fills and no host-to-card copy beyond the seed word.
-     Lines ``phase 12 timing:`` and ``phase 12 traces:`` hold (b) and (c)
-     as JSON.  Then (a)-(c) of the autograd A/B paths, captured as the
-     kernel chain is: (a) GS K=10 and finite T K=10 with every
-     ``--no-pallas-*`` flag, GS K=3 on the nested-jvp engine and GS K=10
-     with ``--no-pallas-reinforce`` alone, 3 chunks captured and eager side
-     by side after each of which every state tensor, Adam, both generators
+     N=6 (K=10 and K=1) and finite T N=6; (c) the CLI's ``--profile-dir``
+     trace of chunk 2, a replay, of the four persistent paths and the
+     fresh GS N=6 path: the kernels the card ran, ``cudaGraphLaunch``,
+     ``cudaLaunchKernel`` and ``cudaStreamSynchronize`` calls, the kernels
+     launched outside a graph, the host-to-card copies' bytes and the
+     run's launches per kernel; the GS N=6 replay must be one graph
+     launch, at most 10 launches and no wait for the card before the
+     replay's end, the fresh one the same with no launch of its own but
+     the registered device generator's two fills and no host-to-card copy
+     beyond the seed word.  A line ``phase 12 traces:`` holds (c) as JSON.
+     Then (a) and (c) of the autograd A/B paths, captured as the kernel
+     chain is: (a) GS K=10 and finite T K=10 with every ``--no-pallas-*``
+     flag, GS K=3 on the nested-jvp engine and GS K=10 with
+     ``--no-pallas-reinforce`` alone, 3 chunks captured and eager side by
+     side after each of which every state tensor, Adam, both generators
      and every metric are bitwise equal, with persistent walkers at batch
-     8192 and with fresh ones at batch 2048; (b) the persistent chunks 2
-     and 3 timed in turns (eager, captured, captured, eager): ms per
-     iteration, captured and eager, median, min and max over 2 chunks
-     each, with the capture's seconds and graph pool; (c) the trace of a
-     replayed chunk 2 of the ``--no-pallas-reinforce`` path, held to one
-     graph launch, no launch but the registered generator's fills, no
+     8192 and with fresh ones at batch 2048; (c) the trace of a replayed
+     chunk 2 of the ``--no-pallas-reinforce`` path, held to one graph
+     launch, no launch but the registered generator's fills, no
      host-to-card copy but the seed word and no wait before the replay's
-     end.  Lines ``phase 12 A/B timing:`` and ``phase 12 A/B trace:`` hold
-     their (b) and (c).
+     end, on a line ``phase 12 A/B trace:``.
+
+Kernel times come from ``kernel_turns.py``, the paths' from ``portbench/``.
 
 The kernels JSON line has a row per kernel at N=6 and, named ``<kernel>_n10``,
 at N=10 (with ptxas' registers, stack and spill bytes).
@@ -305,28 +291,10 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of ``fn`` over ``reps`` launches (warmed)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def graph_ms(fn, reps: int = 50, replays: int = 10):
-    """Mean device milliseconds of one ``fn`` launch, from a CUDA graph
-    that captures ``reps`` launches, timed with CUDA events over
-    ``replays`` replays: no host dispatch inside the window.  Fails unless
-    the replay recomputes the last captured output (proof that the launch
-    was captured).  Returns (ms, that output)."""
+def captured(fn, reps: int = 50):
+    """A CUDA graph that captures ``reps`` launches of ``fn``.  Fails unless
+    a replay recomputes the last captured output (proof that the launch was
+    captured).  Returns (the graph, that output)."""
     import torch
 
     expected = fn()
@@ -340,14 +308,7 @@ def graph_ms(fn, reps: int = 50, replays: int = 10):
     torch.cuda.synchronize()
     check(torch.equal(out, expected), "graph replay recomputes the captured "
           "launch's output")
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(replays):
-        graph.replay()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / (reps * replays), out
+    return graph, out
 
 
 def maxabs(a, b) -> float:
@@ -390,17 +351,6 @@ def vgh_against_plain(what, out_k, out_p, out_r):
     check(max(viol.values()) <= 1e-3, f"{what}: y/g/H within 2e-4/3e-3/5e-3 "
           "of the f64 plain version on >= 99.9% of entries")
     return err_r, err_p
-
-
-def vgh_times(what, fn):
-    """A VGH kernel's device time by CUDA-graph replay (``ms``; the replay
-    must recompute the captured H) and its dispatch-inclusive time over 50
-    back-to-back calls (``ms_dispatch``)."""
-    ms, _ = graph_ms(lambda: fn()[2])
-    disp = cuda_ms(fn, 50)
-    print(f"{what} timing: graph replay (device only) {ms:.6f} ms; "
-          f"dispatch-inclusive {disp:.6f} ms")
-    return dict(ms=ms, ms_dispatch=disp)
 
 
 def flow_grads_close(g_k, g_p):
@@ -669,7 +619,6 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
     later phases."""
     import torch
 
-    from fermiflow_tpu_torch.ops import _build
     from fermiflow_tpu_torch.ops.hessian_flow import (
         hessian_flow_cm,
         hessian_flow_cm_plain,
@@ -687,7 +636,6 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
         slater_vgh_cm,
         slater_vgh_cm_plain,
     )
-    from fermiflow_tpu_torch.utils import roofline
 
     model, _ = make_model(0.5, device, n, batch, ndown)
     nx_up, ny_up, nx_dn, ny_dn, ks = model.occ_qnums()
@@ -753,15 +701,8 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
     check(lp_bad <= 1e-3, "sampler: logp = log_prob (f64) within 1e-3 "
           "relative on >= 99.9% of walkers")
 
-    # The kernel timed alone: its seed in a device word made once, as the
-    # captured chunk hands it (an int seed costs a fill launch a call).
-    word = torch.full((1,), 5, dtype=torch.int32, device=z_eq.device)
-    k_ms = cuda_ms(lambda: metropolis_chains(z_eq, tau_eq, word, **chain), 20)
-    p_ms = cuda_ms(lambda: metropolis_chains_plain(z_eq, tau_eq, 5, **chain), 1)
-    flops, nbytes = roofline.metropolis_work(batch, n, ks, MCMC_STEPS, SEGMENTS)
     rows["metropolis_chains" + tag] = dict(
-        max_abs_err=max(err_x, err_lp, err_rate, err_tau), ms=k_ms,
-        plain_ms=p_ms, work=(flops, nbytes),
+        max_abs_err=max(err_x, err_lp, err_rate, err_tau),
         tolerance="x exact; rate, tau 1e-6; logp 1e-3; <=0.1% walkers "
                   "diverged by accept flips",
         diverged_frac=frac_flip)
@@ -772,11 +713,10 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
     out_r = slater_vgh_cm_plain(z_eq.double(), **occ)
     torch.cuda.synchronize()
     err_vgh64, err_vgh = vgh_against_plain("slater_vgh" + tag, out_vgh, out_p, out_r)
+    captured(lambda: slater_vgh_cm(z_eq, **occ)[2])
     rows["slater_vgh" + tag] = dict(
         max_abs_err=err_vgh64, max_abs_err_vs_plain_f32=err_vgh,
-        **vgh_times("slater_vgh" + tag, lambda: slater_vgh_cm(z_eq, **occ)),
-        plain_ms=cuda_ms(lambda: slater_vgh_cm_plain(z_eq, **occ), 3),
-        work=roofline.vgh_work(batch, n, ks), tolerance=VGH_TOLERANCE)
+        tolerance=VGH_TOLERANCE)
 
     # ---- 3. Hessian flow ----
     params = gaussian_params(gen, device, torch.float32, std)
@@ -798,11 +738,6 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
               f"hessian_flow {name}: kernel error <= 3x the plain f32 error")
     rows["hessian_flow" + tag] = dict(
         max_abs_err=err_hf, plain_f32_max_abs_err=err_hf32,
-        ms=cuda_ms(lambda: hessian_flow_cm(params, z_eq, y_k, g_k, H_k, *ts),
-                   20),
-        plain_ms=cuda_ms(lambda: hessian_flow_cm_plain(
-            params, z_eq, y_k, g_k, H_k, *ts), 1),
-        work=roofline.hflow_work(batch, n, D_ETA, D_MU, ODE_STEPS, 6),
         tolerance="per output, error vs f64 plain <= max(3 x plain f32 "
                   "error, 1e-5 max|ref| + 1e-6)")
 
@@ -837,32 +772,14 @@ def phase_kernels(device, rows, n=N, batch=BATCH, accept=ACCEPT_TAU01,
           "reinforce_reduce: block sum within nblocks * 2^-24 * sum|partials|")
     check(torch.equal(block_sum(partials), rows_k),
           "reinforce_reduce: two sums of the same partials are bitwise equal")
-    nblocks, nq = partials.shape
     rows["reinforce_adjoint" + tag] = dict(
         max_abs_err=e_k, plain_f32_max_abs_err=e_p,
-        ms=cuda_ms(lambda: reinforce_partials(params, x1, g1, w, *ts), 20),
-        plain_ms=cuda_ms(lambda: reinforce_cm_plain(params, x1, g1, w, *ts),
-                         1),
-        work=roofline.reinforce_work(batch, n, D_ETA, D_MU, ODE_STEPS, 6,
-                                     nblocks),
         tolerance="gradient error vs f64 plain <= max(3 x plain f32 error, "
                   "1e-5 max|ref| + 1e-7)")
-    # The plain version is itself one PyTorch call, so it is also the
-    # library yardstick; no single call computes the other kernels.  Both
-    # are timed on the device alone (graph replay); the dispatch-inclusive
-    # times (back-to-back calls from Python) are printed beside them.
-    red_ms, _ = graph_ms(lambda: block_sum(partials))
-    sum_ms, _ = graph_ms(lambda: partials.sum(0))
-    red_disp = cuda_ms(lambda: block_sum(partials), 50)
-    sum_disp = cuda_ms(lambda: partials.sum(0), 50)
-    print(f"reinforce_reduce{tag} timing: graph replay (device only) kernel "
-          f"{red_ms:.6f} ms, Tensor.sum {sum_ms:.6f} ms; dispatch-inclusive "
-          f"kernel {red_disp:.6f} ms, Tensor.sum {sum_disp:.6f} ms")
+    captured(lambda: block_sum(partials))
+    captured(lambda: partials.sum(0))
     rows["reinforce_reduce" + tag] = dict(
         max_abs_err=float(red_err.max()),
-        ms=red_ms, plain_ms=sum_ms, library_ms=sum_ms,
-        ms_dispatch=red_disp, library_ms_dispatch=sum_disp,
-        work=roofline.reduce_work(nblocks, nq),
         tolerance="nblocks * 2^-24 * sum_b |partials[b]| per row")
     return z_eq, params
 
@@ -912,7 +829,6 @@ def phase_single_chain(device, rows, z_eq, gen, n=N, batch=BATCH,
         metropolis_single_cm,
         metropolis_single_cm_plain,
     )
-    from fermiflow_tpu_torch.utils import roofline
 
     d = 2 * n
     f32 = dict(device=device, dtype=torch.float32)
@@ -940,15 +856,8 @@ def phase_single_chain(device, rows, z_eq, gen, n=N, batch=BATCH,
     check(abs(float(acc1.mean()) - accept) < 0.03 and lp_bad <= 1e-3,
           f"{what}: acceptance {accept} +- 0.03 at tau=0.1; "
           "logp = log_prob (f64) within 1e-3 relative on >= 99.9% of walkers")
-    word = torch.full((1,), 5, dtype=torch.int32, device=z_eq.device)
-    rows[what] = dict(
-        max_abs_err=err, diverged_frac=frac,
-        ms=cuda_ms(lambda: metropolis_single_cm(z_eq, tau01, word,
-                                                steps=MCMC_STEPS, **occ), 20),
-        plain_ms=cuda_ms(lambda: metropolis_single_cm_plain(
-            z_eq, tau01, 5, steps=MCMC_STEPS, **occ), 1),
-        work=roofline.metropolis_single_work(batch, n, ks, MCMC_STEPS),
-        tolerance=SINGLE_CHAIN_TOLERANCE)
+    rows[what] = dict(max_abs_err=err, diverged_frac=frac,
+                      tolerance=SINGLE_CHAIN_TOLERANCE)
 
 
 def phase_kernels_ms(device, rows, z_eq=None, n=N, beta=BETA, deltaE=DELTA_E,
@@ -968,7 +877,6 @@ def phase_kernels_ms(device, rows, z_eq=None, n=N, beta=BETA, deltaE=DELTA_E,
         slater_vgh_ms_cm,
         slater_vgh_ms_cm_plain,
     )
-    from fermiflow_tpu_torch.utils import roofline
 
     d = 2 * n
     gen = torch.Generator(device=device).manual_seed(seed)
@@ -1022,15 +930,8 @@ def phase_kernels_ms(device, rows, z_eq=None, n=N, beta=BETA, deltaE=DELTA_E,
           "tau=0.1 (the JAX mixed-state sampler's figure)")
     check(lp_bad <= 1e-3, f"{what}: logp = log_prob_multstates (f64) within "
           "1e-3 relative on >= 99.9% of walkers")
-    word = torch.full((1,), 5, dtype=torch.int32, device=z_ms.device)
-    rows[what] = dict(
-        max_abs_err=err, diverged_frac=frac,
-        ms=cuda_ms(lambda: metropolis_multistate_cm(
-            z_ms, tau01, word, steps=MCMC_STEPS, **ms), 20),
-        plain_ms=cuda_ms(lambda: metropolis_multistate_cm_plain(
-            z_ms, tau01, 5, steps=MCMC_STEPS, **ms), 1),
-        work=roofline.metropolis_ms_work(batch, n, kms, MCMC_STEPS),
-        tolerance=SINGLE_CHAIN_TOLERANCE)
+    rows[what] = dict(max_abs_err=err, diverged_frac=frac,
+                      tolerance=SINGLE_CHAIN_TOLERANCE)
 
     # ---- 6. mixed-state Slater value / gradient / packed Hessian ----
     what = "slater_vgh_ms" + tag
@@ -1040,11 +941,9 @@ def phase_kernels_ms(device, rows, z_eq=None, n=N, beta=BETA, deltaE=DELTA_E,
     out_r = slater_vgh_ms_cm_plain(z_ms.double(), *vgh)
     torch.cuda.synchronize()
     err_r, err_p = vgh_against_plain(what, out_k, out_p, out_r)
-    rows[what] = dict(
-        max_abs_err=err_r, max_abs_err_vs_plain_f32=err_p,
-        **vgh_times(what, lambda: slater_vgh_ms_cm(z_ms, *vgh)),
-        plain_ms=cuda_ms(lambda: slater_vgh_ms_cm_plain(z_ms, *vgh), 3),
-        work=roofline.vgh_ms_work(batch, n, kms), tolerance=VGH_TOLERANCE)
+    captured(lambda: slater_vgh_ms_cm(z_ms, *vgh)[2])
+    rows[what] = dict(max_abs_err=err_r, max_abs_err_vs_plain_f32=err_p,
+                      tolerance=VGH_TOLERANCE)
     return z_ms, idx
 
 
@@ -1131,7 +1030,7 @@ def phase_identity_oracle(device, z_eq, n=N):
 
 def drive_path(main, argv):
     """Run a CLI ``main`` with every launch count set to 0 just before and
-    read just after: (state, per-iteration records, counts, wall seconds)."""
+    read just after: (state, per-iteration records, counts)."""
     import tempfile
 
     import torch
@@ -1142,20 +1041,18 @@ def drive_path(main, argv):
         metrics = f"{tmp}/metrics.jsonl"
         torch.cuda.synchronize()
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
         state = main(argv + ["--metrics", metrics])
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
         counts = dict(_build.LAUNCHES)
         with open(metrics) as fh:
             recs = [json.loads(line) for line in fh]
-    return state, recs, counts, wall
+    return state, recs, counts
 
 
 @contextlib.contextmanager
 def eager_chunks():
-    """The CLIs with every chunk eager (``graph=False``), as before the
-    captured chunk: the timing beside the default's."""
+    """The CLIs with every chunk eager (``graph=False``): phase 9 (d)'s run
+    against the captured one."""
     from fermiflow_tpu_torch.cli import finite_t, ground_state
 
     patched = [(ground_state, "make_gs_fused_multi_step"),
@@ -1170,21 +1067,6 @@ def eager_chunks():
     finally:
         for (mod, name), fn in zip(patched, saved):
             setattr(mod, name, fn)
-
-
-def chunk_ms(recs, steps_per_call):
-    """Each chunk's ms per iteration from a CLI run's rows (at K = 1 each
-    row after the first, timed from the one before)."""
-    if steps_per_call == 1:
-        return [1e3 * r["iter_seconds"] for r in recs[1:]]
-    return [1e3 * r["iter_seconds"] for r in recs[::steps_per_call]]
-
-
-def eager_path_ms(main, argv, steps_per_call):
-    """``chunk_ms`` of the same CLI run with every chunk eager."""
-    with eager_chunks():
-        _, recs, _, _ = drive_path(main, argv)
-    return chunk_ms(recs, steps_per_call)
 
 
 def path_argv(device, iters, steps_per_call, n=N, batch=BATCH, lr="1e-3",
@@ -1206,16 +1088,10 @@ GS_KERNELS = ("metropolis_chains", "slater_vgh", "hessian_flow",
 def phase_main_path(device):
     from fermiflow_tpu_torch.cli import ground_state
 
-    argv = path_argv(device, MAIN_ITERS, SEGMENTS)
-    state, recs, counts, wall = drive_path(ground_state.main, argv)
-    # Each chunk's wall time (one sampler launch + K updates, ended by the
-    # metrics fetch) over K; the first chunk also pays the first-call costs
-    # (and the capture).
+    state, recs, counts = drive_path(ground_state.main,
+                                     path_argv(device, MAIN_ITERS, SEGMENTS))
     energies = [r["E"] for r in recs]
-    print(f"main path: {MAIN_ITERS} iterations in {wall:.3f} s wall (setup "
-          f"included); ms per iteration by chunk {chunk_ms(recs, SEGMENTS)} "
-          f"(eager: {eager_path_ms(ground_state.main, argv, SEGMENTS)}); "
-          f"launches {json.dumps(counts)}")
+    print(f"main path: {MAIN_ITERS} iterations; launches {json.dumps(counts)}")
     check(state.step == MAIN_ITERS and len(recs) == MAIN_ITERS,
           "main path: all iterations ran")
     # Variational: above the true ground state (~18.16 at N=6, Z=0.5) and
@@ -1233,15 +1109,11 @@ def phase_n10_path(device):
     float32 --persistent --steps-per-call 10, 20 iterations."""
     from fermiflow_tpu_torch.cli import ground_state
 
-    argv = path_argv(device, MAIN_ITERS, SEGMENTS, N10, BATCH10, LR10)
-    state, recs, counts, wall = drive_path(ground_state.main, argv)
-    ms = chunk_ms(recs, SEGMENTS)
-    eager = eager_path_ms(ground_state.main, argv, SEGMENTS)
+    state, recs, counts = drive_path(ground_state.main, path_argv(
+        device, MAIN_ITERS, SEGMENTS, N10, BATCH10, LR10))
     energies = [r["E"] for r in recs]
     lo = E_RANGE_N10[0]
-    print(f"N=10 path: {MAIN_ITERS} iterations in {wall:.3f} s wall (setup "
-          f"included); ms per iteration by chunk {ms} (steady: "
-          f"{ms[1]:.3f}; eager {eager[1]:.3f}); E first/last {energies[0]:.5f}/"
+    print(f"N=10 path: {MAIN_ITERS} iterations; E first/last {energies[0]:.5f}/"
           f"{energies[-1]:.5f}, E_std last {recs[-1]['E_std']:.4f}, accept "
           f"{recs[-1]['accept_rate']:.4f}; launches {json.dumps(counts)}")
     check(state.step == MAIN_ITERS and len(recs) == MAIN_ITERS,
@@ -1270,15 +1142,11 @@ def phase_beta_path(device, n=N, beta=BETA, deltaE=DELTA_E, batch=BATCH,
     f_range and, where given, the first within 1.0 of f_first."""
     from fermiflow_tpu_torch.cli import finite_t
 
-    argv = beta_argv(device, MAIN_ITERS, n, beta, deltaE, batch, lr)
-    state, recs, counts, wall = drive_path(finite_t.main, argv)
-    ms = chunk_ms(recs, SEGMENTS)
-    eager = eager_path_ms(finite_t.main, argv, SEGMENTS)
+    state, recs, counts = drive_path(finite_t.main, beta_argv(
+        device, MAIN_ITERS, n, beta, deltaE, batch, lr))
     frees = [r["F"] for r in recs]
     what = "finite-T path" + (f" N={n}" if n != N else "")
-    print(f"{what}: {MAIN_ITERS} iterations in {wall:.3f} s wall "
-          f"(setup included); ms per iteration by chunk {ms} (steady: "
-          f"{ms[1]:.3f}; eager {eager[1]:.3f}); F first/last "
+    print(f"{what}: {MAIN_ITERS} iterations; F first/last "
           f"{frees[0]:.5f}/{frees[-1]:.5f}; "
           f"S {recs[-1]['S']:.4f}, accept {recs[-1]['accept_rate']:.4f}; "
           f"launches {json.dumps(counts)}")
@@ -1308,13 +1176,11 @@ def phase_gs_single_path(device, n=N, batch=BATCH, lr="1e-3",
     """The ground-state per-iteration path (--steps-per-call 1)."""
     from fermiflow_tpu_torch.cli import ground_state
 
-    argv = path_argv(device, SINGLE_ITERS, 1, n, batch, lr)
-    state, recs, counts, wall = drive_path(ground_state.main, argv)
+    _, recs, counts = drive_path(ground_state.main, path_argv(
+        device, SINGLE_ITERS, 1, n, batch, lr))
     energies = [r["E"] for r in recs]
     lo, hi = e_range
-    print(f"per-iteration path N={n}: {SINGLE_ITERS} iterations in {wall:.3f} s "
-          f"wall; ms per iteration after the first {chunk_ms(recs, 1)} "
-          f"(eager: {eager_path_ms(ground_state.main, argv, 1)}); "
+    print(f"per-iteration path N={n}: {SINGLE_ITERS} iterations; "
           f"E {energies}; launches {json.dumps(counts)}")
     check(all(math.isfinite(e) and lo < e < hi for e in energies),
           f"per-iteration path N={n}: every energy is finite and in "
@@ -1464,8 +1330,6 @@ def phase_resume_start(device, finite, tmp):
     import argparse
     import os
 
-    import torch
-
     from fermiflow_tpu_torch.cli import common, finite_t, ground_state
     from fermiflow_tpu_torch.train import init_beta_state, init_gs_state
     from fermiflow_tpu_torch.utils import restore_checkpoint, save_checkpoint
@@ -1475,13 +1339,13 @@ def phase_resume_start(device, finite, tmp):
     iters = CKPT_ITERS_BETA if finite else CKPT_ITERS
     cut_at = iters - CKPT_EVERY
     whole_dir, cut_dir = f"{tmp}/whole", f"{tmp}/cut"
-    state_w, recs_w, counts_w, wall_w = drive_path(
+    _, recs_w, counts_w = drive_path(
         main, _ckpt_argv(device, iters, whole_dir, finite))
-    print(f"{what}: uninterrupted {iters} iterations in {wall_w:.3f} s, "
+    print(f"{what}: uninterrupted {iters} iterations, "
           f"checkpoints {sorted(os.listdir(whole_dir))}; launches "
           f"{json.dumps(counts_w)}")
-    state_c, _, _, _ = drive_path(main, _ckpt_argv(device, cut_at, cut_dir,
-                                                   finite))
+    state_c, _, _ = drive_path(main, _ckpt_argv(device, cut_at, cut_dir,
+                                                finite))
     # Restore the cut run's last checkpoint into a fresh state: every tensor
     # and both generators equal what the live run saved.
     parser = argparse.ArgumentParser()
@@ -1491,21 +1355,14 @@ def phase_resume_start(device, finite, tmp):
     build = common.build_beta if finite else common.build_gs
     init = init_beta_state if finite else init_gs_state
     model, params = build(cfg)
-    fresh = init(model, params, cfg, device)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fresh, step = restore_checkpoint(cut_dir, fresh)
-    torch.cuda.synchronize()
-    restore_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
+    fresh, step = restore_checkpoint(cut_dir,
+                                     init(model, params, cfg, device))
     path = save_checkpoint(f"{tmp}/live", step, state_c)
-    save_s = time.perf_counter() - t0
     again = save_checkpoint(f"{tmp}/restored", step, fresh)
     bad = _bitwise_dicts(_load(path), _load(again))
-    size = os.path.getsize(path)
-    print(f"{what}: checkpoint step {step}: save {save_s:.4f} s, restore "
-          f"{restore_s:.4f} s, {size} bytes; restored state against the "
-          f"live one: {'bitwise equal' if not bad else bad}")
+    print(f"{what}: checkpoint step {step}: {os.path.getsize(path)} bytes; "
+          f"restored state against the live one: "
+          f"{'bitwise equal' if not bad else bad}")
     check(step == cut_at and not bad, f"{what}: the restored tensors and "
           "generator states equal the saved ones bitwise")
     metrics = f"{tmp}/resumed.jsonl"
@@ -1519,21 +1376,15 @@ def phase_resume_start(device, finite, tmp):
             for r in recs_w]
     return dict(what=what, main=main, finite=finite, iters=iters,
                 cut_at=cut_at, tmp=tmp, recs=recs, proc=proc,
-                metrics=metrics, timing=dict(save_s=save_s,
-                                             restore_s=restore_s,
-                                             bytes=size))
+                metrics=metrics)
 
 
 def phase_resume_finish(device, run):
     """Waits for the resumed process; its rows after the cut and its last
     checkpoint against the uninterrupted run's."""
-    import os
-
     what, iters, cut_at, tmp = (run["what"], run["iters"], run["cut_at"],
                                 run["tmp"])
-    t0 = time.perf_counter()
     out, _ = run["proc"].communicate(timeout=300)
-    waited = time.perf_counter() - t0
     tail = out.strip().splitlines()[-3:]
     check(run["proc"].returncode == 0 and f"resumed from checkpoint step "
           f"{cut_at}" in out, f"{what}: the resumed process (the CLI) ran "
@@ -1545,7 +1396,7 @@ def phase_resume_finish(device, run):
     ckpt = f"ckpt_{iters:08d}.pt"
     bad = _bitwise_dicts(_load(f"{tmp}/whole/{ckpt}"),
                          _load(f"{tmp}/cut/{ckpt}"))
-    print(f"{what}: resumed process waited {waited:.1f} s; rows "
+    print(f"{what}: resumed process: rows "
           f"{steps[0]}..{steps[-1]} against the uninterrupted run's: "
           f"{'bitwise equal' if bitwise else 'DIFFERENT'}; final checkpoint: "
           f"{'bitwise equal' if not bad else bad}")
@@ -1556,7 +1407,6 @@ def phase_resume_finish(device, run):
     check(steps == list(range(cut_at + 1, iters + 1)) and bitwise and not bad,
           f"{what}: rows {cut_at + 1}-{iters} and the final state equal the "
           "uninterrupted run's bitwise")
-    return run["timing"]
 
 
 def phase_restart(device, tmp):
@@ -1646,14 +1496,13 @@ def phase_nested(device, z_eq, params):
     e0 = float(model0.basedist.orbitals.Es[:N].sum())
     x = z_eq.T.reshape(batch, N, 2)
     torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
     with torch.no_grad():
         eloc, _ = model0.local_energy(params0, x)
     torch.cuda.synchronize()
-    secs, peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
     err = (eloc.double() - e0).abs()
     frac = float((err > 1e-3).double().mean())
-    print(f"nested jvp identity oracle N={N} Z=0, batch {batch}: {secs:.3f} s, "
+    print(f"nested jvp identity oracle N={N} Z=0, batch {batch}: "
           f"peak {peak / 2**30:.2f} GiB; max|Eloc - {e0:g}| "
           f"{float(err.max()):.3e}, outside 1e-3: {frac:.2e}")
     check(bool(torch.isfinite(eloc).all()) and frac <= 1e-3,
@@ -1678,30 +1527,26 @@ def phase_nested(device, z_eq, params):
           "(relative) of the Hessian-flow kernels' E")
 
     torch.cuda.reset_peak_memory_stats()
-    state, recs, counts, wall = drive_path(
+    _, recs, counts = drive_path(
         ground_state.main, path_argv(device, 3, 3, batch=batch)
         + ["--local-energy", "nested_jvp"])
     peak_path = torch.cuda.max_memory_allocated()
     energies = [r["E"] for r in recs]
-    ms = 1e3 * recs[-1]["iter_seconds"]
-    print(f"nested-jvp path: batch {batch}, 3 iterations in {wall:.3f} s "
-          f"wall, {ms:.1f} ms per iteration (the K=3 chunk); E {energies}; "
-          f"peak {peak_path / 2**30:.2f} GiB; launches {json.dumps(counts)}")
+    print(f"nested-jvp path: batch {batch}, 3 iterations (one K=3 chunk); "
+          f"E {energies}; peak {peak_path / 2**30:.2f} GiB; launches {json.dumps(counts)}")
     check(len(recs) == 3 and all(math.isfinite(e) and 17.0 < e < 21.0
                                  for e in energies),
           "nested-jvp path: 3 iterations, every E finite and in (17, 21)")
     check(counts["metropolis_chains"] == 1 and sum(counts.values()) == 1,
           "nested-jvp path: one launch of kernel #1 and of no other")
-    _, recs1, counts1, wall1 = drive_path(
+    _, recs1, counts1 = drive_path(
         ground_state.main, path_argv(device, 1, 1, batch=batch)
         + ["--local-energy", "nested_jvp"])
-    print(f"nested-jvp path K=1: E {recs1[0]['E']:.5f}, "
-          f"{wall1:.3f} s wall; launches "
+    print(f"nested-jvp path K=1: E {recs1[0]['E']:.5f}; launches "
           f"{json.dumps(counts1)}")
     check(counts1["metropolis_single"] == 1 and sum(counts1.values()) == 1
           and 17.0 < recs1[0]["E"] < 21.0,
           "nested-jvp path K=1: one launch of kernel #5 and of no other")
-    return dict(batch=batch, ms=ms, peak_bytes=peak_path, wall=wall)
 
 
 def phase_solvers(device, z_eq, params, tmp):
@@ -1716,12 +1561,12 @@ def phase_solvers(device, z_eq, params, tmp):
     from fermiflow_tpu_torch.cli import ground_state
 
     for solver in ("adaptive", "adjoint"):
-        _, recs, counts, wall = drive_path(
+        _, recs, counts = drive_path(
             ground_state.main, path_argv(device, 2, 2, batch=SOLVER_BATCH)
             + ["--local-energy", "nested_jvp", "--ode-solver", solver])
         energies = [r["E"] for r in recs]
-        print(f"--ode-solver {solver}: batch {SOLVER_BATCH}, 2 iterations in "
-              f"{wall:.3f} s, E {energies}; launches {json.dumps(counts)}")
+        print(f"--ode-solver {solver}: batch {SOLVER_BATCH}, 2 iterations, "
+              f"E {energies}; launches {json.dumps(counts)}")
         check(len(recs) == 2 and all(math.isfinite(e) for e in energies)
               and counts["metropolis_chains"] == 1,
               f"--ode-solver {solver}: 2 iterations with finite E")
@@ -1746,7 +1591,7 @@ def phase_solvers(device, z_eq, params, tmp):
           "fixed grid's")
 
     movie = f"{tmp}/movie.npy"
-    state, _, counts, _ = drive_path(
+    state, _, counts = drive_path(
         ground_state.main, path_argv(device, 1, 1, batch=SOLVER_BATCH)
         + ["--movie", movie, "--movie-frames", str(MOVIE_FRAMES),
            "--movie-walkers", str(MOVIE_WALKERS)])
@@ -1780,10 +1625,10 @@ def phase_no_pallas(device, z_eq, params):
 
     flags = ["--no-pallas-sampler", "--no-pallas-local-energy",
              "--no-pallas-reinforce"]
-    _, recs, counts, wall = drive_path(
+    _, recs, counts = drive_path(
         ground_state.main, path_argv(device, 2, 2) + flags)
     energies = [r["E"] for r in recs]
-    print(f"--no-pallas-*: 2 iterations in {wall:.3f} s, E {energies}; "
+    print(f"--no-pallas-*: 2 iterations, E {energies}; "
           f"launches {json.dumps(counts)}")
     check(sum(counts.values()) == 0 and all(17.0 < e < 21.0 for e in energies),
           "--no-pallas-*: no kernel launched, every E in (17, 21)")
@@ -1918,7 +1763,7 @@ def _nccl_rank(device, graph: bool) -> dict:
     with counting_captures(captures), (
             contextlib.nullcontext() if graph else eager_chunks()), \
             contextlib.redirect_stdout(out):
-        state, recs, counts, _ = drive_path(
+        state, recs, counts = drive_path(
             ground_state.main, path_argv(device, MESH_NCCL_ITERS, SEGMENTS)
             + _dist_argv(1, 0, _free_port()) + ["--shard"])
     mesh_line = [ln for ln in out.getvalue().splitlines()
@@ -1928,7 +1773,7 @@ def _nccl_rank(device, graph: bool) -> dict:
                 mesh_line=mesh_line[0] if mesh_line else "(no mesh line)")
 
 
-def phase_mesh(device, tmp, smi):
+def phase_mesh(device, tmp):
     """(a) the GS production command (batch 8192 global, K=10, 20
     iterations, checkpoints every 10) as 2 ranks sharing the card over
     gloo against one process: walkers and tau bitwise at steps 10 and 20,
@@ -1937,8 +1782,7 @@ def phase_mesh(device, tmp, smi):
     walkers bitwise the one-process run's; (c) the finite-T path as 2 ranks
     against one process: F within MESH_FIRST_RTOL on the first row,
     MESH_BETA_RTOL on every row; (d) one rank of NCCL with --shard against
-    the run without it: every E within MESH_NCCL_RTOL; (e) the 2-rank
-    iteration ms and the collectives' ms and count per iteration."""
+    the run without it: every E within MESH_NCCL_RTOL."""
     import os
     import shutil
 
@@ -1946,11 +1790,9 @@ def phase_mesh(device, tmp, smi):
 
     gs2, gs1, resumed = f"{tmp}/gs2", f"{tmp}/gs1", f"{tmp}/resumed"
     gs_argv = _ckpt_argv(device, MESH_ITERS, gs2, False)
-    t0 = time.perf_counter()
     outs = _wait_ranks(_spawn_ranks(
         "ground_state", gs_argv + ["--metrics", f"{tmp}/gs2.jsonl"]),
         "mesh (a)")
-    wall2 = time.perf_counter() - t0
     for rank, out in enumerate(outs):
         check(f"torch.distributed: process {rank}/2, backend gloo" in out,
               f"mesh (a): rank {rank} printed its bring-up line")
@@ -1959,8 +1801,6 @@ def phase_mesh(device, tmp, smi):
     mesh_line = [ln for ln in outs[0].splitlines() if ln.startswith("mesh:")]
     check(len(mesh_line) == 1, "mesh (a): rank 0 printed the collectives")
     rows2 = _rows(f"{tmp}/gs2.jsonl")
-    secs2 = [r["iter_seconds"] for r in
-             (json.loads(ln) for ln in open(f"{tmp}/gs2.jsonl"))]
 
     # The (c) pair runs while this process drives the one-process runs.
     beta_argv = ["--beta", str(BETA), "--deltaE", str(DELTA_E),
@@ -1968,7 +1808,7 @@ def phase_mesh(device, tmp, smi):
     beta_procs = _spawn_ranks("finite_t", beta_argv + [
         "--metrics", f"{tmp}/beta2.jsonl"])
     try:
-        _, recs1, _, _ = drive_path(ground_state.main, _ckpt_argv(
+        _, recs1, _ = drive_path(ground_state.main, _ckpt_argv(
             device, MESH_ITERS, gs1, False))
         rows1 = [{k: v for k, v in r.items() if k not in TIMING_KEYS}
                  for r in recs1]
@@ -1981,7 +1821,7 @@ def phase_mesh(device, tmp, smi):
         drive_path(ground_state.main, _ckpt_argv(device, MESH_ITERS, resumed,
                                                  False))
         nccl = {graph: _nccl_rank(device, graph) for graph in (True, False)}
-        _, recs_b1, _, _ = drive_path(finite_t.main, beta_argv)
+        _, recs_b1, _ = drive_path(finite_t.main, beta_argv)
     except BaseException:
         for p in beta_procs:
             p.kill()
@@ -1997,7 +1837,7 @@ def phase_mesh(device, tmp, smi):
     print(f"mesh (a): GS N={N}, batch {BATCH} as 2 ranks on one card (gloo) "
           f"against one process: walkers and tau bitwise at steps "
           f"{json.dumps(same)}; E rel. diff first row {e_first:.3e}, largest "
-          f"{e_worst:.3e}; {wall2:.1f} s wall for the pair ({smi})")
+          f"{e_worst:.3e}")
     check(len(rows2) == MESH_ITERS and all(same.values()),
           "mesh (a): walkers and tau at steps 10 and 20 bitwise the "
           "one-process run's")
@@ -2035,11 +1875,8 @@ def phase_mesh(device, tmp, smi):
           f"{'bitwise equal' if rows_d == rows_e else 'DIFFERENT'}, state "
           f"{'bitwise equal' if not same_d else same_d[:8]}; against no "
           f"process group: E largest rel. diff {d_worst:.3e} over "
-          f"{MESH_ITERS} rows; ms per iteration by chunk, captured "
-          f"{chunk_ms(recs_d, SEGMENTS)}, eager "
-          f"{chunk_ms(nccl[False]['rows'], SEGMENTS)}; captured "
-          f"{nccl[True]['mesh_line']}; eager {nccl[False]['mesh_line']}; "
-          f"launches {json.dumps(counts_d)}")
+          f"{MESH_ITERS} rows; captured {nccl[True]['mesh_line']}; eager "
+          f"{nccl[False]['mesh_line']}; launches {json.dumps(counts_d)}")
     check(nccl[True]["captures"] > 0 and nccl[False]["captures"] == 0
           and "replayed" in nccl[True]["mesh_line"]
           and "(0 of them in replayed" not in nccl[True]["mesh_line"],
@@ -2050,19 +1887,12 @@ def phase_mesh(device, tmp, smi):
           "eager run's")
     check(len(recs_d) == MESH_NCCL_ITERS and d_worst <= MESH_NCCL_RTOL,
           f"mesh (d): every E within rtol {MESH_NCCL_RTOL:g}")
-    pair_ms = [1e3 * s for s in secs2[::SEGMENTS]]
-    print(f"mesh (e): 2 ranks sharing one card (their SMs too: not a "
-          f"scaling figure), ms per iteration by chunk {pair_ms}; rank 0 "
-          f"{mesh_line[0]} ({smi})")
-    return dict(pair_wall_s=wall2, chunk_ms=pair_ms, collectives=mesh_line[0],
-                e_first=e_first, e_worst=e_worst, f_first=f_first,
-                f_worst=f_worst, nccl_e_worst=d_worst)
 
 
 def phase_taut(device, tmp):
     """Phase 10 (b): the Taut singlet and triplet, TAUT_ITERS iterations
     each through ``cli.ground_state.main`` at the production protocol, with
-    checkpoints; returns each one's (tail mean, tail sem, counts, wall)."""
+    checkpoints; returns each one's (tail mean, tail sem)."""
     from fermiflow_tpu_torch.cli import ground_state
 
     out = {}
@@ -2074,15 +1904,13 @@ def phase_taut(device, tmp):
             "--iternum", str(TAUT_ITERS), "--Deta", str(D_ETA), "--Dmu",
             str(D_MU), "--device", device.type, "--checkpoint-dir",
             f"{tmp}/{name}", "--checkpoint-every", str(TAUT_ITERS // 2)])
-        state, recs, counts, wall = drive_path(ground_state.main, argv)
+        state, recs, counts = drive_path(ground_state.main, argv)
         tail = [r["E"] for r in recs[-TAUT_TAIL:]]
         mean = sum(tail) / len(tail)
         sem = math.sqrt(sum((e - mean) ** 2 for e in tail)
                         / (len(tail) - 1) / len(tail))
-        ms = sorted(1e3 * r["iter_seconds"] for r in recs[::SEGMENTS])
         lo, hi = spec["e_range"]
-        print(f"taut {name}: {TAUT_ITERS} iterations in {wall:.3f} s wall, "
-              f"median chunk {ms[len(ms) // 2]:.3f} ms per iteration; E of "
+        print(f"taut {name}: {TAUT_ITERS} iterations; E of "
               f"rows {TAUT_ITERS - TAUT_TAIL + 1}-{TAUT_ITERS} {mean:.5f} +- "
               f"{sem:.5f}; launches {json.dumps(counts)}")
         check(state.step == TAUT_ITERS and len(recs) == TAUT_ITERS
@@ -2092,7 +1920,7 @@ def phase_taut(device, tmp):
               f"{TAUT_ITERS - TAUT_TAIL + 1}-{TAUT_ITERS} in ({lo}, {hi})")
         check(all(counts[k] > 0 for k in GS_KERNELS),
               f"taut {name}: every kernel of the path was launched")
-        out[name] = (mean, sem, counts, wall)
+        out[name] = (mean, sem)
     return out
 
 
@@ -2105,21 +1933,19 @@ def phase_eval(device, ckpt, tail_mean, tail_sem, tmp):
     res = {}
     for engine in ("hessian_flow", "nested_jvp"):
         _build.reset_launch_counts()
-        t0 = time.perf_counter()
         res[engine] = eval_at_checkpoint.main([
             "--ckpt", ckpt, "--nup", "1", "--ndown", "1", "--Z", "1.0",
             "--batch", str(BATCH), "--train-batch", str(BATCH), "--equil",
             str(EVAL_EQUIL), "--reps", str(EVAL_REPS), "--ode-steps", "8",
             "--Deta", str(D_ETA), "--Dmu", str(D_MU), "--engine", engine, "--device", device.type, "--out",
             f"{tmp}/eval_{engine}.json"])
-        wall = time.perf_counter() - t0
         counts = {k: v for k, v in _build.LAUNCHES.items() if v}
         r = res[engine]
         tol = 3.0 * math.hypot(r["E_sem"], tail_sem) + 0.005
         print(f"eval {engine}: step {r['step']}, E {r['E']:.5f} +- "
               f"{r['E_sem']:.5f} over {r['n_total']} fresh walkers, tail "
               f"{tail_mean:.5f}, |d| {abs(r['E'] - tail_mean):.5f} (tol "
-              f"{tol:.5f}); {wall:.3f} s; launches {json.dumps(counts)}")
+              f"{tol:.5f}); launches {json.dumps(counts)}")
         check(math.isfinite(r["E"]) and abs(r["E"] - tail_mean) <= tol,
               f"eval {engine}: E within 3 combined sems + 0.005 of the "
               "training tail")
@@ -2149,7 +1975,7 @@ def phase_converged(device, tmp):
         device=device).manual_seed(SEED + 31), 2, BATCH, ACCEPT_TAU01_11,
         "_11", ndown=1)
     taut = phase_taut(device, tmp)
-    mean, sem, _, _ = taut["singlet"]
+    mean, sem = taut["singlet"]
     phase_eval(device, f"{tmp}/singlet", mean, sem, tmp)
     return rows11
 
@@ -2157,7 +1983,7 @@ def phase_converged(device, tmp):
 def phase_strong_coupling(device, tmp):
     """Phase 11: (a) the kernel route of ``FreeFermion.sample`` against the
     plain sampler; (b) the GS path at Z = 8; (c) the crossover structure at
-    (b)'s checkpoint.  Returns the seconds of (a)'s two draws."""
+    (b)'s checkpoint."""
     import numpy as np
     import torch
 
@@ -2172,24 +1998,20 @@ def phase_strong_coupling(device, tmp):
     for name, use in (("kernel", True), ("plain", False)):
         gen = torch.Generator(device=device).manual_seed(SEED + 41)
         before = _build.LAUNCHES["metropolis_single"]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         x, acc = fb.sample(up, dn, gen, (XOVER_WALKERS,),
                            equilibrium_steps=XOVER_EQUIL, tau=0.1,
                            dtype=torch.float32, use_pallas=use,
                            return_accept=True)
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
         launched = _build.LAUNCHES["metropolis_single"] - before
         check(launched == (1 if use else 0), f"sample {name}: kernel #5 "
               f"launched {int(use)} time(s)")
         r2 = (x.double()**2).sum((-2, -1))
-        draws[name] = (r2, float(acc.mean()), secs)
-    (r2k, acck, sk), (r2p, accp, sp) = draws["kernel"], draws["plain"]
+        draws[name] = (r2, float(acc.mean()))
+    (r2k, acck), (r2p, accp) = draws["kernel"], draws["plain"]
     se = float(torch.hypot(r2k.std(), r2p.std())) / math.sqrt(XOVER_WALKERS)
     dr2 = float(r2k.mean() - r2p.mean())
-    print(f"sample {XOVER_WALKERS} walkers x {XOVER_EQUIL} steps: kernel "
-          f"route {sk:.4f} s, plain {sp:.4f} s; <sum x^2> {float(r2k.mean()):.5f}"
+    print(f"sample {XOVER_WALKERS} walkers x {XOVER_EQUIL} steps, kernel "
+          f"route against plain: <sum x^2> {float(r2k.mean()):.5f}"
           f" against {float(r2p.mean()):.5f} (diff {dr2:+.5f}, se {se:.5f}); "
           f"acceptance {acck:.4f} against {accp:.4f}")
     check(abs(dr2) < 5 * se and abs(acck - accp) < 0.01,
@@ -2203,13 +2025,11 @@ def phase_strong_coupling(device, tmp):
             str(XOVER_ITERS), "--Deta", str(D_ETA), "--Dmu", str(D_MU),
             "--device", device.type, "--checkpoint-dir", ckpt,
             "--checkpoint-every", str(XOVER_ITERS)]
-    state, recs, counts, wall = drive_path(ground_state.main, argv)
+    state, recs, counts = drive_path(ground_state.main, argv)
     tail = [r["E"] for r in recs[-XOVER_TAIL:]]
     mean = sum(tail) / len(tail)
-    ms = sorted(1e3 * r["iter_seconds"] for r in recs[::SEGMENTS])
     lo, hi = XOVER_E_RANGE
-    print(f"Z={XOVER_Z:g}: {XOVER_ITERS} iterations in {wall:.3f} s wall, "
-          f"median chunk {ms[len(ms) // 2]:.3f} ms per iteration; E first "
+    print(f"Z={XOVER_Z:g}: {XOVER_ITERS} iterations; E first "
           f"{recs[0]['E']:.4f}, rows {XOVER_ITERS - XOVER_TAIL + 1}-"
           f"{XOVER_ITERS} {mean:.5f}; launches {json.dumps(counts)}")
     check(state.step == XOVER_ITERS and len(recs) == XOVER_ITERS
@@ -2226,9 +2046,7 @@ def phase_strong_coupling(device, tmp):
              "--Deta", str(D_ETA), "--Dmu", str(D_MU), "--device",
              device.type, "--out", f"{tmp}/xover.json"]
     _build.reset_launch_counts()
-    t0 = time.perf_counter()
     rec = crossover_analysis.main(flags)
-    secs = time.perf_counter() - t0
     check(_build.LAUNCHES["metropolis_single"] == 1,
           "crossover: the walkers drawn through kernel #5")
     norm_err = abs(rec["norm_integral"] - N * rec["inside_fraction"])
@@ -2244,7 +2062,7 @@ def phase_strong_coupling(device, tmp):
                 for i in range(N) for j in range(i + 1, N))
     v_plain = float(v_int.mean())
     rel = abs(rec["V_int"] - v_plain) / v_plain
-    print(f"crossover at Z={XOVER_Z:g} ({secs:.3f} s): rms r "
+    print(f"crossover at Z={XOVER_Z:g}: rms r "
           f"{rec['rms_r']:.5f}, mean pair distance "
           f"{rec['mean_pair_distance']:.5f}, n(0) {rec['n0']:.5f}, V_int "
           f"{rec['V_int']:.5f} (float64 pair sum {v_plain:.5f}, relative "
@@ -2254,24 +2072,20 @@ def phase_strong_coupling(device, tmp):
           f"(share inside rmax) to {XOVER_NORM_TOL:g}")
     check(rel <= XOVER_VINT_RTOL, f"crossover: V_int within "
           f"{XOVER_VINT_RTOL:g} of the float64 recomputation")
-    return {"kernel_s": sk, "plain_s": sp}
 
 
 # ---- phase 12: the compiled chunk (train.py) ----
 
 GRAPH_CHUNKS = 3  # (a): the warm-up chunk, then two replays
-GRAPH_TURN_CHUNKS = 12  # (b): chunks per turn; two turns each way
+GRAPH_RUN_CHUNKS = 25  # (b): chunks of K=10 (ten times as many at K=1)
 GRAPH_TRACE_ITERS = 30  # (c): the CLI traces chunk 2, a replay
-# The port's kernels by name in a trace (csrc/*.cu); every other kernel is
-# PyTorch's.
-PORT_KERNEL = re.compile(r"metropolis|slater_vgh|hessian_flow|reinforce")
 
 
 def _graph_configs(device):
     """(name, CLI argv at ``iters``, finite T, K, traced) of the paths phase
-    12 times, and traces where ``traced``: the four persistent-walker paths
-    and the fresh-walker protocol (the CLIs' default) at GS N=6, K=10 and
-    K=1, and finite T N=6."""
+    12 (b) runs, and (c) traces where ``traced``: the four persistent-walker
+    paths and the fresh-walker protocol (the CLIs' default) at GS N=6, K=10
+    and K=1, and finite T N=6."""
     return [
         ("GS N=6", lambda it: path_argv(device, it, SEGMENTS), False,
          SEGMENTS, True),
@@ -2347,32 +2161,23 @@ def _state_snapshot(state):
 
 def _side_by_side(tag, what, argv, finite, K):
     """GRAPH_CHUNKS chunks of the CLI run ``argv`` captured and eager from
-    the same seed, side by side, each chunk timed as the CLI times it (the
-    chunk and its metrics fetch, over K); the first chunk of each (the
-    warm-up and capture) untimed, the later ones in turns (eager, captured,
-    captured, eager).  Fails unless every state tensor, Adam's step and
+    the same seed, side by side, in turns (captured, eager, then eager,
+    captured, ...).  Fails unless every state tensor, Adam's step and
     moments, both generators and every metric are bitwise equal after
-    every chunk (phase 12 ``tag``).  Returns ms per iteration of each
-    side's timed chunks, the capture's seconds and pool, one replay's
-    launches."""
-    import statistics
-
+    every chunk (phase 12 ``tag``), and unless every E or F is finite."""
     import torch
 
     from fermiflow_tpu_torch.utils import MetricsLogger
 
     runs = {g: list(_path_chunk(argv, finite, K, g)) for g in (True, False)}
-    times, bad = {True: [], False: []}, set()
+    bad = set()
     key, finite_rows = ("F" if finite else "E"), True
     for i in range(GRAPH_CHUNKS):
         snaps = {}
         for graph in ((True, False) if i % 2 == 0 else (False, True)):
             state, chunk = runs[graph]
-            t0 = time.perf_counter()
             state, m = chunk(state)
             recs = MetricsLogger(None).log_many(1, m, time.time())
-            if i:
-                times[graph].append(1e3 * (time.perf_counter() - t0) / K)
             finite_rows &= all(math.isfinite(r[key]) for r in recs)
             runs[graph][0] = state
             snaps[graph] = dict(_state_snapshot(state),
@@ -2386,27 +2191,21 @@ def _side_by_side(tag, what, argv, finite, K):
     print(f"phase 12 {tag} {what}: {GRAPH_CHUNKS} chunks "
           f"({GRAPH_CHUNKS * K} iterations; the first eager, then replays), "
           f"captured against eager: "
-          f"{'bitwise equal' if not bad else sorted(bad)[:8]}; capture "
-          f"{chunk.capture_seconds:.4f} s, graph pool {chunk.pool_bytes} "
-          f"bytes", flush=True)
+          f"{'bitwise equal' if not bad else sorted(bad)[:8]}", flush=True)
     check(chunk._replay is not None and runs[True][0].step
           == runs[False][0].step == GRAPH_CHUNKS * K and not bad,
           f"phase 12 {tag} {what}: the captured chunk's state, Adam, "
           "generators and metrics equal the eager chunk's bitwise")
     check(finite_rows, f"phase 12 {tag} {what}: every {key} finite")
-    row = {"capture_s": chunk.capture_seconds, "pool_bytes": chunk.pool_bytes,
-           "replay_launches": {k: v for k, v in chunk.launches.items() if v}}
-    for graph, name in ((True, "graphed"), (False, "eager")):
-        t = sorted(times[graph])
-        row[name] = dict(median=statistics.median(t), min=t[0], max=t[-1],
-                         chunks=len(t))
-    return row
 
 
 def phase_graph_bitwise(device):
     """Phase 12 (a): the captured chunk against the eager one from the same
     seed, side by side (``_side_by_side``): GS N=6 at K=10 and K=1, finite
-    T N=6 at K=10, each with persistent and with fresh walkers."""
+    T N=6 at K=10, each with persistent and with fresh walkers, and GS and
+    finite T N=10 at K=10 with persistent walkers (the eager chunk at N=10,
+    which the gloo mesh, the adaptive and adjoint solvers and
+    ``--debug-nans`` run)."""
     for persistent in (True, False):
         tag = "" if persistent else " fresh"
         for what, argv, finite, K in (
@@ -2419,72 +2218,38 @@ def phase_graph_bitwise(device):
                                                 persistent=persistent),
                  True, SEGMENTS)):
             _side_by_side("(a)", what + tag, argv, finite, K)
+    _side_by_side("(a)", "GS N=10 K=10", path_argv(
+        device, 0, SEGMENTS, N10, BATCH10, LR10), False, SEGMENTS)
+    _side_by_side("(a)", "finite T N=10 K=10", beta_argv(
+        device, 0, N10, BETA10, DELTA_E10, BATCH_BETA10, LR_BETA10), True,
+        SEGMENTS)
 
 
-def phase_graph_timing(device):
-    """Phase 12 (b): ms per iteration of the captured and the eager chunk
-    (K=10, or K=1 with ten times the chunks) in turns, eager, captured,
-    captured, eager, GRAPH_TURN_CHUNKS chunks of K=10 a turn, each timed
-    as the CLI times it (the chunk and its metrics fetch, over K), after
-    one untimed chunk each (the warm-up and capture).  Returns {path: row},
-    with the capture's seconds and pool and one replay's launches."""
-    import statistics
-
+def phase_graph_finite(device):
+    """Phase 12 (b): the captured chunk of each path of ``_graph_configs``
+    for GRAPH_RUN_CHUNKS chunks of K=10 (ten times as many at K=1), each
+    chunk's rows fetched as the CLI fetches them: every E or F finite."""
     import torch
 
     from fermiflow_tpu_torch.utils import MetricsLogger
 
-    rows = {}
     for what, argv, finite, K, _ in _graph_configs(device):
-        runs = {}
-        for graph in (False, True):
-            state, chunk = _path_chunk(argv(0), finite, K, graph)
-            state, m = chunk(state)
-            MetricsLogger(None).log_many(1, m, time.time())
-            runs[graph] = [state, chunk, []]
+        state, chunk = _path_chunk(argv(0), finite, K, True)
+        logger = MetricsLogger(None)
         key, finite_rows = ("F" if finite else "E"), True
-        for graph in (False, True, True, False):
-            state, chunk, times = runs[graph]
-            logger = MetricsLogger(None)
-            for _ in range(GRAPH_TURN_CHUNKS * SEGMENTS // K):
-                t0 = time.perf_counter()
-                state, m = chunk(state)
-                recs = (logger.log_many(1, m, time.time()) if K > 1
-                        else [logger.log(1, m)])
-                times.append(1e3 * (time.perf_counter() - t0) / K)
-                finite_rows &= all(math.isfinite(r[key]) for r in recs)
-            runs[graph][0] = state
+        for _ in range(GRAPH_RUN_CHUNKS * SEGMENTS // K):
+            state, m = chunk(state)
+            recs = (logger.log_many(1, m, time.time()) if K > 1
+                    else [logger.log(1, m)])
+            finite_rows &= all(math.isfinite(r[key]) for r in recs)
         check(finite_rows, f"phase 12 (b) {what}: every {key} finite")
-        stats = {}
-        for graph, name in ((True, "graphed"), (False, "eager")):
-            t = sorted(runs[graph][2])
-            stats[name] = dict(median=statistics.median(t), min=t[0],
-                               max=t[-1], p10=t[len(t) // 10],
-                               p90=t[-1 - len(t) // 10], chunks=len(t))
-        chunk = runs[True][1]
-        rows[what] = dict(stats, capture_s=chunk.capture_seconds,
-                          pool_bytes=chunk.pool_bytes,
-                          replay_launches=chunk.launches)
-        g, e = stats["graphed"], stats["eager"]
-        print(f"phase 12 (b) {what}: ms per iteration over {g['chunks']} "
-              f"chunks each, captured median {g['median']:.4f} (min "
-              f"{g['min']:.4f}, max {g['max']:.4f}), eager median "
-              f"{e['median']:.4f} (min {e['min']:.4f}, max {e['max']:.4f}); "
-              f"capture {chunk.capture_seconds:.4f} s, graph pool "
-              f"{chunk.pool_bytes} bytes", flush=True)
-        del runs
+        del state, chunk
         torch.cuda.empty_cache()
-    return rows
 
 
-def phase_graph_traces(device, tmp, timing):
-    """Phase 12 (c): the CLI's ``--profile-dir`` trace of chunk 2 (K=10) of
-    each traced path, a replay, and of the same chunk eager: kernels the
-    card ran, ``cudaGraphLaunch``, ``cudaLaunchKernel`` and
-    ``cudaStreamSynchronize`` calls, the kernels launched outside a graph,
-    the host-to-card copies and their bytes, the device's idle share, the
-    run's kernel launch counts (GRAPH_TRACE_ITERS iterations), and the
-    capture's seconds and pool (phase 12 (b)'s chunk).  The GS N=6 replay,
+def phase_graph_traces(device, tmp):
+    """Phase 12 (c): the CLI's ``--profile-dir`` trace of chunk 2 (K=10), a
+    replay, of each traced path (``_trace_row``).  The GS N=6 replay,
     persistent and fresh, must be one graph launch, no wait for the card
     before the replay's end, at most 10 launches (persistent) or only the
     registered device generator's two fills of its seed and offset
@@ -2494,18 +2259,15 @@ def phase_graph_traces(device, tmp, timing):
     for what, argv, finite, _, traced in _graph_configs(device):
         if not traced:
             continue
-        row = _trace_row(what, argv, finite, tmp, ("graphed", "eager"))
-        row.update(capture_s=timing[what]["capture_s"],
-                   pool_bytes=timing[what]["pool_bytes"])
-        out[what] = row
+        out[what] = row = _trace_row(what, argv, finite, tmp)
         print(f"phase 12 (c) {what}: traced chunk 2 (10 iterations): "
               f"{json.dumps(row)}", flush=True)
-    g = out["GS N=6"]["graphed"]
+    g = out["GS N=6"]
     check(g["graph_launches"] == 1 and g["launches"] <= 10
           and g["syncs_before_replay_end"] == 0 and g["kernels"] > 0,
           "phase 12 (c): the GS N=6 replay is one graph launch, at most 10 "
           "launches and no wait for the card before its end")
-    f = out["GS N=6 fresh"]["graphed"]
+    f = out["GS N=6 fresh"]
     fills = f["own_launch_kernels"]
     check(f["graph_launches"] == 1 and f["syncs_before_replay_end"] == 0
           and f["kernels"] > 0 and f["launches"] == len(fills) <= 2
@@ -2519,80 +2281,48 @@ def phase_graph_traces(device, tmp, timing):
     return out
 
 
-def _trace_row(what, argv, finite, tmp, modes):
-    """The CLI's ``--profile-dir`` trace of chunk 2 of ``argv`` (at
-    GRAPH_TRACE_ITERS iterations) in each of ``modes`` ("graphed", the
-    default, or "eager"): the counts phase 12 (c) prints."""
+def _trace_row(what, argv, finite, tmp):
+    """The CLI's ``--profile-dir`` trace of chunk 2, a replay, of ``argv``
+    (at GRAPH_TRACE_ITERS iterations): the kernels the card ran, the
+    ``cudaGraphLaunch``, ``cudaLaunchKernel`` and ``cudaStreamSynchronize``
+    calls, the waits before the replay's end, the kernels launched outside
+    the graph, the host-to-card copies' bytes and the run's launch counts."""
     from fermiflow_tpu_torch.cli import finite_t, ground_state
 
-    main = finite_t.main if finite else ground_state.main
-    row, names = {}, {}
-    for name in modes:
-        prof = f"{tmp}/{what.replace(' ', '_')}_{name}"
-        with (eager_chunks() if name == "eager"
-              else contextlib.nullcontext()):
-            _, _, counts, _ = drive_path(
-                main, argv(GRAPH_TRACE_ITERS) + ["--profile-dir", prof])
-        with open(f"{prof}/summary.json") as fh:
-            summ = json.load(fh)
-        calls = summ["runtime_calls"]
-        row[name] = dict(
-            kernels=summ.get("kernels"),
-            graph_launches=calls["cudaGraphLaunch"],
-            launches=calls["cudaLaunchKernel"]
-            + calls["cudaLaunchKernelExC"],
-            syncs=calls["cudaStreamSynchronize"],
-            idle_share=summ.get("device_idle_share"),
-            busy_ms=summ.get("device_busy_ms"),
-            window_ms=summ["window_ms"],
-            kernel_launches={k: v for k, v in counts.items() if v})
-        with open(f"{prof}/trace.json") as fh:
-            evs = [e for e in json.load(fh)["traceEvents"]
-                   if e.get("ph") == "X"]
-        # Kernels launched on their own (by cudaLaunchKernel, not by
-        # the graph), and the host-to-card copies with their bytes.
-        own = {e.get("args", {}).get("correlation") for e in evs
-               if e["name"].startswith("cudaLaunchKernel")}
-        row[name]["own_launch_kernels"] = [
-            e["name"][:80] for e in evs if e.get("cat") == "kernel"
-            and e.get("args", {}).get("correlation") in own]
-        row[name]["htod_bytes"] = [
-            e.get("args", {}).get("bytes") for e in evs
-            if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]]
-        names[name], other = {}, {}
-        for e in evs:
-            if e.get("cat") == "kernel":
-                names[name][e["name"]] = names[name].get(e["name"], 0) + 1
-                if not PORT_KERNEL.search(e["name"]):
-                    other[e["name"][:60]] = (other.get(e["name"][:60], 0.0)
-                                             + float(e["dur"]) / 1e3)
-        row[name]["port_kernels_ms"] = sum(
-            float(e["dur"]) / 1e3 for e in evs if e.get("cat") == "kernel"
-            and PORT_KERNEL.search(e["name"]))
-        row[name]["other_kernels_ms"] = sum(other.values())
-        row[name]["other_kernels_top"] = dict(sorted(
-            other.items(), key=lambda kv: -kv[1])[:5])
-        if name == "graphed":
-            ends = [float(e["ts"]) + float(e["dur"]) for e in evs
-                    if e["name"] == "cudaGraphLaunch"]
-            row[name]["syncs_before_replay_end"] = sum(
-                1 for e in evs if e["name"] == "cudaStreamSynchronize"
-                and ends and float(e["ts"]) < max(ends))
-    if len(modes) == 2:
-        # Kernels the replay ran more or fewer times than the eager chunk.
-        row["kernel_count_differences"] = {
-            k[:60]: [names["graphed"].get(k, 0), names["eager"].get(k, 0)]
-            for k in sorted(set(names["graphed"]) | set(names["eager"]))
-            if names["graphed"].get(k, 0) != names["eager"].get(k, 0)}
-    return row
+    prof = f"{tmp}/{what.replace(' ', '_')}"
+    _, _, counts = drive_path(finite_t.main if finite else ground_state.main,
+                              argv(GRAPH_TRACE_ITERS) + ["--profile-dir", prof])
+    with open(f"{prof}/summary.json") as fh:
+        calls = (summ := json.load(fh))["runtime_calls"]
+    with open(f"{prof}/trace.json") as fh:
+        evs = [e for e in json.load(fh)["traceEvents"] if e.get("ph") == "X"]
+    # Kernels launched on their own (by cudaLaunchKernel, not by the graph),
+    # and the host-to-card copies with their bytes.
+    own = {e.get("args", {}).get("correlation") for e in evs
+           if e["name"].startswith("cudaLaunchKernel")}
+    ends = [float(e["ts"]) + float(e["dur"]) for e in evs
+            if e["name"] == "cudaGraphLaunch"]
+    return dict(
+        kernels=summ.get("kernels"),
+        graph_launches=calls["cudaGraphLaunch"],
+        launches=calls["cudaLaunchKernel"] + calls["cudaLaunchKernelExC"],
+        syncs=calls["cudaStreamSynchronize"],
+        syncs_before_replay_end=sum(
+            1 for e in evs if e["name"] == "cudaStreamSynchronize"
+            and ends and float(e["ts"]) < max(ends)),
+        own_launch_kernels=[e["name"][:80] for e in evs
+                            if e.get("cat") == "kernel"
+                            and e.get("args", {}).get("correlation") in own],
+        htod_bytes=[e.get("args", {}).get("bytes") for e in evs
+                    if e.get("cat") == "gpu_memcpy" and "HtoD" in e["name"]],
+        kernel_launches={k: v for k, v in counts.items() if v})
 
 
-# Phase 12 (a)-(c) of the autograd A/B paths, captured like the kernel
+# Phase 12 (a) and (c) of the autograd A/B paths, captured like the kernel
 # chain.  A chunk of them is tens of thousands of kernels (the plain
 # samplers and Hessian flow, autograd) whose eager run and capture take
-# seconds of the host's time, so (a) and (b) share their chunks
-# (``_side_by_side``), and the fresh-walker cases, held bitwise only, run
-# at AB_FRESH_BATCH walkers.
+# seconds of the host's time, so the fresh-walker cases run at
+# AB_FRESH_BATCH walkers.
 NO_PALLAS = ["--no-pallas-sampler", "--no-pallas-local-energy",
              "--no-pallas-reinforce"]
 AB_FRESH_BATCH = 2048
@@ -2620,34 +2350,24 @@ def _ab_configs(device, persistent=True, batch=BATCH):
 
 
 def phase_graph_ab(device, tmp):
-    """Phase 12 (a)-(c) of the autograd A/B paths (``_ab_configs``): (a)
-    bitwise and (b) timed, persistent at batch 8192 (``_side_by_side``), and
-    (a) again with fresh walkers at AB_FRESH_BATCH; (c) the trace of a
-    replayed chunk 2 of the GS ``--no-pallas-reinforce`` path: one graph
-    launch, no launch of its own but the registered device generator's two
-    fills, no host-to-card copy beyond the seed word, no wait for the card
-    before the replay's end.  Returns ((b)'s rows, (c)'s row)."""
+    """Phase 12 (a) and (c) of the autograd A/B paths (``_ab_configs``):
+    (a) bitwise, persistent at batch 8192 and with fresh walkers at
+    AB_FRESH_BATCH (``_side_by_side``); (c) the trace of a replayed chunk 2
+    of the GS ``--no-pallas-reinforce`` path: one graph launch, no launch
+    of its own but the registered device generator's two fills, no
+    host-to-card copy beyond the seed word, no wait for the card before
+    the replay's end.  Returns (c)'s row."""
     import torch
 
-    timing = {}
-    for what, argv, finite, K in _ab_configs(device):
-        timing[what] = row = _side_by_side("(a)", what, argv, finite, K)
-        g, e = row["graphed"], row["eager"]
-        print(f"phase 12 (b) {what}: ms per iteration over {g['chunks']} "
-              f"chunks each, captured median {g['median']:.4f} (min "
-              f"{g['min']:.4f}, max {g['max']:.4f}), eager median "
-              f"{e['median']:.4f} (min {e['min']:.4f}, max {e['max']:.4f})",
-              flush=True)
-        torch.cuda.empty_cache()
-    for what, argv, finite, K in _ab_configs(device, False, AB_FRESH_BATCH):
+    for what, argv, finite, K in (_ab_configs(device) + _ab_configs(
+            device, False, AB_FRESH_BATCH)):
         _side_by_side("(a)", what, argv, finite, K)
         torch.cuda.empty_cache()
     what, argv, finite, _ = _ab_configs(device)[3]
-    row = _trace_row(what, lambda it: argv + ["--iternum", str(it)], finite,
-                     tmp, ("graphed",))
+    g = _trace_row(what, lambda it: argv + ["--iternum", str(it)], finite,
+                   tmp)
     print(f"phase 12 (c) {what}: traced chunk 2 ({SEGMENTS} iterations): "
-          f"{json.dumps(row)}", flush=True)
-    g = row["graphed"]
+          f"{json.dumps(g)}", flush=True)
     fills = g["own_launch_kernels"]
     check(g["graph_launches"] == 1 and g["syncs_before_replay_end"] == 0
           and g["kernels"] > 0 and g["launches"] == len(fills) <= 2
@@ -2658,7 +2378,7 @@ def phase_graph_ab(device, tmp):
           "of its own but the registered device generator's fills, no "
           "host-to-card copy beyond the seed word, no wait for the card "
           "before its end")
-    return timing, row
+    return g
 
 
 def main() -> int:
@@ -2758,7 +2478,7 @@ def main() -> int:
             phase_no_pallas(device, z_eq, params)
         phase("9: the walker mesh")
         with tempfile.TemporaryDirectory() as tmp9:
-            phase_mesh(device, tmp9, smi)
+            phase_mesh(device, tmp9)
         phase("10: converged physics at N=2")
         t10 = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp10:
@@ -2772,23 +2492,19 @@ def main() -> int:
         phase("12: the compiled chunk")
         t12 = time.perf_counter()
         phase_graph_bitwise(device)
-        timing = phase_graph_timing(device)
+        phase_graph_finite(device)
         with tempfile.TemporaryDirectory() as tmp12:
-            traces = phase_graph_traces(device, tmp12, timing)
-        print("phase 12 timing: " + json.dumps(timing))
+            traces = phase_graph_traces(device, tmp12)
         print("phase 12 traces: " + json.dumps(traces))
         t12ab = time.perf_counter()
         with tempfile.TemporaryDirectory() as tmp12:
-            ab_timing, ab_trace = phase_graph_ab(device, tmp12)
-        print("phase 12 A/B timing: " + json.dumps(ab_timing))
+            ab_trace = phase_graph_ab(device, tmp12)
         print("phase 12 A/B trace: " + json.dumps(ab_trace))
         print(f"phase 12: {time.perf_counter() - t12:.1f} s (the A/B "
               f"paths {time.perf_counter() - t12ab:.1f} s)")
     except SmokeFailure as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
-
-    from fermiflow_tpu_torch.utils import roofline
 
     kernels = []
     for name in ("metropolis_chains", "slater_vgh", "hessian_flow",
@@ -2799,14 +2515,10 @@ def main() -> int:
                      "metropolis_multistate"))):
         r = rows[name]
         base = name.removesuffix("_n10")
-        b_ms, b_by = roofline.bound_ms(*r.pop("work"))
         kernels.append(dict(
             name=name, route="cuda", source=SOURCES[base],
             replaces=REPLACES[base], launches=counts[PATH_OF[name]][base],
-            launches_path=PATH_OF[name],
-            max_abs_err=r.pop("max_abs_err"), ms=r.pop("ms"),
-            plain_ms=r.pop("plain_ms"), bound_ms=b_ms, bound_by=b_by,
-            library_ms=r.pop("library_ms", None), **r))
+            launches_path=PATH_OF[name], **r))
         if name in warps:
             kernels[-1]["warps_per_sm"] = warps[name]
         if name in placed:
@@ -2818,8 +2530,6 @@ def main() -> int:
             regs, stack, st, ld = ptxas[{**N10_PTXAS, **MS_N10_PTXAS}[base]]
             kernels[-1].update(registers=regs, stack_bytes=stack,
                                spill_bytes=st + ld)
-    for r in rows11.values():
-        r["bound_ms"], r["bound_by"] = roofline.bound_ms(*r.pop("work"))
     print("phase 10 kernels (1, 1): " + json.dumps(rows11))
     print(f"total: {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": kernels}))

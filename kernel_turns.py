@@ -75,6 +75,41 @@ def setup(n: int) -> None:
     GS_OCC = dict(nx_occ=nx, ny_occ=ny, num_shells=max(nx + ny) + 1)
 
 
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` over ``reps`` launches (warmed)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, captured, reps: int = 50, replays: int = 10):
+    """Mean device milliseconds of one ``fn`` launch, from a CUDA graph
+    that captures ``reps`` launches (``captured``, chip_smoke.py's, which
+    fails unless a replay recomputes the last captured output), timed with
+    CUDA events over ``replays`` replays: no host dispatch inside the
+    window.  Returns (ms, that output)."""
+    import torch
+
+    graph, out = captured(fn, reps)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (reps * replays), out
+
+
 def sampler_inputs(torch, dev):
     """Walkers equilibrated by the plain samplers (deterministic: the same
     in every turn and tree): GS walkers and their adapted tau, and walkers
@@ -111,7 +146,7 @@ def sampler_inputs(torch, dev):
     return xs[-1].contiguous(), tau.contiguous(), z.contiguous(), ms
 
 
-def time_samplers(torch, dev, cuda_ms, inputs):
+def time_samplers(torch, dev, inputs):
     """{entry: [ms x 3]}, {entry: outputs}."""
     from fermiflow_tpu_torch.ops import metropolis as mp
 
@@ -132,7 +167,7 @@ def time_samplers(torch, dev, cuda_ms, inputs):
     return times, outs
 
 
-def time_vgh(graph_ms, inputs):
+def time_vgh(captured, inputs):
     """{entry: [graph-replay ms x 3]}, {entry: [y, g, H]} of the two Slater
     VGH kernels on the equilibrated walkers of ``sampler_inputs``."""
     from fermiflow_tpu_torch.ops import slater_vgh as sv
@@ -144,7 +179,7 @@ def time_vgh(graph_ms, inputs):
             z_ms, ms["nx_cm"], ms["ny_cm"], ms["num_shells"]),
     }
     # graph_ms replays the captured launches and checks their last H.
-    times = {k: [graph_ms(lambda: fn()[2])[0] for _ in range(3)]
+    times = {k: [graph_ms(lambda: fn()[2], captured)[0] for _ in range(3)]
              for k, fn in calls.items()}
     outs = {k: [t.cpu() for t in fn()] for k, fn in calls.items()}
     return times, outs
@@ -168,12 +203,12 @@ def measure(root: str, save: str, n: int) -> dict:
     )
     from fermiflow_tpu_torch.ops.slater_vgh import slater_vgh_cm_plain
 
-    # The timing helpers of this tree's chip_smoke.py, whichever tree runs.
+    # The capture check and ptxas parser of this tree's chip_smoke.py,
+    # whichever tree runs.
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
     smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(smoke)
-    cuda_ms, graph_ms = smoke.cuda_ms, smoke.graph_ms
 
     pkg = os.path.dirname(fermiflow_tpu_torch.__file__)
     if not pkg.startswith(os.path.abspath(root)):
@@ -202,11 +237,11 @@ def measure(root: str, save: str, n: int) -> dict:
     grads, z_back = reinforce_cm(params, x1, g1, w, *ts)
     flat = torch.cat([grads[m][k].reshape(-1) for m in ("eta", "mu")
                       for k in ("w2", "w1", "b1")])
-    red_graph, rows = graph_ms(lambda: block_sum(parts))
-    sum_graph, _ = graph_ms(lambda: parts.sum(0))
+    red_graph, rows = graph_ms(lambda: block_sum(parts), smoke.captured)
+    sum_graph, _ = graph_ms(lambda: parts.sum(0), smoke.captured)
     inputs = sampler_inputs(torch, dev)
-    sampler_ms, sampler_out = time_samplers(torch, dev, cuda_ms, inputs)
-    vgh_ms, vgh_out = time_vgh(graph_ms, inputs)
+    sampler_ms, sampler_out = time_samplers(torch, dev, inputs)
+    vgh_ms, vgh_out = time_vgh(smoke.captured, inputs)
     res = dict(
         root=root, hessian_flow_ms=hf_ms, reinforce_adjoint_ms=rf_ms,
         reduce_graph_ms=red_graph, sum_graph_ms=sum_graph,
