@@ -474,7 +474,8 @@ def phase_occupancy(device):
           f"input slots (pairs, then one-body) in one hidden-unit loop; "
           f"reinforce_adjoint: "
           f"{rf.lanes_for(N)} lanes per walker, per lane {rplan['entries'][1]} state "
-          f"entries, eta/mu hidden units {units} by lane, coefficient totals "
+          f"entries, eta/mu hidden units {units} by lane and the last "
+          f"{rplan['eta_last'][1]} on every lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
           f"inputs; samplers and VGH kernels: lanes per chain or walker "
           f"{json.dumps(lanes)}, the batch-{BATCH} grid places "
@@ -532,16 +533,17 @@ def phase_occupancy_n10(device):
           f"SMs; hessian_flow per lane {plan['entries'][1]} state entries, "
           f"{plan['mlp_inputs'][1]} MLP input slots (pairs, then one-body, "
           f"as one list) in one hidden-unit loop; reinforce_adjoint per lane {rplan['entries'][1]} state "
-          f"entries, eta/mu hidden units {units} by lane, coefficient totals "
+          f"entries, eta/mu hidden units {units} by lane and the last "
+          f"{rplan['eta_last'][1]} on every lane, coefficient totals "
           f"of {rplan['pairs'][1]} pair and {rplan['one_body'][1]} one-body "
           f"inputs", flush=True)
     # The floors the N=10 designs set: 4 resident 4-warp blocks at <= 128
-    # registers (Hessian flow, samplers; the VGH kernel 2 of 8 warps), 3 of
-    # the adjoint at <= 168; the batch-4096 grids place 7.76 warps per SM
-    # (samplers, VGH), min(31, 16) (Hessian flow) and min(15.5, 12) (adjoint).
+    # registers (Hessian flow, adjoint, samplers; the VGH kernel 2 of 8
+    # warps); the batch-4096 grids place 7.76 warps per SM (samplers, VGH),
+    # min(31, 16) (Hessian flow) and min(15.5, 16) (adjoint).
     floors = {"metropolis_chains": (16, 7), "metropolis_single": (16, 7),
               "slater_vgh": (16, 7), "hessian_flow": (16, 15),
-              "reinforce_adjoint": (12, 11)}
+              "reinforce_adjoint": (16, 15)}
     for name, (resident, least) in floors.items():
         check(launches[name]["warps_per_sm"] >= resident
               and placed[name] >= least,

@@ -10,28 +10,27 @@
 // theta_bar = int [(dv/dtheta)^T a - w d(div)/dtheta] dt, for the eta and
 // mu MLPs (w2, w1, b1 rows; 3 x 50 + 3 x 50 = 300 at the production width).
 //
-// What bounds it on the H100: FP32 and SFU issue.  Per walker and RK stage
-// at N=6 with 50 hidden units it evaluates 21 MLP inputs x 50 units = 1050
-// sigmoids (an exp and an IEEE reciprocal each) inside ~41 kflop-equivalents
-// (utils/roofline.py:reinforce_flops), 24 stages per launch, against 25
-// floats of device traffic in and 12 out per walker plus one 300-row
-// partials row per 16 walkers.  The per-walker working set is small (the
-// 24-entry state and its six dopri5 slopes, the pair geometry, 300 theta
-// accumulators); kept in one thread's shared-memory columns it fit two
-// warps per SM, which then ran bound by latency.
+// What bounds it on the H100: FP32 and SFU issue in the hidden-unit loop
+// (at N = 10 the loop is 93 % of the kernel's time; PERF.md).  Per walker
+// and RK stage at N=6 with 50 hidden units it evaluates 21 MLP inputs x 50
+// units = 1050 sigmoids (an exp and a reciprocal each) inside ~41
+// kflop-equivalents (106 k at N = 10; portbench/counts.py reinforce_flops),
+// 24 stages per launch, against 25 floats of device traffic in and 12 out
+// per walker plus one 300-row partials row per block.  Kept in one
+// thread's shared-memory columns the per-walker working set fit two warps
+// per SM, which then ran bound by latency.
 //
 // Design: a group of G lanes of one warp shares a walker (32/G walkers per
-// warp), 16 walkers per 128-thread block, 4 blocks (16 warps) per SM at
-// <= 128 registers: 8192 walkers fit one wave.
-// - The hidden units are dealt over the lanes, unit h to lane h % G (at
-//   50 units lanes 0-1 take 7, the others 6).  The lane that owns a unit
-//   loops over all of the walker's MLP inputs itself, so it forms the
-//   unit's eight theta sums over pairs (or particles) in registers and adds
-//   its three bw * (...) rows to the walker's accumulators exactly as the
-//   one-thread design did: no theta value crosses lanes until the block's
-//   end.  Dealing the inputs instead (as the Hessian flow does) would put
-//   those sums across lanes: 800 values a stage, or 300 accumulators per
-//   lane.
+// warp), 128-thread blocks, 4 blocks (16 warps) per SM at <= 128 registers
+// with no spill from N = 7 (MIN_BLOCKS).
+// - The first du - du % G hidden units of an MLP are dealt over the lanes,
+//   unit h to lane h % G.  The lane that owns a unit loops over all of the
+//   walker's MLP inputs itself, so it forms the unit's eight theta sums
+//   over pairs (or particles) in registers and adds its three bw * (...)
+//   rows to the walker's accumulators: no theta value crosses lanes until
+//   the block's end.  Dealing the inputs instead (as the Hessian flow does)
+//   would put those sums across lanes: 800 values a stage, or 300
+//   accumulators per lane.
 // - What crosses lanes is each input's field coefficients e0, e1, e2, a sum
 //   over units: 3 (P + N) = 63 values a stage at N=6.  Each lane holds its
 //   units' partials in registers and a reduce-scatter of log2(G) xor-shuffle
@@ -39,23 +38,43 @@
 //   (pairs in np.triu_indices order, Q = ceil(P / G); particles likewise).
 //   Each total is formed by one lane along a fixed tree: no float atomics,
 //   and the same inputs give the same bits.
+// - The last du % G units (2 of 50 at either width) would take a round of
+//   their own on that many lanes while the others wait: at 16 lanes a
+//   fourth round, a fifth of the kernel at N = 10.  Instead every lane runs
+//   them on the Q inputs whose totals it holds after the reduce-scatter:
+//   their coefficients go into those totals, their theta sums over the
+//   lane's inputs into rows of the lane's own (3 (du % G) G floats a
+//   walker), which fold_lane_rows adds into the walker's theta rows in a
+//   fixed order at the end of the launch.
+// - The sigmoid's reciprocal: 1 + exp(-z) < 2^126 whenever r |w1|max +
+//   |b1|max < 80, and there rcp_in_range (common.cuh) is the division's own
+//   result without the range check and branch that kept the compiler from
+//   interleaving the sigmoid chains (as in the Hessian flow).  geometry
+//   checks every input of the warp's walkers once a stage, one ballot, and
+//   the stage runs the MLP step's copy for that path; out of range, the
+//   division.
 // - The 2D = 4N (x, a) state entries are dealt over the lanes, entry e to
-//   (lane e % G, slot e / G), with their state and six slopes in registers
-//   (every index a compile-time constant).
+//   (lane e % G, slot e / G).  Between stages a lane keeps its entries and
+//   their six dopri5 slopes (7 E floats, lane_state) in the walker's shared
+//   region, where they hold no register across the hidden-unit loop: in
+//   registers they spilled at 128 (N = 6, 10).
 // - Shared memory per walker holds the stage input, each input's geometry
-//   (r, u.da, w r), each input's contribution to its particles' slopes, and
-//   the walker's 3 (d_eta + d_mu) theta accumulators: 2.1 KB at N=6 against
-//   2.7 KB of private columns before, so registers, not shared memory, set
-//   the occupancy.  Four __syncwarp per stage; no block-wide barrier after
-//   the set-up.  A region's stride is 8 (mod 32) floats, so the four walkers
-//   of a warp fall on distinct banks.
-// - From N = 7 (lanes_for, min_blocks): 16 lanes per walker, 8 walkers per
-//   128-thread block, 3 resident blocks (<= 168 registers).  At N = 10 a
-//   lane then keeps 3 of the 40 state entries, as at N = 6, and the 45
-//   pairs' field coefficients are totalled in 3 chunks of 16 inputs
-//   (kChunkInputs): a lane holds 48 partials at a time instead of the 144
-//   (6 pairs x 8 lanes x 3) of one pass.  Each chunk adds its units' theta
-//   sums to the accumulators.  The walker's region is 808 floats (3.2 KB).
+//   (r, u.da, w r), each input's contribution to its particles' slopes, the
+//   lanes' entries and slopes, the walker's 3 (d_eta + d_mu) theta
+//   accumulators and the lanes' own rows (3.1 KB at N = 6, 5.3 KB at
+//   N = 10): 51 and 44 KB a block, so registers, not shared memory, set the
+//   occupancy.
+//   Four __syncwarp per stage; no block-wide barrier after the set-up.  A
+//   region's stride is G (mod 32) floats, so the walkers of a warp fall on
+//   distinct banks.
+// - Up to N = 6, 8 lanes and 16 walkers a block: 8192 walkers are 512
+//   blocks, one wave of the 528 that 132 SMs hold.  From N = 7 (lanes_for),
+//   16 lanes and 8 walkers a block: 1024 blocks, two waves (with 3 blocks
+//   per SM, three).  At N = 10 a lane then keeps 3 of the 40 state entries,
+//   as at N = 6, and the 45 pairs' field coefficients are totalled in 3
+//   chunks of 16 inputs (kChunkInputs): a lane holds 48 partials at a time
+//   instead of the 144 (6 pairs x 8 lanes x 3) of one pass.  Each chunk
+//   adds its units' theta sums to the accumulators.
 // Hopper blocks run in no order, so each block sums its walkers' theta
 // rows in a fixed pairwise order into one row of a (num_blocks, nq)
 // partials buffer, and a second kernel sums the rows in a fixed order.
@@ -75,12 +94,8 @@ namespace {
 // N = 7 (the design note above).
 __host__ __device__ constexpr int lanes_for(int n) { return n <= 6 ? 8 : 16; }
 constexpr int THREADS = 128;
-// Resident blocks per SM the adjoint is built for: 4 (<= 128 registers) up
-// to N = 6; 3 (<= 168) from N = 7, where 128 registers spilled 56 B at
-// N = 10 and 168 spill nothing.  The spilling 4-block build ran ~20 %
-// faster at N = 10 on an H100 80GB HBM3 at 700 W (PERF.md): a plan that
-// keeps 16 warps per SM without spills is the adjoint's next redesign.
-__host__ __device__ constexpr int min_blocks(int n) { return n <= 6 ? 4 : 3; }
+// Resident blocks per SM at every N: <= 128 registers, 16 warps per SM.
+constexpr int MIN_BLOCKS = 4;
 constexpr int TABLEAU = FF_MAXSTAGES * FF_MAXSTAGES + FF_MAXSTAGES;
 // MLP inputs whose field-coefficient partials a lane holds at once: 16
 // inputs x 3 coefficients = 48 registers, the partials of all 15 pairs at
@@ -108,28 +123,38 @@ struct Layout {
   static constexpr int GEO1 = GEO + 4 * P;       // particles: (|x|, x.a, w|x|, 0)
   static constexpr int CELL = GEO1 + 4 * N;      // pairs: (dx_i, da_i), 2 + 2
   static constexpr int CELL1 = CELL + 4 * P;     // particles: (dx_i, da_i)
-  static constexpr int Q = CELL1 + 4 * N;        // theta accumulators (nq)
+  // The lanes' state entries and slopes (lane_state).
+  static constexpr int KS = CELL1 + 4 * N;
+  static constexpr int Q = KS + (FF_MAXSTAGES + 1) * E * G;  // theta accumulators
 };
 
-// A walker's region stride for nq theta rows: = 8 (mod 32) floats.
+// Rows a walker accumulates at MLP widths de, dm: its 3 (de + dm) theta
+// rows, then each lane's own rows of the last de % G and dm % G units.
+template <int G>
+__host__ __device__ inline int walker_rows(int de, int dm) {
+  return 3 * (de + dm) + 3 * G * (de % G + dm % G);
+}
+
+// A walker's region stride: = G (mod 32) floats, so the 32 / G walkers of
+// a warp fall on distinct banks.
 template <int N, int G>
-__host__ __device__ inline int region_floats(int nq) {
-  return (Layout<N, G>::Q + nq + 23) / 32 * 32 + 8;
+__host__ __device__ inline int region_floats(int de, int dm) {
+  return (Layout<N, G>::Q + walker_rows<G>(de, dm) + 31 - G) / 32 * 32 + G;
 }
 
 // Floats before the walkers' regions: the weights (eta then mu, a float4 of
-// (w1, b1, w2, 0) per unit), the tableau and the pair index table.
+// (w1, b1, w2, 0) per unit), eta's and mu's largest |w1| and |b1| (a
+// float4), the tableau and the pair index table.
 template <int N, int G>
 __host__ __device__ inline int header_floats(int de, int dm) {
-  return (4 * (de + dm) + TABLEAU + Layout<N, G>::P + 3) / 4 * 4;
+  return (4 * (de + dm + 1) + TABLEAU + Layout<N, G>::P + 3) / 4 * 4;
 }
 
 template <int N, int G>
 size_t smem_bytes(int de, int dm) {
   using L = Layout<N, G>;
-  const int nq = 3 * (de + dm);
   return sizeof(float) *
-         ((size_t)header_floats<N, G>(de, dm) + (size_t)L::NW * region_floats<N, G>(nq));
+         ((size_t)header_floats<N, G>(de, dm) + (size_t)L::NW * region_floats<N, G>(de, dm));
 }
 
 // Reduce-scatter over the lane group: on entry v holds this lane's partials
@@ -154,53 +179,100 @@ __device__ __forceinline__ void reduce_scatter(float (&v)[G * Q][3], int lane) {
   }
 }
 
-// This lane's hidden units h = lane, lane + G, ... of one MLP over the M
-// inputs whose geometry is at geo: adds each unit's field coefficients into
-// e[input] and, when acc_q, its three theta rows bw * (...) into q (w2 rows
-// at q, w1 rows at q + du, b1 rows at q + 2 du).  CP, CO: the divergence
-// coefficients (2, 4 for pairs; 1, 2 for the one-body term).  Then the
-// group's totals: e[0 .. Q) for inputs lane * Q + k.
-template <int M, int G, int Q, int CP, int CO>
+// The sigmoid s of r w1 + b1 and its derivative factors s1 = s (1 - s),
+// s2 = s1 (1 - 2 s).  The reciprocal: rcp_in_range where every input of the
+// warp's walkers is in its range (kInRange, geometry), else the division.
+template <bool kInRange>
+__device__ __forceinline__ void sigmoid_terms(float r, float w1, float b1, float& s, float& s1,
+                                              float& s2) {
+  const float d = 1.f + expf(-(r * w1 + b1));
+  s = kInRange ? rcp_in_range(d) : 1.f / d;
+  s1 = s * (1.f - s);
+  s2 = s1 * (1.f - 2.f * s);
+}
+
+// One hidden unit's sums over a set of MLP inputs g = (r, u.da, w r, 0).
+struct UnitSums {
+  float ss = 0.f, sd = 0.f, srd = 0.f, s = 0.f, d = 0.f, wrd = 0.f, wrd2 = 0.f, wr2d2 = 0.f;
+  __device__ __forceinline__ void add(float4 g, float sv, float s1, float s2) {
+    const float r = g.x, sp = g.y, wr = g.z;
+    ss += sp * sv;
+    sd += sp * s1;
+    srd += (sp * r) * s1;
+    s += sv;
+    d += s1;
+    wrd += wr * s1;
+    wrd2 += wr * s2;
+    wr2d2 += (wr * r) * s2;
+  }
+  // The unit's three theta rows (w2, w1, b1), times bw, into q0, q1, q2.
+  // CP, CO: the divergence coefficients (2, 4 for pairs; 1, 2 for the
+  // one-body term).
+  template <int CP, int CO>
+  __device__ __forceinline__ void rows(float w1h, float w2h, float w, float bw, float& q0,
+                                       float& q1, float& q2) const {
+    q0 += bw * (ss - (float)CP * w1h * wrd - (float)CO * (w * s));
+    q1 += bw * (w2h * (srd - (float)(CP + CO) * wrd - (float)CP * w1h * wr2d2));
+    q2 += bw * (w2h * (sd - (float)CP * w1h * wrd2 - (float)CO * (w * d)));
+  }
+};
+
+// One MLP of du hidden units (weights wt) over the M inputs whose geometry
+// is at geo.  The first du - du % G units are dealt round robin, unit h to
+// lane h % G, which runs it over every input: its field coefficients into
+// e[input] and, when acc_q, its theta rows into q (w2 rows at q, w1 rows at
+// q + du, b1 rows at q + 2 du).  Then the group's totals, e[0 .. Q) for
+// inputs lane * Q + k, and the last du % G units, each run by every lane on
+// the inputs it totals: their coefficients into those totals and their
+// theta rows, over this lane's inputs, into the lane's own rows at ql (row
+// c of unit dealt + j at ql[(3 j + c) G]; fold_lane_rows adds them into q).
+template <int M, int G, int Q, int CP, int CO, bool kInRange>
 __device__ __forceinline__ void mlp_coefficients(const float4* geo, const float4* wt,
                                                  int du, int lane, float w, float bw,
-                                                 bool acc_q, float* q,
+                                                 bool acc_q, float* q, float* ql,
                                                  float (&e)[G * Q][3]) {
 #pragma unroll
   for (int p = 0; p < G * Q; ++p) e[p][0] = e[p][1] = e[p][2] = 0.f;
-  for (int hh = lane; hh < du; hh += G) {
+  const int dealt = du - du % G;
+  for (int hh = lane; hh < dealt; hh += G) {
     const float4 wu = wt[hh];
     const float w1h = wu.x, b1h = wu.y, w2h = wu.z;
     const float c1 = w2h * w1h, c2 = w2h * w1h * w1h;
-    float t_ss = 0.f, t_sd = 0.f, t_srd = 0.f, t_s = 0.f, t_d = 0.f;
-    float t_wrd = 0.f, t_wrd2 = 0.f, t_wr2d2 = 0.f;
+    UnitSums t;
 #pragma unroll
     for (int p = 0; p < M; ++p) {
       const float4 g = geo[p];
-      const float r = g.x, sp = g.y, wr = g.z;
-      const float s = sigmoidf_(r * w1h + b1h);
-      const float s1 = s * (1.f - s);
-      const float s2 = s1 * (1.f - 2.f * s);
+      float s, s1, s2;
+      sigmoid_terms<kInRange>(g.x, w1h, b1h, s, s1, s2);
       e[p][0] += s * w2h;
       e[p][1] += s1 * c1;
       e[p][2] += s2 * c2;
-      t_ss += sp * s;
-      t_sd += sp * s1;
-      t_srd += (sp * r) * s1;
-      t_s += s;
-      t_d += s1;
-      t_wrd += wr * s1;
-      t_wrd2 += wr * s2;
-      t_wr2d2 += (wr * r) * s2;
+      t.add(g, s, s1, s2);
     }
-    if (acc_q) {
-      q[hh] += bw * (t_ss - (float)CP * w1h * t_wrd - (float)CO * (w * t_s));
-      q[du + hh] += bw * (w2h * (t_srd - (float)(CP + CO) * t_wrd -
-                                 (float)CP * w1h * t_wr2d2));
-      q[2 * du + hh] += bw * (w2h * (t_sd - (float)CP * w1h * t_wrd2 -
-                                     (float)CO * (w * t_d)));
-    }
+    if (acc_q) t.rows<CP, CO>(w1h, w2h, w, bw, q[hh], q[du + hh], q[2 * du + hh]);
   }
   reduce_scatter<G * Q / 2, G, Q>(e, lane);
+  for (int hh = dealt; hh < du; ++hh) {
+    const float4 wu = wt[hh];
+    const float w1h = wu.x, b1h = wu.y, w2h = wu.z;
+    const float c1 = w2h * w1h, c2 = w2h * w1h * w1h;
+    UnitSums t;
+#pragma unroll
+    for (int k = 0; k < Q; ++k) {
+      const int p = lane * Q + k;
+      if (p < M) {
+        const float4 g = geo[p];
+        float s, s1, s2;
+        sigmoid_terms<kInRange>(g.x, w1h, b1h, s, s1, s2);
+        e[k][0] += s * w2h;
+        e[k][1] += s1 * c1;
+        e[k][2] += s2 * c2;
+        t.add(g, s, s1, s2);
+      }
+    }
+    float* qr = ql + 3 * (hh - dealt) * G + lane;
+    if (acc_q) t.rows<CP, CO>(w1h, w2h, w, bw, qr[0], qr[G], qr[2 * G]);
+  }
 }
 
 // Pair p = (i, j), i < j, in np.triu_indices order.
@@ -209,14 +281,21 @@ __device__ __forceinline__ int pair_index(int i, int j) {
   return i * (2 * N - i - 1) / 2 + (j - i - 1);
 }
 
-// Geometry of this lane's inputs from the stage input.
+// Geometry of this lane's inputs from the stage input.  Returns whether
+// every input of the warp's walkers keeps r |w1|max + |b1|max < 80 (wmax:
+// eta's in x, y, mu's in z, w): r >= 0, so -(r w1 + b1) stays under 80 and
+// 1 + expf under 2^126, where rcp_in_range is the division's own result.
+// One vote of the warp, so that its walkers take one path and the lane
+// groups' shuffles stay convergent.
 template <int N, int G>
-__device__ __forceinline__ void geometry(float* me, const int* ptab, int lane, float w,
-                                         bool has_mu) {
+__device__ __forceinline__ bool geometry(float* me, const int* ptab, int lane, float w,
+                                         bool has_mu, const float4* wmax) {
   using L = Layout<N, G>;
   const float* x = me + L::IN;
   const float* a = x + L::D;
   float4* geo = reinterpret_cast<float4*>(me + L::GEO);
+  const float4 wm = *wmax;
+  bool in_range = true;
 #pragma unroll
   for (int c = 0; c < L::NC; ++c)
 #pragma unroll
@@ -228,6 +307,7 @@ __device__ __forceinline__ void geometry(float* me, const int* ptab, int lane, f
       const float d0 = a[2 * i] - a[2 * j], d1 = a[2 * i + 1] - a[2 * j + 1];
       const float r = sqrtf(u0 * u0 + u1 * u1);
       geo[p] = make_float4(r, u0 * d0 + u1 * d1, w * r, 0.f);
+      in_range = in_range && r * wm.x + wm.y < 80.f;
     }
   }
   if (has_mu) {
@@ -239,16 +319,19 @@ __device__ __forceinline__ void geometry(float* me, const int* ptab, int lane, f
         const float xa = x[2 * i], xb = x[2 * i + 1];
         const float rho = sqrtf(xa * xa + xb * xb);
         geo1[i] = make_float4(rho, xa * a[2 * i] + xb * a[2 * i + 1], w * rho, 0.f);
+        in_range = in_range && rho * wm.z + wm.w < 80.f;
       }
     }
   }
+  return __ballot_sync(0xffffffffu, !in_range) == 0u;
 }
 
 // Pair chunk C of the eta MLP and the chunks after it (the Layout's QC,
-// NC): the theta rows into the walker's accumulators and, for the pairs
-// this lane totals, their contributions to the slopes of their particles.
-template <int N, int G, int C>
-__device__ __forceinline__ void pair_chunks(float* me, const int* ptab, int lane,
+// NC): the theta rows into the walker's accumulators (the last de % G
+// units' into the lanes' own rows at ql) and, for the pairs this lane
+// totals, their contributions to the slopes of their particles.
+template <int N, int G, bool kInRange, int C>
+__device__ __forceinline__ void pair_chunks(float* me, float* ql, const int* ptab, int lane,
                                             const float4* ew, int de, float w, float bw,
                                             bool acc_q) {
   using L = Layout<N, G>;
@@ -259,7 +342,8 @@ __device__ __forceinline__ void pair_chunks(float* me, const int* ptab, int lane
     const float* a = x + L::D;
     const float4* geo = reinterpret_cast<const float4*>(me + L::GEO);
     float e[G * L::QC][3];
-    mlp_coefficients<M, G, L::QC, 2, 4>(geo + p0, ew, de, lane, w, bw, acc_q, me + L::Q, e);
+    mlp_coefficients<M, G, L::QC, 2, 4, kInRange>(geo + p0, ew, de, lane, w, bw, acc_q,
+                                                  me + L::Q, ql, e);
     float4* cell = reinterpret_cast<float4*>(me + L::CELL);
 #pragma unroll
     for (int k = 0; k < L::QC; ++k) {
@@ -278,26 +362,29 @@ __device__ __forceinline__ void pair_chunks(float* me, const int* ptab, int lane
         cell[p] = make_float4(e0 * ua, e0 * ub, cg * ua - m0, cg * ub - m1);
       }
     }
-    pair_chunks<N, G, C + 1>(me, ptab, lane, ew, de, w, bw, acc_q);
+    pair_chunks<N, G, kInRange, C + 1>(me, ql, ptab, lane, ew, de, w, bw, acc_q);
   }
 }
 
-// The MLPs (theta rows into the walker's accumulators) and, for this lane's
-// inputs, their contributions to the slopes of their particles.
-template <int N, int G>
+// The MLPs (theta rows into the walker's accumulators: eta's 3 de, then
+// mu's, then the lanes' own rows of eta's last de % G units and of mu's
+// last dm % G) and, for this lane's inputs, their contributions to the
+// slopes of their particles.  kInRange: geometry's vote.
+template <int N, int G, bool kInRange>
 __device__ __forceinline__ void mlp_cells(float* me, const int* ptab, int lane,
                                           const float4* ew, int de, const float4* mw,
-                                          int dm, int q_off, float w, float bw,
-                                          bool acc_q) {
+                                          int dm, float w, float bw, bool acc_q) {
   using L = Layout<N, G>;
   const float* x = me + L::IN;
   const float* a = x + L::D;
-  float* q = me + L::Q;
-  pair_chunks<N, G, 0>(me, ptab, lane, ew, de, w, bw, acc_q);
+  float* q = me + L::Q + 3 * de;
+  float* ql = me + L::Q + 3 * (de + dm);
+  pair_chunks<N, G, kInRange, 0>(me, ql, ptab, lane, ew, de, w, bw, acc_q);
   if (dm > 0) {
     const float4* geo1 = reinterpret_cast<const float4*>(me + L::GEO1);
     float m[G * L::QN][3];
-    mlp_coefficients<N, G, L::QN, 1, 2>(geo1, mw, dm, lane, w, bw, acc_q, q + q_off, m);
+    ql += 3 * G * (de % G);
+    mlp_coefficients<N, G, L::QN, 1, 2, kInRange>(geo1, mw, dm, lane, w, bw, acc_q, q, ql, m);
     float4* cell1 = reinterpret_cast<float4*>(me + L::CELL1);
 #pragma unroll
     for (int k = 0; k < L::QN; ++k) {
@@ -337,8 +424,30 @@ __device__ __forceinline__ float slope(const float* me, int e, bool has_mu) {
   return acc;
 }
 
+// The lanes' own rows of an MLP's last du % G units (at ql, mlp_coefficients)
+// into its theta rows q, each row's lanes in ascending order.
+template <int G>
+__device__ __forceinline__ void fold_lane_rows(float* q, const float* ql, int du, int lane) {
+  const int dealt = du - du % G;
+  for (int i = lane; i < 3 * (du - dealt); i += G) {
+    float v = 0.f;
+#pragma unroll
+    for (int l = 0; l < G; ++l) v += ql[i * G + l];
+    q[i % 3 * du + dealt + i / 3] += v;
+  }
+}
+
+// Where this lane keeps its share of the walker's state between stages, in
+// the walker's shared region, so that it holds no register across the
+// hidden-unit loop: entry slot s (entry lane + G s) at j = -1, its dopri5
+// slope at stage j at j = 0 .. FF_MAXSTAGES - 1.
 template <int N, int G>
-__global__ void __launch_bounds__(THREADS, min_blocks(N)) reinforce_kernel(
+__device__ __forceinline__ int lane_state(int lane, int j, int s) {
+  return Layout<N, G>::KS + ((j + 1) * Layout<N, G>::E + s) * G + lane;
+}
+
+template <int N, int G>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS) reinforce_kernel(
     const float* __restrict__ x1, const float* __restrict__ ghat,
     const float* __restrict__ wts_in, float* __restrict__ z_out,
     float* __restrict__ partials, int B, const float* __restrict__ eta_w1,
@@ -351,13 +460,14 @@ __global__ void __launch_bounds__(THREADS, min_blocks(N)) reinforce_kernel(
   float* sm = reinterpret_cast<float*>(smem4);
   const int tid = threadIdx.x, lane = tid % G, slot = tid / G;
   const int w0 = blockIdx.x * NW;
-  const int nq = 3 * (de + dm);
-  const int rw = region_floats<N, G>(nq);
+  const int nq = 3 * (de + dm), nrows = walker_rows<G>(de, dm);
+  const int rw = region_floats<N, G>(de, dm);
   const bool has_mu = dm > 0;
 
   float4* ew = smem4;
   float4* mw = ew + de;
-  float* tab = reinterpret_cast<float*>(mw + dm);  // h a (6 x 6), then h b (6)
+  float4* wmax = mw + dm;  // eta's largest |w1|, |b1| (x, y), mu's (z, w)
+  float* tab = reinterpret_cast<float*>(wmax + 1);  // h a (6 x 6), then h b (6)
   int* ptab = reinterpret_cast<int*>(tab + TABLEAU);  // pair -> i | j << 8
   float* walkers = sm + header_floats<N, G>(de, dm);
   float* me = walkers + slot * rw;
@@ -377,8 +487,8 @@ __global__ void __launch_bounds__(THREADS, min_blocks(N)) reinforce_kernel(
     while (r >= N - 1 - i) r -= N - 1 - i++;
     ptab[p] = i | ((i + 1 + r) << 8);
   }
-  for (int idx = tid; idx < NW * nq; idx += THREADS)
-    walkers[(idx / nq) * rw + L::Q + idx % nq] = 0.f;
+  for (int idx = tid; idx < NW * nrows; idx += THREADS)
+    walkers[(idx / nrows) * rw + L::Q + idx % nrows] = 0.f;
   const size_t Bs = (size_t)B;
   for (int idx = tid; idx < S * NW; idx += THREADS) {
     const int e = idx / NW, c = idx % NW;
@@ -390,17 +500,32 @@ __global__ void __launch_bounds__(THREADS, min_blocks(N)) reinforce_kernel(
     walkers[c * rw + e] = v;
   }
   __syncthreads();
+  if (tid < 32) {
+    float4 m = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int j = tid; j < de; j += 32)
+      m = make_float4(fmaxf(m.x, fabsf(ew[j].x)), fmaxf(m.y, fabsf(ew[j].y)), m.z, m.w);
+    for (int j = tid; j < dm; j += 32)
+      m = make_float4(m.x, m.y, fmaxf(m.z, fabsf(mw[j].x)), fmaxf(m.w, fabsf(mw[j].y)));
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1)
+      m = make_float4(fmaxf(m.x, __shfl_xor_sync(0xffffffffu, m.x, o)),
+                      fmaxf(m.y, __shfl_xor_sync(0xffffffffu, m.y, o)),
+                      fmaxf(m.z, __shfl_xor_sync(0xffffffffu, m.z, o)),
+                      fmaxf(m.w, __shfl_xor_sync(0xffffffffu, m.w, o)));
+    if (tid == 0) *wmax = m;
+  }
+  __syncthreads();
 
   const bool live = w0 + slot < B;
   const float w = live ? wts_in[w0 + slot] : 0.f;
-  float y[E];
+  const auto y = [&](int s) -> float& { return me[lane_state<N, G>(lane, -1, s)]; };
+  const auto k = [&](int j, int s) -> float& { return me[lane_state<N, G>(lane, j, s)]; };
 #pragma unroll
   for (int s = 0; s < E; ++s) {
     const int e = lane + G * s;
-    y[s] = e < S ? me[L::IN + e] : 0.f;
+    y(s) = e < S ? me[L::IN + e] : 0.f;
   }
   const float* tb = tab + FF_MAXSTAGES * FF_MAXSTAGES;
-  float k[FF_MAXSTAGES][E];
   for (int step = 0; step < steps; ++step) {
     for (int st = 0; st < hab.stages; ++st) {
       const float* ta = tab + st * FF_MAXSTAGES;
@@ -409,42 +534,41 @@ __global__ void __launch_bounds__(THREADS, min_blocks(N)) reinforce_kernel(
       __syncwarp();  // the group is done reading the last stage's shared data
 #pragma unroll
       for (int s = 0; s < E; ++s) {
-        float acc = y[s];
+        float acc = y(s);
 #pragma unroll
         for (int j = 0; j < FF_MAXSTAGES - 1; ++j)
-          if (j < st && ta[j] != 0.f) acc = acc + ta[j] * k[j][s];
+          if (j < st && ta[j] != 0.f) acc = acc + ta[j] * k(j, s);
         const int e = lane + G * s;
         if (e < S) me[L::IN + e] = acc;
       }
       __syncwarp();
-      geometry<N, G>(me, ptab, lane, w, has_mu);
+      const bool in_range = geometry<N, G>(me, ptab, lane, w, has_mu, wmax);
       __syncwarp();
-      mlp_cells<N, G>(me, ptab, lane, ew, de, mw, dm, 3 * de, w, bw,
-                      live && bw != 0.f);
+      if (in_range)
+        mlp_cells<N, G, true>(me, ptab, lane, ew, de, mw, dm, w, bw, live && bw != 0.f);
+      else
+        mlp_cells<N, G, false>(me, ptab, lane, ew, de, mw, dm, w, bw, live && bw != 0.f);
       __syncwarp();
 #pragma unroll
-      for (int s = 0; s < E; ++s) {
-        const float ks = slope<N, G>(me, lane + G * s, has_mu);
-#pragma unroll
-        for (int j = 0; j < FF_MAXSTAGES; ++j)
-          if (j == st) k[j][s] = ks;
-      }
+      for (int s = 0; s < E; ++s) k(st, s) = slope<N, G>(me, lane + G * s, has_mu);
     }
 #pragma unroll
     for (int s = 0; s < E; ++s) {
-      float acc = y[s];
+      float acc = y(s);
 #pragma unroll
       for (int j = 0; j < FF_MAXSTAGES; ++j)
-        if (j < hab.stages && tb[j] != 0.f) acc = acc + tb[j] * k[j][s];
-      y[s] = acc;
+        if (j < hab.stages && tb[j] != 0.f) acc = acc + tb[j] * k(j, s);
+      y(s) = acc;
     }
   }
 
   __syncwarp();
+  fold_lane_rows<G>(me + L::Q, me + L::Q + nq, de, lane);
+  fold_lane_rows<G>(me + L::Q + 3 * de, me + L::Q + nq + 3 * G * (de % G), dm, lane);
 #pragma unroll
   for (int s = 0; s < E; ++s) {
     const int e = lane + G * s;
-    if (e < D) me[L::IN + e] = y[s];
+    if (e < D) me[L::IN + e] = y(s);
   }
   __syncthreads();
   for (int idx = tid; idx < D * NW; idx += THREADS) {

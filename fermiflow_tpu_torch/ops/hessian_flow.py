@@ -73,14 +73,16 @@ def lane_plan(n: int, lanes: int | None = None) -> dict:
 
 
 def reciprocal_margin(params: dict, z: torch.Tensor) -> dict:
-    """How far a batch lies inside the range check of the kernel's sigmoid
-    (``csrc/hessian_flow.cu``, ``rcp_in_range``): a lane takes the
-    reciprocal without the division's range branch while r |w1|max +
-    |b1|max < 80 for every MLP input it holds, with r a pair distance and
-    the eta MLP's weights, or a particle's distance from the origin and
-    mu's.  z (B, n, 2).  Returns the largest such sum over the batch
+    """How far a batch lies inside the range check of the kernels' sigmoid
+    (``rcp_in_range``, ``csrc/common.cuh``): a lane of the Hessian flow
+    (``csrc/hessian_flow.cu``) takes the reciprocal without the division's
+    range branch while r |w1|max + |b1|max < 80 for every MLP input it
+    holds, a warp of the adjoint (``csrc/reinforce.cu``) while that holds
+    for every input of its walkers, with r a pair distance and the eta
+    MLP's weights, or a particle's distance from the origin and mu's.
+    z (B, n, 2).  Returns the largest such sum over the batch
     (``"largest"``), the limit (``"limit"``) and the share of walkers whose
-    every input lies under it (``"share_under"``).  The kernel checks the
+    every input lies under it (``"share_under"``).  The kernels check the
     positions of every stage; these are the positions given.
     """
     reach = lambda mlp: (mlp["w1"].detach().abs().max(),

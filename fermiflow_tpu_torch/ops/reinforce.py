@@ -52,8 +52,11 @@ def lane_plan(n: int, d_eta: int, d_mu: int | None,
     """Which lane of a walker's group owns what in ``csrc/reinforce.cu``
     (at ``lanes_for(n)`` lanes unless ``lanes`` is given).
 
-    State entries (x then a) and hidden units (eta, mu) are dealt round
-    robin: item i to lane i % lanes, register slot i // lanes.  The pair
+    State entries (x then a) and an MLP's first ``d - d % lanes`` hidden
+    units are dealt round robin: item i to lane i % lanes, slot i //
+    lanes; a lane runs each of its units over every input of a chunk.  The
+    last ``d % lanes`` units (``"eta_last"``, ``"mu_last"``) are run by
+    every lane, each on the inputs whose totals it holds.  The pair
     (``np.triu_indices`` order) and one-body MLP inputs whose field
     coefficients a lane totals come in chunks of ``lanes * qc`` inputs,
     qc = min(ceil(count / lanes), CHUNK_INPUTS // lanes): in each chunk
@@ -64,11 +67,16 @@ def lane_plan(n: int, d_eta: int, d_mu: int | None,
     one-body inputs are the kernel's ``E``, ``NC * QC`` and ``QN``.
     """
     lanes = lanes or lanes_for(n)
-    dealt = {"entries": 4 * n, "eta_units": d_eta, "mu_units": d_mu or 0}
+    widths = {"eta": d_eta, "mu": d_mu or 0}
+    dealt = {"entries": 4 * n,
+             **{f"{m}_units": d - d % lanes for m, d in widths.items()}}
     blocked = {"pairs": n * (n - 1) // 2, "one_body": n}
     plan = {kind: ([[(i, i // lanes) for i in range(c) if i % lanes == lane]
                     for lane in range(lanes)], -(-c // lanes))
             for kind, c in dealt.items()}
+    for m, d in widths.items():
+        last = [(u, j) for j, u in enumerate(range(d - d % lanes, d))]
+        plan[f"{m}_last"] = ([list(last) for _ in range(lanes)], len(last))
     for kind, c in blocked.items():
         qc = min(-(-c // lanes), CHUNK_INPUTS // lanes)
         chunk = lanes * qc

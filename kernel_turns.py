@@ -2,7 +2,8 @@
 """Time the port's kernels of two trees on one GPU, in turns (A, B, B, A),
 on the same inputs.
 
-    python3 kernel_turns.py PARENT_ROOT CHANGE_ROOT [--n 6|10] [--out FILE]
+    python3 kernel_turns.py PARENT_ROOT CHANGE_ROOT [--n 6|10] [--batch B]
+                            [--out FILE]
 
 Each turn is a fresh process that imports ``fermiflow_tpu_torch`` from its
 tree (building that tree's kernels at first use) and times, at the paths'
@@ -25,6 +26,12 @@ dopri5 with 4 steps; (512, 300) partials; 30 Metropolis steps):
   ``slater_vgh_cm`` on the ground-state walkers and ``slater_vgh_ms_cm`` on
   the mixed-state walkers in their states: CUDA-graph replay of 50 launches
   (device only), three times.
+``--batch`` sets the walkers of the ground-state kernels (the Hessian
+flow, the adjoint, the GS samplers and VGH) in place of the path's batch.
+Read N=10 at both 4096 and 8192 (the finite-T cell's batch): a kernel's
+time falls by whole waves of blocks over the 132 SMs, and how many waves a
+batch takes depends on the blocks each SM holds, so one batch can
+overstate or hide a change of occupancy.
 Each turn also reads its tree's ptxas report (registers, stack, spills of
 every kernel instantiation), and the summary sets the parent's registers of
 the N instantiations beside the change's.
@@ -64,14 +71,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N = BATCH = GS_OCC = None
 
 
-def setup(n: int) -> None:
+def setup(n: int, batch: int | None) -> None:
     global N, BATCH, GS_OCC
     from fermiflow_tpu_torch.physics import HO2D
 
     orb = HO2D()
     nx = tuple(int(v) for v in orb.nx[:n])
     ny = tuple(int(v) for v in orb.ny[:n])
-    N, BATCH = n, BATCH_OF[n]
+    N, BATCH = n, batch or BATCH_OF[n]
     GS_OCC = dict(nx_occ=nx, ny_occ=ny, num_shells=max(nx + ny) + 1)
 
 
@@ -185,12 +192,13 @@ def time_vgh(captured, inputs):
     return times, outs
 
 
-def measure(root: str, save: str, n: int) -> dict:
-    """One turn: time the kernels of the tree at ``root`` at n particles."""
+def measure(root: str, save: str, n: int, batch: int | None) -> dict:
+    """One turn: time the kernels of the tree at ``root`` at n particles
+    (``batch`` walkers, or the path's)."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
 
-    setup(n)
+    setup(n, batch)
 
     import fermiflow_tpu_torch
     from fermiflow_tpu_torch.nn.backflow import backflow_init_gaussian
@@ -276,12 +284,14 @@ def main() -> int:
     ap.add_argument("parent")
     ap.add_argument("change")
     ap.add_argument("--n", type=int, default=6, choices=sorted(BATCH_OF))
+    ap.add_argument("--batch", type=int, default=None,
+                    help="ground-state walkers (default: the path's batch)")
     ap.add_argument("--out", default=None)
     ap.add_argument("--measure", default=None, help=argparse.SUPPRESS)
     ap.add_argument("--save", default=None, help=argparse.SUPPRESS)
     a = ap.parse_args()
     if a.measure:
-        print(json.dumps(measure(a.measure, a.save, a.n)), flush=True)
+        print(json.dumps(measure(a.measure, a.save, a.n, a.batch)), flush=True)
         return 0
 
     import torch
@@ -302,7 +312,7 @@ def main() -> int:
             proc = subprocess.run(
                 [sys.executable, os.path.abspath(__file__), a.parent,
                  a.change, "--n", str(a.n), "--measure", root, "--save",
-                 save],
+                 save] + (["--batch", str(a.batch)] if a.batch else []),
                 capture_output=True, text=True, cwd=HERE)
             if proc.returncode != 0:
                 print(proc.stdout + proc.stderr, file=sys.stderr)
@@ -362,7 +372,8 @@ def main() -> int:
         bitwise=all(torch.equal(p, c)
                     for p, c in zip(outs[0]["vgh"][entry], got)))
         for entry, got in outs[1]["vgh"].items()}
-    summary = dict(card=smi, n=a.n, batch=BATCH_OF[a.n], ms_batch=MS_OF[a.n][0],
+    summary = dict(card=smi, n=a.n, batch=a.batch or BATCH_OF[a.n],
+                   ms_batch=MS_OF[a.n][0],
                    turns=turns,
                    same_tree_bitwise=same_tree,
                    parent_vs_change_rel=rel,

@@ -17,6 +17,7 @@ from fermiflow_tpu_torch.ops.hessian_flow import (
     hessian_flow_cm,
     hessian_flow_cm_plain,
     hessian_flow_occupancy,
+    reciprocal_margin,
 )
 from fermiflow_tpu_torch.ops.metropolis import (
     metropolis_chains,
@@ -188,10 +189,11 @@ def test_hessian_flow_occupancy(cuda):
 
 
 def test_n10_occupancy(cuda):
-    # N = 10 at the paths' widths: 4 blocks of a warp per walker (Hessian
-    # flow, <= 128 registers) and 3 of the 16-lane adjoint (<= 168).
+    # N = 10 at the paths' widths: 4 blocks (16 warps) per SM of both
+    # kernels at <= 128 registers, the Hessian flow's a warp per walker, the
+    # adjoint's 16 lanes per walker with the dopri5 slopes in shared memory.
     assert hessian_flow_occupancy(10, 50, 50) >= 16
-    assert reinforce_occupancy(10, 50, 50) >= 12
+    assert reinforce_occupancy(10, 50, 50) >= 16
 
 
 # 16 walkers per adjoint block, 4 per warp (to N = 6), 8 and 2 (from N = 7):
@@ -232,6 +234,48 @@ def test_reinforce_kernels_match_plain(cuda, nup, d_mu, B):
     assert torch.equal(s1, s2)
     torch.testing.assert_close(s1.double(), parts.double().sum(0), rtol=1e-5,
                                atol=1e-5)
+
+
+@pytest.mark.parametrize("nup", [6, 10])
+def test_reinforce_kernel_both_reciprocal_paths(cuda, nup):
+    # The paths' widths (d_eta = d_mu = 50: 48 units dealt over the lanes,
+    # the last 2 run by every lane on its own inputs).  B walkers whose
+    # every MLP input keeps r |w1|max + |b1|max < 80 take the range-checked
+    # reciprocal; the same walkers and one more, a particle pushed past
+    # that, take the division in that walker's warp (with an in-range
+    # walker beside it).  Both batches give the plain result, and the
+    # walkers they share the same z_back bits.
+    B = 37
+    z = equilibrated(cuda, nup, 0, B)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn((2 * nup, B + 1), generator=gen, device=cuda)
+    w = torch.randn((B + 1,), generator=gen, device=cuda) / B
+    p = backflow_init_gaussian(torch.Generator(device=cuda).manual_seed(1),
+                               50, 50, std=0.1, dtype=torch.float32,
+                               device=cuda)
+    far = z[:, -1:].clone()
+    far[0] += 100.0 / float(p["eta"]["w1"].abs().max())
+    batches = [(z, g[:, :B].contiguous(), w[:B].contiguous()),
+               (torch.cat([z, far], dim=1).contiguous(), g, w)]
+    shares = [reciprocal_margin(p, zz.T.reshape(-1, nup, 2))["share_under"]
+              for zz, _, _ in batches]
+    assert shares == [1.0, pytest.approx(B / (B + 1))]
+    flat = lambda gr: torch.cat([gr[m][k].reshape(-1).double()
+                                 for m in ("eta", "mu")
+                                 for k in ("w2", "w1", "b1")])
+    zbs = []
+    for zz, gg, ww in batches:
+        grads, zb = reinforce_cm(p, zz, gg, ww, *TS)
+        ref, zr = reinforce_cm_plain(f64(p), zz.double(), gg.double(),
+                                     ww.double(), *TS)
+        torch.cuda.synchronize()
+        a, b = flat(grads), flat(ref)
+        # test_reinforce_kernels_match_plain's bound.
+        torch.testing.assert_close(a, b, rtol=2e-5,
+                                   atol=3e-6 * float(b.abs().max()))
+        torch.testing.assert_close(zb.double(), zr, rtol=1e-5, atol=1e-5)
+        zbs.append(zb)
+    assert torch.equal(zbs[0], zbs[1][:, :B])
 
 
 @pytest.mark.parametrize("nq", [150, 300])

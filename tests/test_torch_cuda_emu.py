@@ -149,10 +149,13 @@ def flat_grads(gr):
 
 
 # Ragged batches: 16 walkers per block, 4 per warp (N <= 6); 8 walkers per
-# block, 2 per warp, the pairs in 3 (N = 10) or 2 (N = 7) chunks (N >= 7).
+# block, 2 per warp, the pairs in 3 (N = 9, 10) or 2 (N = 7) chunks, the
+# last ragged (N >= 7).  d_eta is 8: at 16 lanes (N >= 7) every unit is one
+# of the last d % 16, which each lane runs on the inputs it totals; at 8
+# lanes d_mu = 12 deals 8 units and leaves 4.
 @pytest.mark.parametrize("n,d_mu,B", [(3, 8, 37), (2, None, 33), (6, 8, 19),
                                       (6, None, 17), (10, 8, 19),
-                                      (7, None, 11)])
+                                      (7, None, 11), (9, 8, 13), (6, 12, 9)])
 def test_reinforce_source_matches_plain(on_emu, n, d_mu, B):
     gen = torch.Generator().manual_seed(3)
     z = torch.randn((2 * n, B), generator=gen)
@@ -198,10 +201,12 @@ def test_reduce_source_matches_plain(on_emu, nblocks, nq):
 
 def test_occupancy_entries_count_warps(on_emu):
     # The emulator counts blocks by shared memory alone; the entries must
-    # turn blocks into warps (4 per 128-thread block of either kernel).  On
-    # the card registers cap both at 4 blocks (16 warps).
+    # turn blocks into warps (4 per 128-thread block of either kernel): 4
+    # adjoint blocks of 51,520 B at N = 6, the lanes' state entries and
+    # slopes and their own rows of the last 50 % 8 units of each MLP
+    # included.  On the card registers cap both at 4 blocks (16 warps).
     assert hf.hessian_flow_occupancy(6, 50, 50) == 16
-    assert rf.reinforce_occupancy(6, 50, 50) == 24
+    assert rf.reinforce_occupancy(6, 50, 50) == 16
 
 
 # ---- the Metropolis samplers: a group of lanes per chain ----

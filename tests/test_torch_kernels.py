@@ -334,32 +334,49 @@ def test_hessian_flow_reciprocal_margin(with_mu):
     assert 0.0 < share < 1.0 and got["share_under"] == share
 
 
-@pytest.mark.parametrize("lanes", [4, 8])
-@pytest.mark.parametrize("n", [2, 3, 4, 5, 6])
+@pytest.mark.parametrize("n,lanes", [(n, lanes) for n in (2, 3, 4, 5, 6)
+                                     for lanes in (4, 8)]
+                         + [(n, 16) for n in (7, 8, 9, 10)])
 def test_reinforce_lane_plan_owns_everything_once(n, lanes):
-    # csrc/reinforce.cu deals state entries and hidden units round robin
-    # and gives each lane a contiguous block of MLP inputs to total; every
-    # item must have exactly one owner, in a register slot the kernel
-    # compiles.
-    counts = {"entries": 4 * n, "eta_units": 50, "mu_units": 0,
-              "pairs": n * (n - 1) // 2, "one_body": n}
-    plan = reinforce_lane_plan(n, 50, None, lanes)
-    assert set(plan) == set(counts)
+    # csrc/reinforce.cu deals state entries and an MLP's first d - d % lanes
+    # hidden units round robin, gives each lane a contiguous block of MLP
+    # inputs to total, and has every lane run the last d % lanes units on
+    # the inputs it totals; every item, and every (unit, input) term, must
+    # have exactly one owner, in a register slot the kernel compiles.
+    d = 50
+    counts = {"entries": 4 * n, "eta_units": d - d % lanes,
+              "mu_units": d - d % lanes, "pairs": n * (n - 1) // 2,
+              "one_body": n}
+    plan = reinforce_lane_plan(n, d, d, lanes)
+    assert set(plan) == set(counts) | {"eta_last", "mu_last"}
     for kind, count in counts.items():
         per_lane, slots = plan[kind]
         assert len(per_lane) == lanes
         owned = [item for items in per_lane for item, _ in items]
         assert sorted(owned) == list(range(count))
+        # Inputs: chunks of 16 (kChunkInputs), qc contiguous to a lane.
+        qc = min(-(-count // lanes), 16 // lanes)
         for lane, items in enumerate(per_lane):
             assert [slot for _, slot in items] == list(range(len(items)))
             assert len(items) <= slots
-            owner = (lambda i: i // slots) if kind in ("pairs", "one_body") \
-                else (lambda i: i % lanes)
+            owner = (lambda i: i % (lanes * qc) // qc) \
+                if kind in ("pairs", "one_body") else (lambda i: i % lanes)
             assert all(owner(item) == lane for item, _ in items)
         assert slots == -(-count // lanes)
-    # The production widths: 50 units on 8 lanes, lanes 0-1 take 7.
-    if lanes == 8:
-        assert [len(u) for u in plan["eta_units"][0]] == [7, 7] + [6] * 6
+    for mlp, inputs in (("eta", "pairs"), ("mu", "one_body")):
+        terms = []
+        last, slots = plan[f"{mlp}_last"]
+        for lane in range(lanes):
+            mine = [i for i, _ in plan[inputs][0][lane]]
+            units = [u for u, _ in plan[f"{mlp}_units"][0][lane]]
+            terms += [(u, i) for u in units for i in range(counts[inputs])]
+            assert [j for _, j in last[lane]] == list(range(slots))
+            terms += [(u, i) for u, _ in last[lane] for i in mine]
+        assert sorted(terms) == [(u, i) for u in range(d)
+                                 for i in range(counts[inputs])]
+    # The production widths: 48 of the 50 units dealt, 2 left to every lane.
+    assert [len(u) for u in plan["eta_units"][0]] == [48 // lanes] * lanes
+    assert plan["eta_last"][1] == plan["mu_last"][1] == 2
 
 
 @pytest.mark.parametrize("d_mu", [8, None])

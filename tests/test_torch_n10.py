@@ -254,8 +254,8 @@ def test_identity_flow_eloc_is_30_at_z0():
 def test_n7_to_10_lane_plans_own_everything_once(n):
     """The N >= 7 lane plans of the Hessian flow (a warp per walker, its
     pair and one-body MLP inputs in one list) and the adjoint (16 lanes,
-    pairs in chunks of 16): every item has one owner, in a slot the kernel
-    compiles."""
+    pairs in chunks of 16, 48 of 50 units dealt and the last 2 run by every
+    lane): every item has one owner, in a slot the kernel compiles."""
     d = 2 * n
     P = n * (n - 1) // 2
     assert hf.lanes_for(n) == 32 and rf.lanes_for(n) == 16
@@ -268,12 +268,13 @@ def test_n7_to_10_lane_plans_own_everything_once(n):
         used = [s for _, s in items]
         assert len(set(used)) == len(used) and all(0 <= s < slots
                                                    for s in used)
-    for plan, counts in (
-            (hplan, {"entries": 2 * d + 1 + d * (d + 1) // 2}),
-            (rf.lane_plan(n, 50, 50), {"entries": 2 * d, "eta_units": 50,
-                                       "mu_units": 50, "pairs": P,
-                                       "one_body": n})):
-        assert set(plan) == set(counts)
+    for plan, counts, last in (
+            (hplan, {"entries": 2 * d + 1 + d * (d + 1) // 2}, {}),
+            (rf.lane_plan(n, 50, 50), {"entries": 2 * d, "eta_units": 48,
+                                       "mu_units": 48, "pairs": P,
+                                       "one_body": n},
+             {"eta_last": [48, 49], "mu_last": [48, 49]})):
+        assert set(plan) == set(counts) | set(last)
         for kind, count in counts.items():
             per_lane, slots = plan[kind]
             owned = sorted(i for items in per_lane for i, _ in items)
@@ -282,6 +283,10 @@ def test_n7_to_10_lane_plans_own_everything_once(n):
                 used = [s for _, s in items]
                 assert len(set(used)) == len(used) and all(
                     0 <= s < slots for s in used), kind
+        for kind, units in last.items():
+            per_lane, slots = plan[kind]
+            assert slots == len(units) and all(
+                items == list(zip(units, range(slots))) for items in per_lane)
     # The adjoint's pairs: 16 per chunk, one per lane (45 pairs, 3 chunks
     # at N = 10); the Hessian flow's state: 8 entries per lane at N = 10,
     # and its 55 MLP inputs 2 slots.
